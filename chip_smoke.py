@@ -1,0 +1,511 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each logs lines tagged with its name; the script stops at the first
+that fails):
+
+1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
+               exits 1.
+2. build     — all four CUDA kernels from ``pvn3d_tpu_torch/csrc`` (one
+               ``nvcc`` per source, all at once) into ``build/kernels``.
+3. kernels   — each kernel against its plain PyTorch version on the card
+               at the shapes the serving path gives it (indices exact,
+               floats within 1e-5), timed with CUDA events beside the
+               plain version, a library call where one computes the same
+               function, and the bound the card's peak rates set.
+4. edge      — the same comparison at shapes off the serving path.
+5. slice     — the serving path at full width (``Config.ycb()``:
+               480x640, 12288 points, 22 classes) with seeded random
+               weights: three requests through ``make_inference_step``
+               with every launch count set to 0 just before and read just
+               after; poses finite, some class present, every kernel
+               launched.
+6. reference — the same code on the card (kernels) and on the CPU
+               (plain versions): a small frame's forward within 2e-3, and
+               the full-width pose stage on labelled votes (several
+               classes present) within 1e-4.
+7. a JSON line per kernel (launches on the slice, error, times, bound),
+   the ``nvidia-smi`` line again, then the result line.
+
+The last line is ``{"ok": true, "device": {...}}``; it is printed only when
+every phase passed.  Times are the card's under its printed power limit.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores, the rate every kernel here runs at.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+D2_FLOPS = 8          # 3 sub + 3 mul + 2 add per direct-form d^2
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
+    """Median over ``trials`` of the mean CUDA-event time of ``reps`` calls
+    (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def depth_cloud(rng, n: int) -> np.ndarray:
+    """A depth-camera-like cloud: n pixels of a 480x640 YCB camera
+    (K1 intrinsics) back-projected from a table plane with three objects
+    on it, so the finest SA radii (17.5 mm) collect neighbours."""
+    from pvn3d_tpu_torch.config import INTRINSICS
+    k = INTRINSICS["ycb_K1"]
+    u = rng.randint(0, 640, n).astype(np.float32)
+    v = rng.randint(0, 480, n).astype(np.float32)
+    z = 0.9 + 0.15 * (v / 480.0)
+    for cu, cv, r in ((220, 200, 60), (400, 260, 80), (320, 360, 50)):
+        blob = ((u - cu) ** 2 + (v - cv) ** 2) < r * r
+        z = np.where(blob, z - 0.08, z)
+    x = (u - k[0, 2]) * z / k[0, 0]
+    y = (v - k[1, 2]) * z / k[1, 1]
+    return np.stack([x, y, z], axis=-1).astype(np.float32)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", flush=True)
+        sys.exit(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    log("device", f"{torch.cuda.get_device_name(0)} x"
+        f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+    return smi
+
+
+def phase_build() -> None:
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    from pvn3d_tpu_torch.ops.kernels.common import build_all
+    t0 = time.perf_counter()
+    logs = build_all(KERNELS)
+    for k in KERNELS:
+        k.load()
+    dt = time.perf_counter() - t0
+    for entry in logs:
+        for line in entry.splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log("build", line.strip())
+    log("build", f"{len(KERNELS)} kernels ready in {dt:.1f} s")
+
+
+def _err(a, b) -> float:
+    a = [a] if isinstance(a, torch.Tensor) else list(a)
+    b = [b] if isinstance(b, torch.Tensor) else list(b)
+    return max(float((x.double() - y.double()).abs().max()) if x.numel()
+               else 0.0 for x, y in zip(a, b))
+
+
+def _index_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_kernels(rng):
+    """Every kernel against its plain version at the serving path's
+    shapes.  Returns {name: record} with the timing and error fields."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
+    cfg = Config.ycb().model
+    pcfg = cfg.pointnet2
+    dev = torch.device("cuda")
+    xyz = torch.tensor(depth_cloud(rng, cfg.n_sample_points)[None],
+                       device=dev)
+    rec = {}
+
+    # K1: one launch per frame, SA level 0 (levels 1-3 slice its prefix).
+    m0 = pcfg.sa_levels[0].npoint
+    got = fps.fps(xyz, m0)
+    want = fps.fps_plain(xyz, m0)
+    if not torch.equal(got, want):
+        raise AssertionError("K1 fps: kernel indices differ from plain")
+    n = xyz.shape[1]
+    rec["fps"] = dict(
+        shapes=[f"xyz (1, {n}, 3) -> (1, {m0})"],
+        max_abs_err=_err(got, want), tol="indices exact",
+        ms=time_ms(lambda: fps.fps(xyz, m0)),
+        plain_ms=time_ms(lambda: fps.fps_plain(xyz, m0), reps=1),
+        library_ms=None,
+        bound=bound_ms(n * 12 + m0 * 4, (m0 - 1) * n * (D2_FLOPS + 1)),
+        replaces="pvn3d_tpu/ops/pallas/fps.py:150")
+    log("kernels", f"K1 fps {rec['fps']['shapes'][0]}: indices equal, "
+        f"{rec['fps']['ms']:.3f} ms (plain {rec['fps']['plain_ms']:.3f})")
+
+    # Level point sets as the serving path builds them (fps_prefix).
+    levels = [xyz]
+    pts = xyz[0, got[0].long()][None]
+    for lvl in pcfg.sa_levels:
+        levels.append(pts[:, :lvl.npoint].contiguous())
+
+    # K2: four launches per frame, two scales each.
+    ms = plain = 0.0
+    n_bytes = flops = 0.0
+    shapes = []
+    err = 0.0
+    for li, lvl in enumerate(pcfg.sa_levels):
+        src, cen = levels[li], levels[li + 1]
+        got = query.ball_query(lvl.radii, lvl.nsamples, src, cen)
+        want = query.ball_query_plain(lvl.radii, lvl.nsamples, src, cen)
+        if not _index_equal(got, want):
+            raise AssertionError(f"K2 query L{li}: kernel differs from plain")
+        err = max(err, _err(got, want))
+        ms += time_ms(lambda: query.ball_query(lvl.radii, lvl.nsamples,
+                                               src, cen))
+        plain += time_ms(lambda: query.ball_query_plain(
+            lvl.radii, lvl.nsamples, src, cen), reps=1)
+        npts, m = src.shape[1], cen.shape[1]
+        # Pairs the scan must test: per centroid, up to the index of the
+        # last slot of the scale that fills last (all N if one never fills).
+        tests = torch.zeros(m, dtype=torch.float64, device=dev)
+        for o, ns in zip(got, lvl.nsamples):
+            hits = (o[0] != o[0, :, :1]).sum(1) + 1
+            full = hits >= ns
+            stop = torch.where(full, o[0, :, -1].double() + 1,
+                               float(npts))
+            tests = torch.maximum(tests, stop)
+        flops += float(tests.sum()) * (D2_FLOPS + len(lvl.radii))
+        n_bytes += npts * 12 + m * 12 + m * sum(lvl.nsamples) * 4
+        shapes.append(f"L{li} N={npts} m={m} r={lvl.radii}")
+    rec["query"] = dict(shapes=shapes, max_abs_err=err, tol="indices exact",
+                        ms=ms, plain_ms=plain, library_ms=None,
+                        bound=bound_ms(n_bytes, flops),
+                        replaces="pvn3d_tpu/ops/pallas/query.py:118")
+    log("kernels", f"K2 query x4 levels: indices equal, {ms:.3f} ms "
+        f"(plain {plain:.3f})")
+
+    # K3: four launches per frame (fp3 .. fp0), known features of the
+    # dense graph's widths.
+    widths = [sum(m[-1] for m in lvl.mlps) for lvl in pcfg.sa_levels]
+    known_c = [cfg.pointnet2.fp_mlps[i + 1][-1] if i < 3 else widths[3]
+               for i in range(4)]
+    ms = plain = lib = 0.0
+    n_bytes = flops = 0.0
+    shapes = []
+    err = 0.0
+    for li in range(3, -1, -1):
+        unk, kn = levels[li], levels[li + 1]
+        feats = torch.tensor(rng.randn(1, kn.shape[1], known_c[li])
+                             .astype(np.float32), device=dev)
+        got = interp.three_interpolate_fused(unk, kn, feats)
+        want = interp.three_interpolate_plain(unk, kn, feats)
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError(f"K3 interp fp{li}: indices differ")
+        e = _err(got[:2], want[:2])
+        if e > 1e-5:
+            raise AssertionError(f"K3 interp fp{li}: max abs err {e}")
+        err = max(err, e)
+        ms += time_ms(lambda: interp.three_interpolate_fused(unk, kn, feats))
+        plain += time_ms(lambda: interp.three_interpolate_plain(
+            unk, kn, feats), reps=1)
+
+        def library():
+            d, i = torch.topk(torch.cdist(unk, kn), 3, largest=False)
+            w = 1.0 / (d + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            g = feats[0][i[0]]
+            return (g * w[0, :, :, None]).sum(1)
+        lib += time_ms(library)
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        flops += nu * nk * (D2_FLOPS + 1) + nu * c * 5
+        n_bytes += nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
+        shapes.append(f"fp{li} n={nu} m={nk} C={c}")
+    rec["interp"] = dict(shapes=shapes, max_abs_err=err,
+                         tol="indices exact, out/dist 1e-5", ms=ms,
+                         plain_ms=plain, library_ms=lib,
+                         bound=bound_ms(n_bytes, flops),
+                         replaces="pvn3d_tpu/ops/pallas/interp.py:162")
+    log("kernels", f"K3 interp x4 levels: idx equal, max err {err:.2e}, "
+        f"{ms:.3f} ms (plain {plain:.3f}, cdist+topk {lib:.3f})")
+
+    # K4: three launches per frame, H = 21, 21, 168 at K = 512 (clustered
+    # votes: a few tight modes plus scatter, ~70% valid).
+    k = Config.ycb().cluster.max_points_per_class
+    bw = Config.ycb().cluster.bandwidth
+    ms = plain = 0.0
+    n_bytes = flops = 0.0
+    err = 0.0
+    for h in (21, 21, 168):
+        modes = rng.randn(h, 3, 3).astype(np.float32) * 0.1
+        pick = rng.randint(0, 3, (h, k))
+        votes = (modes[np.arange(h)[:, None], pick]
+                 + rng.randn(h, k, 3).astype(np.float32) * 0.03)
+        pts_t = torch.tensor(votes, device=dev)
+        msk = torch.tensor(rng.rand(h, k) < 0.7, device=dev)
+        got = winner.winner_stats(pts_t, msk, bw)
+        want = winner.winner_stats_plain(pts_t, msk, bw)
+        if not _index_equal(got, want):
+            raise AssertionError(f"K4 winner H={h}: kernel differs")
+        err = max(err, _err(got, want))
+        ms += time_ms(lambda: winner.winner_stats(pts_t, msk, bw))
+        plain += time_ms(lambda: winner.winner_stats_plain(pts_t, msk, bw),
+                         reps=1)
+        # Only valid points count toward a seed or join the winner's row:
+        # v^2 pair tests for the counts plus v for the row, per hypothesis.
+        v = msk.sum(1).double()
+        flops += float((v * v + v).sum()) * (D2_FLOPS + 1)
+        n_bytes += h * k * 12 + h * k * 2 + h * 8
+    rec["winner"] = dict(shapes=["H=21,21,168 K=512 bw=0.08"],
+                         max_abs_err=err, tol="exact", ms=ms,
+                         plain_ms=plain, library_ms=None,
+                         bound=bound_ms(n_bytes, flops),
+                         replaces="pvn3d_tpu/ops/pallas/winner.py:70")
+    log("kernels", f"K4 winner x3 passes: equal, {ms:.3f} ms "
+        f"(plain {plain:.3f})")
+    return rec
+
+
+def phase_edge_cases(rng) -> None:
+    """Each kernel against its plain version at shapes off the serving
+    path: batch > 1, rows past FPS's register path, three scales and
+    empty balls, fewer than three known points, no channels, K past one
+    shared-memory tile, an all-invalid hypothesis."""
+    from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
+    dev = torch.device("cuda")
+
+    def cloud(*shape, scale=0.3):
+        return torch.tensor((rng.rand(*shape).astype(np.float32) - 0.5)
+                            * scale, device=dev)
+    cases = 0
+    for b, n, m in ((3, 700, 96), (2, 20000, 128), (1, 5, 9)):
+        xyz = cloud(b, n, 3, scale=4.0)
+        xyz[:, 1:3] = 0.0
+        if not torch.equal(fps.fps(xyz, m), fps.fps_plain(xyz, m)):
+            raise AssertionError(f"edge fps B={b} N={n} m={m}")
+        cases += 1
+    xyz = cloud(2, 3000, 3)
+    cen = torch.cat([xyz[:, :200], torch.full((2, 8, 3), 9.0, device=dev)],
+                    dim=1)
+    for radii, ns in (((0.02, 0.05, 0.1), (8, 16, 64)), ((0.3,), (100,))):
+        if not _index_equal(query.ball_query(radii, ns, xyz, cen),
+                            query.ball_query_plain(radii, ns, xyz, cen)):
+            raise AssertionError(f"edge query r={radii}")
+        cases += 1
+    for n, m, c in ((500, 2, 7), (300, 1500, 0), (1000, 3, 33)):
+        u, k = cloud(2, n, 3), cloud(2, m, 3)
+        f = torch.randn(2, m, c, device=dev)
+        got = interp.three_interpolate_fused(u, k, f)
+        want = interp.three_interpolate_plain(u, k, f)
+        if not torch.equal(got[2], want[2]) or _err(got[:2], want[:2]) > 1e-5:
+            raise AssertionError(f"edge interp n={n} m={m} C={c}")
+        cases += 1
+    for h, k in ((4, 1500), (3, 7)):
+        pts = cloud(h, k, 3)
+        msk = torch.rand(h, k, device=dev) < 0.6
+        msk[0] = False
+        if not _index_equal(winner.winner_stats(pts, msk, 0.08),
+                            winner.winner_stats_plain(pts, msk, 0.08)):
+            raise AssertionError(f"edge winner H={h} K={k}")
+        cases += 1
+    log("edge", f"{cases} off-path shapes: every kernel equals its plain "
+        f"version")
+
+
+def phase_slice(seed: int = 0):
+    """Three full-width requests through the serving entry point on the
+    card.  Returns the launch counts of that run."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    cfg = Config.ycb()
+    model = build_model(cfg.model, seed)
+    step = make_inference_step(cfg, model, stacked_mesh_kps(),
+                               stacked_class_radii())
+    step(synthetic_batch(cfg, batch_size=1, seed=1000))   # warm-up
+    torch.cuda.synchronize()
+
+    for k in KERNELS:
+        k.launches = 0
+    lat = []
+    outs = []
+    for i in range(3):
+        batch = synthetic_batch(cfg, batch_size=1, seed=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = {k.name: k.launches for k in KERNELS}
+
+    n_cls = cfg.model.n_classes
+    for i, out in enumerate(outs):
+        poses, present = out["poses"], out["present"]
+        if poses.shape != (1, n_cls, 3, 4) or present.shape != (1, n_cls):
+            raise AssertionError(f"request {i}: shapes {poses.shape} "
+                                 f"{present.shape}")
+        if not bool(torch.isfinite(poses).all()):
+            raise AssertionError(f"request {i}: non-finite poses")
+        if not bool(present.any()):
+            raise AssertionError(f"request {i}: no class present")
+    want = {"fps": 3, "query": 12, "interp": 12, "winner": 9}
+    for name, n in want.items():
+        if launches[name] < n:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"slice, expected >= {n}")
+    log("slice", "3 requests, 480x640 + 12288 points, 22 classes: latency ms "
+        + ", ".join(f"{t:.2f}" for t in lat) + "; present classes "
+        + ", ".join(str(int(o["present"].sum())) for o in outs)
+        + f"; launches {launches}")
+
+    # Where a request's time goes: the forward alone, then the pose stage
+    # alone on the forward's outputs (median of three, card clocks).
+    dev = torch.device("cuda")
+    batch = synthetic_batch(cfg, batch_size=1, seed=0)
+    args = [torch.as_tensor(batch[k], device=dev)
+            for k in ("pointcloud", "rgb", "choose")]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(*args), reps=1)
+        res = model(*args)
+        seg = torch.argmax(res["seg_logits"], -1).to(torch.int32)
+        from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+        pose_fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii())
+        pose_ms = time_ms(lambda: pose_fn(args[0][..., :3], seg,
+                                          res["ctr_offsets"],
+                                          res["kp_offsets"]), reps=1)
+    log("slice", f"forward {fwd_ms:.2f} ms, votes->poses {pose_ms:.2f} ms "
+        f"(median of 3)")
+    return launches, lat
+
+
+def labelled_votes(cfg, seed: int):
+    """Votes a trained network would give on a ``synthetic_batch`` frame:
+    its labels as the seg map and its target offsets (plus 5 mm noise) as
+    the predicted offsets, so several classes are present with clustered
+    votes.  Returns (pcld (1, N, 3), seg (1, N), ctr_of (1, 1, N, 3),
+    kp_of (1, n_kps, N, 3)) as CPU tensors."""
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    batch = synthetic_batch(cfg, batch_size=1, seed=seed)
+    rng = np.random.RandomState(seed)
+    pcld = batch["pointcloud"][..., :3]
+    # pred = pcld - offset must land on the target: offset = -target.
+    ctr_of = -np.transpose(batch["ctr_targ_ofst"], (0, 2, 1, 3))
+    kp_of = -np.transpose(batch["kp_targ_ofst"], (0, 2, 1, 3))
+    ctr_of = ctr_of + rng.normal(0, 0.005, ctr_of.shape)
+    kp_of = kp_of + rng.normal(0, 0.005, kp_of.shape)
+    return (torch.tensor(pcld), torch.tensor(batch["labels"]),
+            torch.tensor(ctr_of, dtype=torch.float32),
+            torch.tensor(kp_of, dtype=torch.float32))
+
+
+def phase_reference(seed: int = 1):
+    """The same code on the card (kernels) and on the CPU (plain
+    versions): a small frame's forward, same weights, within 2e-3 with
+    > 99.9% seg agreement; and the full-width pose stage on labelled votes
+    (three classes present) within 1e-4, timed on the card."""
+    from pvn3d_tpu_torch.config import Config, small_model_config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    mcfg = small_model_config()
+    batch = synthetic_batch(Config(model=mcfg), batch_size=1, seed=seed)
+    batch["pointcloud"][..., :3] = depth_cloud(
+        np.random.RandomState(seed), mcfg.n_sample_points)[None] * 0.3
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(mcfg, seed).to(dev)
+        with torch.inference_mode():
+            res[dev] = model(*(torch.as_tensor(batch[k], device=dev)
+                               for k in ("pointcloud", "rgb", "choose")))
+    err = max(float((res["cuda"][k].cpu() - res["cpu"][k]).abs().max())
+              for k in ("seg_logits", "kp_offsets", "ctr_offsets"))
+    agree = float((res["cuda"]["seg_logits"].argmax(-1).cpu()
+                   == res["cpu"]["seg_logits"].argmax(-1)).float().mean())
+    if err > 2e-3 or agree <= 0.999:
+        raise AssertionError(f"reference: forward err {err}, seg agreement "
+                             f"{agree}")
+
+    cfg = Config.ycb()
+    votes = labelled_votes(cfg, seed)
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii(),
+                          device=dev)
+        args = [v.to(dev) for v in votes]
+        with torch.inference_mode():
+            frames[dev] = fn(*args)
+            if dev == "cuda":
+                pose_ms = time_ms(lambda: fn(*args), reps=1)
+    present = frames["cpu"].present
+    pose_err = float((frames["cuda"].poses.cpu()
+                      - frames["cpu"].poses).abs().max())
+    if (pose_err > 1e-4 or int(present.sum()) < 2
+            or not torch.equal(frames["cuda"].present.cpu(), present)):
+        raise AssertionError(f"reference: pose err {pose_err}, present "
+                             f"{present.nonzero().flatten().tolist()}")
+    log("reference", f"small frame card vs CPU plain: forward max err "
+        f"{err:.2e}, seg agreement {agree:.4f}; full-width pose stage on "
+        f"labelled votes ({int(present.sum())} classes): max err "
+        f"{pose_err:.2e}, {pose_ms:.2f} ms on the card (median of 3)")
+
+
+def main() -> int:
+    smi = phase_device()
+    phase_build()
+    rng = np.random.RandomState(0)
+    rec = phase_kernels(rng)
+    phase_edge_cases(rng)
+    launches, _ = phase_slice()
+    phase_reference()
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    line = []
+    for k in KERNELS:
+        r = rec[k.name]
+        bound, by = r["bound"]
+        line.append({
+            "name": k.name, "route": "cuda",
+            "source": f"pvn3d_tpu_torch/csrc/{k.name}.cu",
+            "replaces": r["replaces"], "launches": launches[k.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": line}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

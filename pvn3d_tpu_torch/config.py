@@ -1,0 +1,424 @@
+"""Configuration tree of the PyTorch port: a copy of the JAX package's.
+
+The dataclasses, defaults and ``Config.ycb()`` are field-for-field the JAX
+package's (``tests/test_torch_config.py`` holds ``dataclasses.asdict`` of
+both equal), so one config describes both.  Knobs that only shape the TPU
+program (``fps_mode``, ``query_capacity``, ``resize_method``,
+``fuse_upsample``, ``sparse_cnn_eval``, ``head_split_global``, the
+``*_precompute_first`` restructures) are kept as fields; the port runs
+the dense reference graph with exact point ops, which those restructures
+equal up to summation order.  The values the port cannot honour
+(``fps_groups != 1``, ``query_compute != "f32"``, approximate neighbour
+modes) raise in ``models.pvn3d.check_supported``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Mapping, Tuple
+
+import numpy as np
+
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "assets")
+
+# ---------------------------------------------------------------------------
+# Dataset metadata (reference: pvn3d/common.py:50-150 and dataset_config files)
+# ---------------------------------------------------------------------------
+
+YCB_CLASSES: Tuple[str, ...] = (
+    "002_master_chef_can", "003_cracker_box", "004_sugar_box",
+    "005_tomato_soup_can", "006_mustard_bottle", "007_tuna_fish_can",
+    "008_pudding_box", "009_gelatin_box", "010_potted_meat_can",
+    "011_banana", "019_pitcher_base", "021_bleach_cleanser", "024_bowl",
+    "025_mug", "035_power_drill", "036_wood_block", "037_scissors",
+    "040_large_marker", "051_large_clamp", "052_extra_large_clamp",
+    "061_foam_brick",
+)
+
+# Per-class bounding radii in meters (reference: datasets/ycb/dataset_config/
+# radius.txt, loaded at common.py:80). Used for center-distance mask
+# refinement during vote clustering (pvn3d_eval_utils.py:69).
+YCB_RADII: Tuple[float, ...] = (
+    0.070055, 0.1067245, 0.088012, 0.0509075, 0.095652, 0.042785,
+    0.068953, 0.0505535, 0.051057, 0.089215, 0.121166, 0.125293,
+    0.0806345, 0.0584515, 0.093733, 0.10295, 0.1007495, 0.060462,
+    0.0855565, 0.104878, 0.0389385,
+)
+
+# Symmetric classes evaluated with ADD-S (reference: common.py:82).
+YCB_SYM_CLS_IDS: Tuple[int, ...] = (13, 16, 19, 20, 21)
+
+# LineMOD object name -> class id (reference: common.py:94-108).
+LM_OBJ_DICT: Mapping[str, int] = {
+    "ape": 1, "benchvise": 2, "cam": 4, "can": 5, "cat": 6, "driller": 8,
+    "duck": 9, "eggbox": 10, "glue": 11, "holepuncher": 12, "iron": 13,
+    "lamp": 14, "phone": 15,
+}
+LM_ID2OBJ: Mapping[int, str] = {v: k for k, v in LM_OBJ_DICT.items()}
+LM_SYM_CLS_IDS: Tuple[int, ...] = (10, 11)
+
+# Camera intrinsics (reference: common.py:137-150).
+INTRINSICS: Mapping[str, np.ndarray] = {
+    "linemod": np.array(
+        [[572.4114, 0.0, 325.2611],
+         [0.0, 573.57043, 242.04899],
+         [0.0, 0.0, 1.0]], dtype=np.float32),
+    "blender": np.array(
+        [[700.0, 0.0, 320.0],
+         [0.0, 700.0, 240.0],
+         [0.0, 0.0, 1.0]], dtype=np.float32),
+    "ycb_K1": np.array(
+        [[1066.778, 0.0, 312.9869],
+         [0.0, 1067.487, 241.3109],
+         [0.0, 0.0, 1.0]], dtype=np.float32),
+    "ycb_K2": np.array(
+        [[1077.836, 0.0, 323.7872],
+         [0.0, 1078.189, 279.6921],
+         [0.0, 0.0, 1.0]], dtype=np.float32),
+}
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SALevelConfig:
+    """One PointNet++ set-abstraction level with multi-scale grouping.
+
+    Reference widths/radii: pvn3d/lib/pvn3d.py:67-112.
+    """
+    npoint: int
+    radii: Tuple[float, ...]
+    nsamples: Tuple[int, ...]
+    mlps: Tuple[Tuple[int, ...], ...]  # per-scale hidden widths (excl. input)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointNet2Config:
+    """PointNet++ MSG semantic-seg trunk (reference: pvn3d.py:46-154)."""
+    input_channels: int = 6          # rgb + normal features per point
+    use_xyz: bool = True
+    # Neighbor-selection mode: "exact", "approx", "pallas" (fused
+    # residue-class ball-query kernel, ops/pallas/query.py), or "auto" —
+    # which is TRAIN/EVAL-aware on TPU: approx while training, pallas at
+    # eval (exact elsewhere).  Measured r4: training through the pallas
+    # kernel's capacity-limited neighbor sets costs ~12 synthetic-e2e
+    # ADD-AUC, while at eval it is the best arm (models/pointnet2.py).
+    query_mode: str = "auto"
+    # FP-stage 3-NN interpolation kernel, independent of the ball query:
+    # "auto" resolves to the fused exact 3-NN+IDW pallas kernel on TPU
+    # (ops/pallas/interp.py — exact, grads match XLA, and measured faster
+    # at every FP level: 0.75 vs 1.02 ms at n=12288/C=256 down to 0.46 vs
+    # 0.54 ms at n=512/C=1024 on v5-lite, benchmarks/fp_bench.py) and to
+    # exact top_k elsewhere; "exact"/"approx" force the XLA three_nn
+    # formulation, "pallas" forces the fused kernel.
+    interp_mode: str = "auto"
+    # Sharded FPS: sort by the widest axis, cut into G contiguous
+    # equal-count slabs, run G parallel FPS chains of m/G steps each
+    # (ops/sampling.py::_fps_grouped).  1 = reference-exact serial FPS.
+    # G=4 cuts the ~5 ms serial chain (~40% of single-frame forward
+    # latency) ~4x; covering radius measured ~1.12x exact greedy.
+    # MEASURED accuracy cost on the synthetic e2e world (600-step
+    # training, benchmarks/synthetic_e2e.py): exact ADD-AUC 33.5 /
+    # seg 0.854; trained+evaled with G=4: 24.7 / 0.757; weights trained
+    # exact but evaled G=4: 19.1 / 0.686.  Latency-for-accuracy trade —
+    # OFF by default; enable only where the deployment tolerates it.
+    # Must divide every level's npoint and input size.
+    fps_groups: int = 1
+    # FPS kernel dispatch: "auto" = pallas on TPU / XLA scan elsewhere
+    # (ops/sampling.py); "pallas"/"xla" force one arm (A/B runs, and
+    # tracing the model for a non-TPU target from a TPU-backend process —
+    # e.g. the live FLOP counter lowers on CPU, where pallas kernels
+    # cannot lower outside interpret mode).
+    fps_mode: str = "auto"
+    # Nested-FPS prefix elision: greedy FPS is prefix-consistent — pick
+    # k+1 maximizes min-dist over the whole set, hence over any subset
+    # containing it, so FPS over a previous level's pick-ordered output
+    # (seeded at its index 0, the previous seed) selects exactly rows
+    # [0, npoint).  Levels 1..3 therefore slice instead of running their
+    # serial chains: 3712 -> 2048 dependent steps (~45% of the ~5 ms FPS
+    # stage) with bit-identical selection (modulo float ties; the
+    # mag<=1e-3 skip quirk is per-point and subset-independent, so it
+    # preserves the property).  Exact mode only (fps_groups == 1).
+    fps_prefix: bool = True
+    # approx_min_k recall_target for approx-mode ball query.  The cost is
+    # almost entirely the exact-aggregation phase over the reduction
+    # buffer, whose width is recall-driven: at L0 (N=12288, k=32) 0.99
+    # keeps 6144 candidates (2.2 ms) while 0.95 keeps 768 (0.43 ms, 5x)
+    # and 0.98 keeps 1536.  MEASURED neighbor-set recall on the bench's
+    # synthetic depth clouds: 0.9956/0.9945 (scales 1/2) at target 0.95
+    # vs 0.9984/0.9994 at 0.99.  BUT e2e accuracy is sharply sensitive:
+    # evaluating 0.99-trained weights at 0.95 dropped ADD-AUC 33.1 ->
+    # 28.1 / seg 0.854 -> 0.829 on the synthetic e2e world — keep 0.99
+    # unless weights were trained at the lower recall (see CLAUDE.md).
+    query_recall: float = 0.99
+    # Per-residue-class candidate capacity for the pallas query kernel
+    # (ops/pallas/query.py): exact first-k whenever no residue class
+    # (index % 128) holds more than this many of the first k hits.
+    # Measured on the realistic plane+blobs scanline cloud (L0 shapes):
+    # capacity 2 -> neighbor-set recall 0.9986/0.9998 (scales 1/2),
+    # >= the approx path at recall_target 0.99; capacity 3 -> 0.9987/1.0.
+    query_capacity: int = 2
+    # Eval-only SA restructure: compute the first SharedMLP layer's
+    # feature term per source point BEFORE the neighborhood gather
+    # (models/pointnet2.py::SetAbstractionMSG.precompute_first).  Exact
+    # up to one f32 add reassociation; equivalence-tested.
+    sa_precompute_first: bool = True
+    # Eval-only FP restructure: IDW interpolation commutes with the
+    # pointwise first-layer matmul, so Dense_0 of each FP SharedMLP runs
+    # on the m known rows before the 3-NN blend instead of the n
+    # interpolated rows (6x fewer rows at the finest level), and the
+    # blend moves widths[0] channels instead of C_known
+    # (models/pointnet2.py::FeaturePropagation.precompute_first).  Exact
+    # up to f32 reassociation; equivalence-tested.
+    fp_precompute_first: bool = True
+    # Distance-matrix dtype for ball query: "f32" (reference parity) or
+    # "bf16" (halved MXU/HBM cost).  MEASURED on the synthetic e2e world
+    # with exact-trained weights: eval under bf16 collapsed seg 0.854 ->
+    # 0.591 (radius-boundary membership churn at 8-bit mantissa) — keep
+    # f32 on the accuracy path; bf16 only for throughput screening.
+    query_compute: str = "f32"
+    sa_levels: Tuple[SALevelConfig, ...] = (
+        SALevelConfig(2048, (0.0175, 0.025), (16, 32),
+                      ((16, 16, 32), (32, 32, 64))),
+        SALevelConfig(1024, (0.025, 0.05), (16, 32),
+                      ((64, 64, 128), (64, 96, 128))),
+        SALevelConfig(512, (0.05, 0.1), (16, 32),
+                      ((128, 196, 256), (128, 196, 256))),
+        SALevelConfig(128, (0.1, 0.2), (16, 32),
+                      ((256, 256, 512), (256, 384, 512))),
+    )
+    # Feature-propagation MLP widths, top (coarsest) to bottom
+    # (reference: pvn3d.py:115-118, listed bottom-up there).
+    fp_mlps: Tuple[Tuple[int, ...], ...] = (
+        (128, 128), (256, 256), (512, 512), (512, 512),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    """Dilated-ResNet34 + PSP pyramid image branch.
+
+    Reference: pvn3d/lib/pspnet.py:48-90 ('Modified_PSPNet', resnet34
+    backend), pvn3d/lib/extractors.py:108-224 (output_stride 8 via dilation
+    2/4 in layers 3/4).
+    """
+    backbone_layers: Tuple[int, ...] = (3, 4, 6, 3)   # resnet34
+    psp_sizes: Tuple[int, ...] = (1, 2, 3, 6)
+    psp_features: int = 512       # resnet34 trunk output channels
+    psp_out: int = 1024
+    up_channels: Tuple[int, ...] = (256, 64, 64)
+    embedding_dim: int = 128      # per-pixel embedding fed to fusion
+    dropout_psp: float = 0.3
+    dropout_up: float = 0.15
+    # Bilinear-resize realization in the PSP pyramid/upsample stages:
+    # "matmul" (static-weight MXU matmuls), "lerp" (2-tap gather+lerp,
+    # O(out) memory traffic) or "matmul_packed" (matmul with spatial
+    # pairs packed into the 128-wide lane dim — the upsample stages run
+    # at C=64, half a lane tile).  Bit-identical results
+    # (models/layers.py::resize_bilinear); a perf A/B knob.
+    resize_method: str = "matmul"
+    # Eval-mode upsample restructure (models/pspnet.py::PSPUpsample.fused):
+    # fold the 2x resize around the conv-tap matmul so the channel
+    # contraction runs at low resolution (1/4 the conv FLOPs) and the
+    # layout-bound full-res resize disappears.  Same parameters; equal to
+    # the reference graph up to summation-order rounding.  Train mode
+    # always uses the standard graph; the last (full-res) stage always
+    # runs standard (measured slower fused, cnn_breakdown.py).  Measured
+    # v5-lite: up1 1.28 -> 0.74 ms, up2 1.08 -> 0.91 ms.
+    fuse_upsample: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    n_classes: int = 22
+    n_keypoints: int = 8
+    n_sample_points: int = 12288   # reference: common.py:43
+    cnn: CNNConfig = CNNConfig()
+    pointnet2: PointNet2Config = PointNet2Config()
+    fusion_dim: int = 1792         # 256 + 512 + 1024 (reference: pvn3d.py:182)
+    seg_head: Tuple[int, ...] = (1024, 512, 128)
+    kp_head: Tuple[int, ...] = (1024, 512, 256)
+    ctr_head: Tuple[int, ...] = (1024, 512, 128)
+    image_height: int = 480
+    image_width: int = 640
+    compute_dtype: str = "bfloat16"   # MXU-friendly; params stay f32
+    # Evaluate the CNN tail (last PSP upsample + embedding head) only at
+    # the N sampled pixels in eval mode.  Parameter-identical and
+    # output-equivalent to dense-then-gather (tests/test_sparse_cnn.py);
+    # measured 80.0 vs 75.9 fps full-pipeline on v5-lite (chip_queue).
+    # Train mode always runs dense (batch stats over the full map).
+    sparse_cnn_eval: bool = True
+    # Eval-only: evaluate the three heads' first Dense on the split
+    # fusion output — the 1024 global-context rows of each (1792, w)
+    # kernel multiply one per-frame vector instead of N broadcast copies
+    # (57% of the first-layer MACs; models/pvn3d.py::_SplitDense).
+    # Bitwise-equivalent up to summation regrouping; equivalence-tested
+    # incl. bf16 (tests/test_models.py).  Train keeps the literal concat.
+    head_split_global: bool = True
+
+
+# ---------------------------------------------------------------------------
+# Training configuration (reference: common.py:36-47, train_ycb_pvn3d.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    n_total_epoch: int = 25
+    mini_batch_size: int = 24
+    num_mini_batch_per_epoch: int = 4000
+    val_mini_batch_size: int = 24
+    val_num_mini_batch_per_epoch: int = 125
+    test_mini_batch_size: int = 1
+    # CyclicLR triangular (reference: train_ycb_pvn3d.py:471-475,
+    # warmup_scheduler/scheduler.py:255-263).
+    base_lr: float = 1e-5
+    max_lr: float = 1e-3
+    lr_step_size: int = 25 * 4000 // 6
+    weight_decay: float = 0.0
+    # BN momentum schedule (reference: train_ycb_pvn3d.py:477-484):
+    # bn_momentum(it) = max(0.9 * 0.5**(it*bs/decay_step), 1e-2)
+    bn_momentum_init: float = 0.9
+    bn_decay: float = 0.5
+    bn_decay_step: float = 2e5
+    bn_momentum_clip: float = 1e-2
+    # Loss weights [seg, kp, ctr] (reference: train_ycb_pvn3d.py:182-184).
+    loss_weights: Tuple[float, float, float] = (2.0, 1.0, 1.0)
+    focal_gamma: float = 2.0
+    seed: int = 0
+    # Rematerialize the forward in backward (jax.checkpoint).  Needed for
+    # large per-chip batches (bs 24 on a single 16 GB chip spills HBM and
+    # collapses to host-offload speeds without it).
+    remat: bool = False
+    # What the checkpointed forward is allowed to keep (jax.checkpoint
+    # ``policy``).  "full" saves nothing (max recompute, min memory);
+    # "dots" saves matmul/conv outputs and recomputes only the cheap
+    # elementwise/BN/resize glue — for this conv-heavy model the backward
+    # then re-runs almost no MXU work, trading a little memory back for
+    # most of the recompute tax.  Values never change — remat is purely a
+    # memory/compute schedule — so the choice is measured, not tested.
+    remat_policy: str = "full"
+    # Gradient accumulation: split the batch into this many equal
+    # micro-batches inside ONE jitted step — micro grads are summed (each
+    # micro loss scales its focal-seg term by 1/grad_accum; the reference
+    # loss is inhomogeneous in batch size — seg is a point mean while the
+    # offset terms sum over frames, train_ycb_pvn3d.py:176-181) and the
+    # optimizer applies once, so the reference's bs-24 budget runs on
+    # a single chip without remat's recompute tax or HBM spill.  BN
+    # semantics match torch-style accumulation: each micro-batch
+    # normalizes by its OWN statistics and the running stats update
+    # sequentially (the reference's bs-24 BN sees the full batch — a
+    # documented deviation of every accumulation scheme).  With identical
+    # micro-batches the resulting params/opt_state are exactly the
+    # full-batch step's (tests/test_train.py).
+    grad_accum: int = 1
+
+
+# ---------------------------------------------------------------------------
+# Inference / clustering configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """Batched MeanShift vote-clustering parameters.
+
+    Reference: pvn3d_eval_utils.py:37-110 uses bandwidth 0.08 and sequential
+    per-class per-keypoint fits; here all (class, keypoint+center) hypotheses
+    run as one batched masked fixed-point iteration.
+    """
+    bandwidth: float = 0.08
+    # Reference default (meanshift_pytorch.py:14); the fixed point
+    # early-exits on convergence (max shift < bw*1e-3) so the cap is
+    # rarely reached and costs nothing when unused.
+    max_iter: int = 300
+    # Per-class point cap for the K x K clustering problem.  The reference
+    # clusters all class points (ragged); we pad/subsample to a fixed K.
+    # Validated on the synthetic e2e world with one trained checkpoint
+    # (benchmarks/synthetic_e2e.py --cluster_cap): ADD-AUC 33.5 @ 512,
+    # 32.1 @ 1024, 32.0 @ 2048 — the ladder converges by 1024 and the
+    # 512 deviation is small and non-directional; 12288 (all-points,
+    # exact reference behavior) OOMs a single chip at batch 4 from the
+    # O(K^2) seed-density stage.
+    max_points_per_class: int = 512
+    use_ctr: bool = True
+    use_ctr_clus_filter: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ICPConfig:
+    """Batched point-to-point ICP refinement (reference: eval_icp.py)."""
+    max_iter: int = 500
+    tolerance: float = 1e-9
+    max_mesh_points: int = 2000
+    max_scene_points: int = 2000
+    min_class_points: int = 1500
+    cluster_bandwidth: float = 0.06
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    name: str = "ycb"                 # "ycb" | "linemod"
+    cls_type: str = ""                # linemod object name
+    root: str = ""                    # dataset root on disk
+    n_sample_points: int = 12288
+    n_keypoints: int = 8
+    n_min_points: int = 400
+    # Max GT object instances per frame (YCB meta holds <=~10 objects).
+    max_instances: int = 12
+
+    @property
+    def n_classes(self) -> int:
+        return 22 if self.name == "ycb" else 2
+
+    @property
+    def n_objects(self) -> int:
+        return self.n_classes
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    dataset: DatasetConfig = DatasetConfig()
+    model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
+    cluster: ClusterConfig = ClusterConfig()
+    icp: ICPConfig = ICPConfig()
+
+    @staticmethod
+    def ycb(**kw) -> "Config":
+        return Config(dataset=DatasetConfig(name="ycb", **kw))
+
+    @staticmethod
+    def linemod(cls_type: str = "ape", **kw) -> "Config":
+        return Config(
+            dataset=DatasetConfig(name="linemod", cls_type=cls_type, **kw),
+            model=ModelConfig(n_classes=2),
+        )
+
+
+def replace(cfg, **kw):
+    """Functional update helper for any config dataclass."""
+    return dataclasses.replace(cfg, **kw)
+
+
+def small_model_config() -> ModelConfig:
+    """A small model for checks away from the full size: 64x80 image,
+    2048 points, SA npoints (512, 256, 128, 32) with radii grown so a
+    cloud of ~0.3 m fills them, narrow heads, reference widths elsewhere,
+    float32 compute."""
+    levels = (
+        SALevelConfig(512, (0.05, 0.1), (16, 32),
+                      ((16, 16, 32), (32, 32, 64))),
+        SALevelConfig(256, (0.1, 0.2), (16, 32),
+                      ((64, 64, 128), (64, 96, 128))),
+        SALevelConfig(128, (0.2, 0.3), (16, 32),
+                      ((128, 196, 256), (128, 196, 256))),
+        SALevelConfig(32, (0.3, 0.4), (16, 32),
+                      ((256, 256, 512), (256, 384, 512))))
+    return dataclasses.replace(
+        ModelConfig(), compute_dtype="float32", image_height=64,
+        image_width=80, n_sample_points=2048,
+        pointnet2=PointNet2Config(sa_levels=levels),
+        seg_head=(128, 64, 32), kp_head=(128, 64, 32),
+        ctr_head=(128, 64, 32))

@@ -1,0 +1,190 @@
+"""Shared building blocks of the port (eval mode).
+
+Port of the JAX package's ``models/layers.py``.  The point branch and the
+heads keep channels last (``(..., C)``) as the JAX package does; the image
+branch runs NCHW for cuDNN and converts at its ends.  Parameters carry the
+shapes and names of the reference PyTorch checkpoint (``conv.weight``
+``(O, I, 1[, 1])``, BN ``weight/bias/running_mean/running_var``), so
+``state_dict`` keys are the reference keys.
+
+Every module computes in ``dtype`` (float32 or bfloat16) with float32
+parameters and float32 BN statistics, as the JAX package does.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Eval-mode batch norm over the LAST axis, f32 statistics:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
+    back to the input dtype (``layers.py:29-69`` of the JAX package)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * inv + self.bias
+        return y.to(x.dtype)
+
+    def nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """The same normalisation over axis 1 of an NCHW map."""
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = ((x.float() - self.running_mean[:, None, None])
+             * inv[:, None, None] + self.bias[:, None, None])
+        return y.to(x.dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """A 1x1 conv weight ``(O, I, 1[, 1])`` applied to channels-last
+    ``x (..., I)`` in ``x.dtype``."""
+    w = weight.reshape(weight.shape[0], weight.shape[1]).to(x.dtype)
+    return F.linear(x, w, None if bias is None else bias.to(x.dtype))
+
+
+class Conv1x1BN(nn.Module):
+    """``conv`` (bias-free 1x1) + ``normlayer.bn`` + ReLU: one reference
+    etw ``SharedMLP`` layer (etw_pytorch_utils/pytorch_utils.py:25-50) or
+    one hidden layer of a head."""
+
+    def __init__(self, c_in: int, c_out: int, conv_dims: int = 2):
+        super().__init__()
+        self.conv = (nn.Conv2d(c_in, c_out, 1, bias=False) if conv_dims == 2
+                     else nn.Conv1d(c_in, c_out, 1, bias=False))
+        self.normlayer = nn.Module()
+        self.normlayer.bn = BatchNorm(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.normlayer.bn(linear(x, self.conv.weight)))
+
+
+class SharedMLP(nn.Module):
+    """Per-point Dense + BN + ReLU stack on the trailing axis; keys
+    ``layer{k}.conv.weight`` / ``layer{k}.normlayer.bn.*``."""
+
+    def __init__(self, c_in: int, widths: Sequence[int]):
+        super().__init__()
+        for k, w in enumerate(widths):
+            self.add_module(f"layer{k}", Conv1x1BN(c_in, w))
+            c_in = w
+        self.n_layers = len(widths)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for k in range(self.n_layers):
+            x = getattr(self, f"layer{k}")(x)
+        return x
+
+
+class ConvBnRelu(nn.Module):
+    """k x k conv + BN + ReLU on NCHW, torch-style explicit padding."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3,
+                 stride: int = 1, dilation: int = 1, use_bn: bool = True,
+                 use_relu: bool = True, use_bias: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, kernel, stride=stride,
+                              padding=dilation * (kernel - 1) // 2,
+                              dilation=dilation, bias=use_bias)
+        self.bn = BatchNorm(c_out) if use_bn else None
+        self.use_relu = use_relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv2d(x, self.conv)
+        if self.bn is not None:
+            x = self.bn.nchw(x)
+        return F.relu(x) if self.use_relu else x
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` applied in ``x.dtype`` (its float32 weights cast)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding, conv.dilation)
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with one shared slope (torch init 0.25)."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+def named_sequential(**modules: nn.Module) -> nn.Sequential:
+    """An ``nn.Sequential`` whose children carry the given names (the
+    reference's ``Sequential`` indices, e.g. ``conv.1`` / ``conv.2``)."""
+    return nn.Sequential(OrderedDict(modules))
+
+
+def _resize_matrix(src: int, dst: int, align_corners: bool) -> np.ndarray:
+    """(dst, src) bilinear interpolation weights, torch semantics."""
+    if dst == src:
+        return np.eye(dst, dtype=np.float32)
+    out = np.zeros((dst, src), np.float32)
+    for i in range(dst):
+        if align_corners:
+            pos = i * (src - 1) / (dst - 1) if dst > 1 else 0.0
+        else:
+            pos = (i + 0.5) * src / dst - 0.5
+        pos = min(max(pos, 0.0), src - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, src - 1)
+        frac = pos - lo
+        out[i, lo] += 1.0 - frac
+        out[i, hi] += frac
+    return out
+
+
+def _adaptive_pool_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) averaging weights with torch AdaptiveAvgPool2d bins."""
+    out = np.zeros((dst, src), np.float32)
+    for i in range(dst):
+        lo = (i * src) // dst
+        hi = -((-(i + 1) * src) // dst)  # ceil
+        out[i, lo:hi] = 1.0 / (hi - lo)
+    return out
+
+
+def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
+               channels_last: bool) -> torch.Tensor:
+    wh_t = torch.as_tensor(wh, dtype=x.dtype, device=x.device)
+    ww_t = torch.as_tensor(ww, dtype=x.dtype, device=x.device)
+    if channels_last:
+        x = torch.einsum("oh,...hwc->...owc", wh_t, x)
+        return torch.einsum("ow,...hwc->...hoc", ww_t, x)
+    x = torch.einsum("oh,...hw->...ow", wh_t, x)
+    return torch.einsum("ow,...hw->...ho", ww_t, x)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False,
+                    channels_last: bool = True) -> torch.Tensor:
+    """Separable bilinear resize of ``(..., H, W, C)`` (or ``(..., H, W)``
+    with ``channels_last=False``) as two static-weight matmuls: the JAX
+    package's ``method="matmul"`` (``layers.py:179-277``), torch's
+    align-corners semantics."""
+    h, w = (x.shape[-3], x.shape[-2]) if channels_last else x.shape[-2:]
+    return _separable(x, _resize_matrix(h, out_h, align_corners),
+                      _resize_matrix(w, out_w, align_corners), channels_last)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int,
+                      channels_last: bool = True) -> torch.Tensor:
+    """Adaptive average pooling with torch's bins, as two matmuls
+    (``layers.py:301-318`` of the JAX package)."""
+    h, w = (x.shape[-3], x.shape[-2]) if channels_last else x.shape[-2:]
+    return _separable(x, _adaptive_pool_matrix(h, out_h),
+                      _adaptive_pool_matrix(w, out_w), channels_last)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-2 max pool with pad 1 on NCHW (resnet stem)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)

@@ -1,0 +1,118 @@
+"""PointNet++ MSG trunk of the point branch (channels-last, eval mode).
+
+Port of the JAX package's ``models/pointnet2.py`` (the reference
+Pointnet2MSG, pvn3d.py:46-154): four set-abstraction levels with
+multi-scale ball-query grouping, shared MLP and max pool, then four
+feature-propagation levels with exact 3-NN IDW interpolation.  Level 0 runs
+FPS (kernel K1); levels 1-3 take the prefix of the previous level's
+pick-ordered points when ``fps_prefix`` is set (greedy FPS is prefix
+consistent, ``config.py:133-142``).  Every level's ball query is kernel
+K2, every FP blend kernel K3.  The eval restructures
+``sa/fp_precompute_first`` equal this graph up to summation order and are
+not ported.  Module names give the reference checkpoint's
+``pointnet2.SA_modules.{i}.mlps.{j}`` / ``FP_modules.{i}.mlp`` keys.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from pvn3d_tpu_torch.config import PointNet2Config, SALevelConfig
+from pvn3d_tpu_torch.models.layers import SharedMLP
+from pvn3d_tpu_torch.ops.grouping import ball_query_multi, group_points
+from pvn3d_tpu_torch.ops.interpolate import three_interpolate_fused
+from pvn3d_tpu_torch.ops.sampling import (furthest_point_sample,
+                                          gather_points)
+
+
+class SetAbstractionMSG(nn.Module):
+    """One SA level: centroids + per-radius group / MLP / max pool
+    (pointnet2_modules.py:27-112)."""
+
+    def __init__(self, level: SALevelConfig, c_in: int, use_xyz: bool = True,
+                 fps_prefix: bool = False):
+        super().__init__()
+        self.level = level
+        self.use_xyz = use_xyz
+        self.fps_prefix = fps_prefix
+        c0 = c_in + (3 if use_xyz else 0)
+        self.mlps = nn.ModuleList([SharedMLP(c0, w) for w in level.mlps])
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
+                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.fps_prefix:
+            new_xyz = xyz[:, :self.level.npoint]
+        else:
+            idx = furthest_point_sample(xyz, self.level.npoint)
+            new_xyz = gather_points(xyz, idx)
+        scale_idx = ball_query_multi(self.level.radii, self.level.nsamples,
+                                     xyz, new_xyz)
+        outs = []
+        for g_idx, mlp in zip(scale_idx, self.mlps):
+            grouped = group_points(xyz, g_idx) - new_xyz[:, :, None, :]
+            if features is not None:
+                feat = group_points(features, g_idx)
+                grouped = (torch.cat([grouped, feat.to(grouped.dtype)], -1)
+                           if self.use_xyz else feat)
+            outs.append(mlp(grouped.to(dtype)).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1)
+
+
+class FeaturePropagation(nn.Module):
+    """One FP level: 3-NN IDW interpolation + skip concat + shared MLP
+    (pointnet2_modules.py:146-206)."""
+
+    def __init__(self, c_in: int, widths):
+        super().__init__()
+        self.mlp = SharedMLP(c_in, widths)
+
+    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
+                dtype: torch.dtype) -> torch.Tensor:
+        interp, _, _ = three_interpolate_fused(unknown_xyz, known_xyz,
+                                               known_feats.float())
+        interp = interp.to(dtype)
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats.to(dtype)], dim=-1)
+        return self.mlp(interp)
+
+
+class PointNet2MSG(nn.Module):
+    """(B, N, 3 + C_in) -> (B, N, fp_mlps[0][-1])."""
+
+    def __init__(self, cfg: PointNet2Config):
+        super().__init__()
+        self.cfg = cfg
+        sa, skips = [], [cfg.input_channels]
+        c_in = cfg.input_channels
+        for li, level in enumerate(cfg.sa_levels):
+            sa.append(SetAbstractionMSG(
+                level, c_in, cfg.use_xyz,
+                fps_prefix=cfg.fps_prefix and li > 0))
+            c_in = sum(w[-1] for w in level.mlps)
+            skips.append(c_in)
+        self.SA_modules = nn.ModuleList(sa)
+        n = len(cfg.sa_levels)
+        fp = []
+        for i, widths in enumerate(cfg.fp_mlps):
+            # fp{i} blends the fp{i+1} output (the raw SA output at the
+            # top) and concatenates level i's skip features.
+            known = cfg.fp_mlps[i + 1][-1] if i < n - 1 else skips[i + 1]
+            fp.append(FeaturePropagation(skips[i] + known, widths))
+        self.FP_modules = nn.ModuleList(fp)
+
+    def forward(self, pointcloud: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        xyz = pointcloud[..., :3].float().contiguous()
+        features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
+        l_xyz, l_feats = [xyz], [features]
+        for li, sa in enumerate(self.SA_modules):
+            nxyz, nfeat = sa(l_xyz[li], l_feats[li], dtype)
+            l_xyz.append(nxyz)
+            l_feats.append(nfeat)
+        # Coarsest -> finest (pvn3d.py:149-152).
+        for li in range(len(self.FP_modules) - 1, -1, -1):
+            l_feats[li] = self.FP_modules[li](
+                l_xyz[li], l_xyz[li + 1], l_feats[li], l_feats[li + 1], dtype)
+        return l_feats[0]

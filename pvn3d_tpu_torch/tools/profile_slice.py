@@ -1,0 +1,128 @@
+"""Where a serving request's time goes on the card.
+
+    python3 -m pvn3d_tpu_torch.tools.profile_slice [--requests 3]
+
+Runs the full-width ``Config.ycb()`` serving path (seeded random weights,
+``synthetic_batch`` frames) on CUDA and prints:
+
+* each stage alone, CUDA-event medians: image branch, point branch,
+  fusion + heads, votes -> poses;
+* a ``torch.profiler`` trace of ``--requests`` requests: device time by
+  kernel (top 25), the four ported kernels' share, and the device's busy
+  share of the wall time.
+
+Needs a card; exits 1 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+
+def _time_ms(fn, trials: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--requests", type=int, default=3)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device", flush=True)
+        return 1
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import (make_inference_step,
+                                                    make_pose_fn)
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+
+    cfg = Config.ycb()
+    model = build_model(cfg.model, args.seed)
+    mesh_kps, radii = stacked_mesh_kps(), stacked_class_radii()
+    step = make_inference_step(cfg, model, mesh_kps, radii)
+    pose_fn = make_pose_fn(cfg, mesh_kps, radii)
+    dev = torch.device("cuda")
+    batch = synthetic_batch(cfg, batch_size=1, seed=args.seed)
+    pc, rgb, choose = (torch.as_tensor(batch[k], device=dev)
+                       for k in ("pointcloud", "rgb", "choose"))
+    step(batch)
+
+    with torch.inference_mode():
+        dtype = model.dtype
+        emb, _ = model.cnn.model(rgb.to(dtype))
+        cld = model.pointnet2(pc, dtype)
+        rgb_emb = torch.gather(
+            emb.reshape(1, -1, emb.shape[-1]), 1,
+            choose.long()[..., None].expand(-1, -1, emb.shape[-1]))
+        out = model(pc, rgb, choose)
+        seg = torch.argmax(out["seg_logits"], -1).to(torch.int32)
+
+        def heads():
+            fused = model.rgbd_feat(rgb_emb, cld)
+            return [m(fused) for m in (model.SEG_layer, model.KpOF_layer,
+                                       model.CtrOf_layer)]
+        stages = {
+            "image branch (ResNet34 + PSP + 3 upsamples)":
+                lambda: model.cnn.model(rgb.to(dtype)),
+            "point branch (PointNet++ 4 SA + 4 FP)":
+                lambda: model.pointnet2(pc, dtype),
+            "fusion + 3 heads": heads,
+            "votes -> poses (3 MeanShift passes + fit)":
+                lambda: pose_fn(pc[..., :3], seg, out["ctr_offsets"],
+                                out["kp_offsets"]),
+            "whole request (make_inference_step)": lambda: step(batch),
+        }
+        for name, fn in stages.items():
+            print(f"[stage] {name}: {_time_ms(fn):.3f} ms", flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.requests):
+            step(synthetic_batch(cfg, batch_size=1, seed=args.seed + i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side entries only (kernels, copies): the launching CPU ops
+    # also carry their kernels' time and would count it twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = ("fps_kernel", "ball_query_kernel", "three_interp_kernel",
+            "winner_kernel")
+    ours_ms = sum(e.self_device_time_total for e in events
+                  if any(o in e.key for o in ours)) / 1e3
+    print(f"[trace] {args.requests} requests: wall {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"ported kernels {ours_ms:.2f} ms", flush=True)
+    for e in events[:25]:
+        print(f"[trace] {e.self_device_time_total / 1e3 / args.requests:9.3f}"
+              f" ms/request  x{e.count // args.requests:<5d} {e.key[:90]}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,177 @@
+"""Weights for the port: JAX variables mapped in, or seeded random ones.
+
+``from_jax_variables`` is the inverse of the JAX package's
+``utils/torch_convert.py::convert_pvn3d``: it maps a JAX
+``{"params", "batch_stats"}`` tree (numpy arrays) onto the port's
+``state_dict``, whose keys are the reference PyTorch checkpoint's
+(``cnn.model.feats.*``, ``pointnet2.SA_modules.{i}.mlps.{j}.layer{k}.*``,
+``rgbd_feat.*``, ``SEG_layer.*`` ...).  Conventions:
+
+* Flax conv kernels ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``;
+* Dense kernels ``(in, out)`` -> 1x1 conv weights ``(out, in, 1[, 1])``;
+* BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+
+The reference's hidden head convs have no bias (a BN follows); the JAX
+heads carry one (zero when converted from a reference checkpoint).  It is
+folded into the BN's running mean, ``BN(x + b) = BN'(x)`` with
+``mean' = mean - b``, which is exact for the zero bias of every converted
+or freshly initialised JAX tree.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from pvn3d_tpu_torch.config import ModelConfig
+from pvn3d_tpu_torch.models.layers import BatchNorm, PReLU
+from pvn3d_tpu_torch.models.pvn3d import PVN3D
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _conv(k) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _dense(k, dims: int) -> torch.Tensor:
+    w = np.ascontiguousarray(np.asarray(k, np.float32).T)
+    return _t(w.reshape(w.shape + (1,) * (dims - 2)))
+
+
+def _bn(sd: Dict, prefix: str, params: Mapping, stats: Mapping,
+        fold_bias=None) -> None:
+    mean = np.asarray(stats["mean"], np.float32)
+    if fold_bias is not None:
+        mean = mean - np.asarray(fold_bias, np.float32)
+    sd[f"{prefix}.weight"] = _t(params["scale"])
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+    sd[f"{prefix}.running_mean"] = _t(mean)
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _shared_mlp(sd: Dict, prefix: str, params: Mapping,
+                stats: Mapping) -> None:
+    k = 0
+    while f"Dense_{k}" in params:
+        sd[f"{prefix}.layer{k}.conv.weight"] = _dense(
+            params[f"Dense_{k}"]["kernel"], 4)
+        _bn(sd, f"{prefix}.layer{k}.normlayer.bn",
+            params[f"BatchNorm_{k}"], stats[f"BatchNorm_{k}"])
+        k += 1
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX PVN3D ``{"params", "batch_stats"}`` (numpy leaves) -> the port's
+    ``state_dict`` (float32 CPU tensors, ``num_batches_tracked`` 0)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    tp, ts = p["cnn"]["trunk"], s["cnn"]["trunk"]
+    pre = "cnn.model.feats"
+    sd[f"{pre}.conv1.weight"] = _conv(tp["conv1"]["kernel"])
+    _bn(sd, f"{pre}.bn1", tp["bn1"], ts["bn1"])
+    for name in sorted(k for k in tp if k.startswith("layer")):
+        stage, block = name[len("layer"):].split("_block")
+        q = f"{pre}.layer{stage}.{block}"
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            sd[f"{q}.{conv}.weight"] = _conv(tp[name][conv]["kernel"])
+            _bn(sd, f"{q}.{bn}", tp[name][bn], ts[name][bn])
+        if "down_conv" in tp[name]:
+            sd[f"{q}.downsample.0.weight"] = _conv(
+                tp[name]["down_conv"]["kernel"])
+            _bn(sd, f"{q}.downsample.1", tp[name]["down_bn"],
+                ts[name]["down_bn"])
+
+    cp, cs = p["cnn"], s["cnn"]
+    sizes = sorted(int(k[len("stage"):]) for k in cp["psp"]
+                   if k.startswith("stage"))
+    for i, size in enumerate(sizes):
+        sd[f"cnn.model.psp.stages.{i}.1.weight"] = _conv(
+            cp["psp"][f"stage{size}"]["kernel"])
+    sd["cnn.model.psp.bottleneck.weight"] = _conv(
+        cp["psp"]["bottleneck"]["kernel"])
+    sd["cnn.model.psp.bottleneck.bias"] = _t(cp["psp"]["bottleneck"]["bias"])
+    k = 1
+    while f"up{k}" in cp:
+        up = cp[f"up{k}"]
+        sd[f"cnn.model.up_{k}.conv.1.weight"] = _conv(up["conv"]["kernel"])
+        sd[f"cnn.model.up_{k}.conv.1.bias"] = _t(up["conv"]["bias"])
+        _bn(sd, f"cnn.model.up_{k}.conv.2", up["bn"], cs[f"up{k}"]["bn"])
+        sd[f"cnn.model.up_{k}.conv.3.weight"] = _t(
+            np.reshape(up["prelu"]["alpha"], (1,)))
+        k += 1
+    for name in ("final", "final_seg"):
+        sd[f"cnn.model.{name}.0.weight"] = _conv(cp[name]["kernel"])
+        sd[f"cnn.model.{name}.0.bias"] = _t(cp[name]["bias"])
+
+    pp, ps = p["pointnet2"], s["pointnet2"]
+    i = 0
+    while f"sa{i}" in pp:
+        j = 0
+        while f"mlp{j}" in pp[f"sa{i}"]:
+            _shared_mlp(sd, f"pointnet2.SA_modules.{i}.mlps.{j}",
+                        pp[f"sa{i}"][f"mlp{j}"], ps[f"sa{i}"][f"mlp{j}"])
+            j += 1
+        _shared_mlp(sd, f"pointnet2.FP_modules.{i}.mlp",
+                    pp[f"fp{i}"]["mlp"], ps[f"fp{i}"]["mlp"])
+        i += 1
+
+    for name, dense in p["fusion"].items():
+        sd[f"rgbd_feat.{name}.weight"] = _dense(dense["kernel"], 3)
+        sd[f"rgbd_feat.{name}.bias"] = _t(dense["bias"])
+
+    for torch_name, ours in (("SEG_layer", "seg_head"),
+                             ("KpOF_layer", "kp_head"),
+                             ("CtrOf_layer", "ctr_head")):
+        hp, hs = p[ours], s[ours]
+        k = 0
+        while f"dense{k}" in hp:
+            sd[f"{torch_name}.{k}.conv.weight"] = _dense(
+                hp[f"dense{k}"]["kernel"], 3)
+            _bn(sd, f"{torch_name}.{k}.normlayer.bn", hp[f"bn{k}"],
+                hs[f"bn{k}"], fold_bias=hp[f"dense{k}"]["bias"])
+            k += 1
+        sd[f"{torch_name}.{k}.conv.weight"] = _dense(hp["out"]["kernel"], 3)
+        sd[f"{torch_name}.{k}.conv.bias"] = _t(hp["out"]["bias"])
+    return sd
+
+
+def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Random weights for ``model`` from a numpy seed: conv and dense
+    weights normal with std sqrt(1/fan_in) (so the deep trunk stays finite
+    without trained BN statistics), other biases normal * 0.01, BN at
+    identity, PReLU slopes 0.25."""
+    rng = np.random.RandomState(seed)
+    modules = dict(model.named_modules())
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in model.state_dict().items():
+        owner, leaf = name.rsplit(".", 1)
+        mod = modules[owner]
+        if isinstance(mod, BatchNorm):
+            out[name] = torch.full_like(
+                t, 1 if leaf in ("weight", "running_var") else 0)
+        elif isinstance(mod, PReLU):
+            out[name] = torch.full_like(t, 0.25)
+        elif t.dim() > 1:
+            fan_in = int(np.prod(t.shape[1:]))
+            out[name] = torch.tensor(
+                rng.randn(*t.shape).astype(np.float32)
+                * np.float32(np.sqrt(1.0 / fan_in)))
+        else:
+            out[name] = torch.tensor(
+                rng.randn(*t.shape).astype(np.float32) * np.float32(0.01))
+    return out
+
+
+def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
+    """A ``PVN3D`` for ``cfg`` with ``seeded_state_dict`` weights, on the
+    CPU (move it with ``.to(device)``)."""
+    model = PVN3D(cfg)
+    model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+    return model

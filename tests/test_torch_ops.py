@@ -1,0 +1,208 @@
+"""The port's kernel modules (plain versions on the CPU) against the JAX
+package's point ops and Pallas kernels (interpret mode), on the same
+seeded numpy inputs."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from pvn3d_tpu.inference.meanshift import _winner_stats
+from pvn3d_tpu.ops.grouping import ball_query_multi as jax_ball_query
+from pvn3d_tpu.ops.grouping import group_points as jax_group_points
+from pvn3d_tpu.ops.interpolate import idw_weights as jax_idw
+from pvn3d_tpu.ops.interpolate import three_interpolate as jax_interp
+from pvn3d_tpu.ops.interpolate import three_nn as jax_three_nn
+from pvn3d_tpu.ops.pallas.fps import fps_pallas
+from pvn3d_tpu.ops.pallas.interp import three_interpolate_fused as jax_fused
+from pvn3d_tpu.ops.pallas.winner import winner_stats_fused
+from pvn3d_tpu.ops.sampling import furthest_point_sample as jax_fps
+from pvn3d_tpu.ops.sampling import gather_points as jax_gather_points
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from pvn3d_tpu_torch.ops import grouping, interpolate, sampling  # noqa: E402
+from pvn3d_tpu_torch.ops.kernels import (fps, interp, query,  # noqa: E402
+                                         winner)
+
+
+def _cloud(seed, b, n, scale=0.3):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(b, n, 3).astype(np.float32) - 0.5) * scale
+
+
+class TestFPS:
+    @pytest.mark.parametrize("b,n,m", [(1, 2048, 512), (3, 700, 96)])
+    def test_matches_xla_and_pallas(self, b, n, m):
+        xyz = _cloud(b * n, b, n)
+        got = fps.fps(torch.tensor(xyz), m).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax_fps(
+            jnp.asarray(xyz), m, use_pallas=False)))
+        np.testing.assert_array_equal(got, np.asarray(fps_pallas(
+            jnp.asarray(xyz), m, interpret=True)))
+
+    def test_skip_points_never_picked(self):
+        xyz = _cloud(1, 2, 300, scale=4.0)
+        xyz[:, 100:200] = 0.0
+        got = fps.fps(torch.tensor(xyz), 64).numpy()
+        assert not np.any((got >= 100) & (got < 200))
+        np.testing.assert_array_equal(got, np.asarray(fps_pallas(
+            jnp.asarray(xyz), 64, interpret=True)))
+
+    def test_all_skip_row_gives_zero(self):
+        xyz = np.zeros((2, 64, 3), np.float32)
+        xyz[1] = _cloud(2, 1, 64, scale=4.0)[0]
+        got = fps.fps(torch.tensor(xyz), 8).numpy()
+        assert (got[0] == 0).all()
+        np.testing.assert_array_equal(got, np.asarray(jax_fps(
+            jnp.asarray(xyz), 8, use_pallas=False)))
+
+    def test_sampling_module(self):
+        xyz = _cloud(3, 2, 256)
+        idx = sampling.furthest_point_sample(torch.tensor(xyz), 32)
+        got = sampling.gather_points(torch.tensor(xyz), idx).numpy()
+        want = jax_gather_points(jnp.asarray(xyz), jnp.asarray(idx.numpy()))
+        np.testing.assert_array_equal(got, np.asarray(want))
+        with pytest.raises(NotImplementedError):
+            sampling.furthest_point_sample(torch.tensor(xyz), 32, groups=4)
+
+
+class TestBallQuery:
+    @pytest.mark.parametrize("radii,ns", [((0.05, 0.1), (16, 32)),
+                                          ((0.02, 0.04, 0.2), (4, 8, 64))])
+    def test_matches_exact(self, radii, ns):
+        xyz = _cloud(7, 2, 2048)
+        cen = xyz[:, ::5] + 0.001
+        got = query.ball_query(radii, ns, torch.tensor(xyz),
+                               torch.tensor(cen))
+        want = jax_ball_query(radii, ns, jnp.asarray(xyz), jnp.asarray(cen),
+                              mode="exact")
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    def test_no_hit_and_fewer_points_than_ns(self):
+        xyz = _cloud(8, 1, 20)
+        cen = np.concatenate([xyz[:, :3], np.full((1, 2, 3), 50.0,
+                                                  np.float32)], axis=1)
+        got = grouping.ball_query_multi((1.0,), (32,), torch.tensor(xyz),
+                                        torch.tensor(cen))[0].numpy()
+        want = jax_ball_query((1.0,), (32,), jnp.asarray(xyz),
+                              jnp.asarray(cen), mode="exact")[0]
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert (got[0, 3:] == 0).all()
+
+    def test_group_points(self):
+        rng = np.random.RandomState(9)
+        pts = rng.randn(2, 50, 5).astype(np.float32)
+        idx = rng.randint(0, 50, (2, 7, 4)).astype(np.int32)
+        got = grouping.group_points(torch.tensor(pts), torch.tensor(idx))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jax_group_points(jnp.asarray(pts), jnp.asarray(idx))))
+
+
+class TestInterp:
+    @pytest.mark.parametrize("n,m,c", [(1024, 256, 64), (300, 96, 32)])
+    def test_matches_exact_path(self, n, m, c):
+        rng = np.random.RandomState(n)
+        u = rng.randn(2, n, 3).astype(np.float32)
+        k = rng.randn(2, m, 3).astype(np.float32)
+        f = rng.randn(2, m, c).astype(np.float32)
+        out, dist, idx = interp.three_interpolate_fused(
+            torch.tensor(u), torch.tensor(k), torch.tensor(f))
+        jd, ji = jax_three_nn(jnp.asarray(u), jnp.asarray(k), mode="exact")
+        want = jax_interp(jnp.asarray(f), ji, jax_idw(jd))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(dist.numpy(), np.asarray(jd), atol=1e-5)
+        # The XLA arm's expanded |u|^2-2uk+|k|^2 d^2 carries ~1e-7 absolute
+        # cancellation error; 1/d weighting amplifies it by 1/d^2 where the
+        # nearest point is close (tests/test_pallas.py:124-127 notes the
+        # same).  Hold the blend to 1e-5 on the rows whose nearest known
+        # point is >= 0.2 away, where that amplification stays below it.
+        far = np.asarray(jd)[..., 0] >= 0.2
+        assert far.mean() > 0.3
+        np.testing.assert_allclose(out.numpy()[far], np.asarray(want)[far],
+                                   atol=1e-5)
+
+    def test_matches_pallas_kernel(self):
+        rng = np.random.RandomState(4)
+        u = rng.randn(1, 400, 3).astype(np.float32)
+        k = rng.randn(1, 130, 3).astype(np.float32)
+        f = rng.randn(1, 130, 48).astype(np.float32)
+        out, dist, idx = interp.three_interpolate_fused(
+            torch.tensor(u), torch.tensor(k), torch.tensor(f))
+        jo, jd, ji = jax_fused(jnp.asarray(u), jnp.asarray(k),
+                               jnp.asarray(f), 1e-8, True)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(dist.numpy(), np.asarray(jd), atol=1e-6)
+        # The Pallas blend is a default-precision (bf16-operand) MXU
+        # matmul; off TPU interpret mode may round the same way, so allow
+        # bf16 rounding of the weights: 2^-8 relative on |f| <= ~4.
+        np.testing.assert_allclose(out.numpy(), np.asarray(jo), atol=3e-2)
+
+    def test_tie_order_and_fewer_than_three(self):
+        k = np.zeros((1, 5, 3), np.float32)
+        k[0, 1] = k[0, 3] = [1.0, 0, 0]
+        k[0, 2] = [2.0, 0, 0]
+        k[0, 4] = [3.0, 0, 0]
+        u = np.asarray([[[1.0, 0, 0]]], np.float32)
+        f = np.arange(5, dtype=np.float32).reshape(1, 5, 1)
+        _, _, idx = interp.three_interpolate_fused(
+            torch.tensor(u), torch.tensor(k), torch.tensor(f))
+        np.testing.assert_array_equal(idx.numpy()[0, 0], [1, 3, 0])
+        k2 = np.asarray([[[0.0, 0, 0], [1.0, 0, 0]]], np.float32)
+        u2 = np.asarray([[[0.1, 0, 0], [0.9, 0, 0]]], np.float32)
+        f2 = np.asarray([[[10.0], [20.0]]], np.float32)
+        out, dist, idx = interp.three_interpolate_fused(
+            torch.tensor(u2), torch.tensor(k2), torch.tensor(f2))
+        jo, jd, ji = jax_fused(jnp.asarray(u2), jnp.asarray(k2),
+                               jnp.asarray(f2), 1e-8, True)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        assert np.all(dist.numpy()[0, :, 2] > 1e10)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jo), atol=1e-3)
+
+    def test_interpolate_module(self):
+        rng = np.random.RandomState(5)
+        u = rng.randn(2, 64, 3).astype(np.float32)
+        k = rng.randn(2, 16, 3).astype(np.float32)
+        f = rng.randn(2, 16, 8).astype(np.float32)
+        dist, idx = interpolate.three_nn(torch.tensor(u), torch.tensor(k))
+        jd, ji = jax_three_nn(jnp.asarray(u), jnp.asarray(k), mode="exact")
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        w = interpolate.idw_weights(dist)
+        got = interpolate.three_interpolate(torch.tensor(f), idx, w)
+        want = jax_interp(jnp.asarray(f), ji, jax_idw(jd))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+class TestWinner:
+    @pytest.mark.parametrize("h,k", [(21, 512), (5, 200)])
+    def test_matches_pallas_kernel(self, h, k):
+        rng = np.random.RandomState(h * 100 + k)
+        pts = 0.05 * rng.randn(h, k, 3).astype(np.float32)
+        msk = rng.rand(h, k) < 0.8
+        msk[1] = False                        # an all-invalid hypothesis
+        got = winner.winner_stats(torch.tensor(pts), torch.tensor(msk), 0.08)
+        want = winner_stats_fused(jnp.asarray(pts), jnp.asarray(msk), 0.08,
+                                  interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    def test_matches_xla_outside_boundary_window(self):
+        # The JAX XLA arm's expanded d^2 can flip pairs within f32 rounding
+        # of the bandwidth; compare only hypotheses with no such pair
+        # (tests/test_pallas.py:255-259).
+        rng = np.random.RandomState(3)
+        pts = 0.05 * rng.randn(8, 300, 3).astype(np.float32)
+        msk = rng.rand(8, 300) < 0.8
+        bw = 0.08
+        d2 = np.sum((pts[:, :, None, :].astype(np.float64)
+                     - pts[:, None, :, :]) ** 2, -1)
+        clean = ~np.any(np.abs(d2 - bw * bw) < 1e-5 * bw * bw, axis=(1, 2))
+        assert clean.any()
+        got = winner.winner_stats(torch.tensor(pts), torch.tensor(msk), bw)
+        want = _winner_stats(jnp.asarray(pts), jnp.asarray(msk), bw, 4,
+                             impl="xla")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy()[clean],
+                                          np.asarray(w)[clean])

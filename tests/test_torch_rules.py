@@ -1,0 +1,137 @@
+"""Rules of the port: it imports nothing of JAX or the JAX package, its
+entry points run on the card unless the CPU is asked for, and each kernel
+wrapper takes its plain version only for CPU tensors — any other tensor
+launches the kernel or raises."""
+import ast
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from pvn3d_tpu_torch import config as port_config  # noqa: E402
+from pvn3d_tpu_torch.inference.pipeline import (  # noqa: E402
+    make_inference_step, make_pose_fn)
+from pvn3d_tpu_torch.ops.kernels import (KERNELS, common, fps,  # noqa: E402
+                                         interp, query, winner)
+from pvn3d_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "pvn3d_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    banned = {"jax", "jaxlib", "flax", "optax", "pvn3d_tpu"}
+    seen = 0
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}: {name}"
+        seen += 1
+    assert seen > 20
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config.Config.ycb()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_inference_step(cfg, torch.nn.Module(), np.zeros((22, 9, 3)),
+                            np.ones(22))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_pose_fn(cfg, np.zeros((22, 9, 3)), np.ones(22))
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _inputs():
+    rng = np.random.RandomState(0)
+    xyz = torch.tensor(rng.rand(1, 64, 3).astype(np.float32))
+    feats = torch.tensor(rng.randn(1, 16, 4).astype(np.float32))
+    mask = torch.tensor(rng.rand(2, 16) < 0.8)
+    return {
+        "fps": (fps, fps.fps, "fps_plain", (xyz, 8)),
+        "query": (query, query.ball_query, "ball_query_plain",
+                  ((0.2,), (4,), xyz, xyz[:, :8])),
+        "interp": (interp, interp.three_interpolate_fused,
+                   "three_interpolate_plain", (xyz, xyz[:, :16], feats)),
+        "winner": (winner, winner.winner_stats, "winner_stats_plain",
+                   (xyz[:, :32].reshape(2, 16, 3), mask, 0.08)),
+    }
+
+
+@pytest.mark.parametrize("name", ["fps", "query", "interp", "winner"])
+def test_cpu_tensor_takes_plain_version(name, monkeypatch):
+    mod, wrapper, plain_name, args = _inputs()[name]
+
+    def no_launch(*a, **k):
+        raise AssertionError("CPU tensors must not launch the kernel")
+    monkeypatch.setattr(mod.KERNEL, "launch", no_launch)
+    got = wrapper(*args)
+    want = getattr(mod, plain_name)(*args)
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["fps", "query", "interp", "winner"])
+def test_device_tensor_launches_or_raises(name, monkeypatch):
+    """A tensor off the CPU never reaches the plain version: the wrapper
+    launches its kernel (here a recorder, on 'meta' tensors standing in
+    for CUDA ones) or, for a device that is not CUDA, raises."""
+    mod, wrapper, plain_name, args = _inputs()[name]
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+
+    def no_plain(*a, **k):
+        raise AssertionError("device tensors must not take the plain path")
+    monkeypatch.setattr(mod, plain_name, no_plain)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        wrapper(*meta)
+
+    calls = []
+    monkeypatch.setattr(mod, "require_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(mod.KERNEL, "launch",
+                        lambda dev, *a: calls.append(len(a)))
+    wrapper(*meta)
+    assert len(calls) == 1
+    assert calls[0] == len(mod.KERNEL.argtypes) - 1   # all but the stream
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(common, "BUILD_DIR", str(tmp_path))
+    kernel = common.CudaKernel("fps", "fps.cu", "fps_launch", [])
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(common, "_nvcc", missing)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel.load()
+    monkeypatch.setattr(common, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        common.build_all([kernel])
+
+
+def test_every_kernel_has_its_source_and_counter():
+    assert [k.name for k in KERNELS] == ["fps", "query", "interp", "winner"]
+    for k in KERNELS:
+        assert os.path.exists(k.source)
+        assert isinstance(k.launches, int)
