@@ -13,8 +13,14 @@ that fails):
                at the shapes the serving path gives it (indices exact,
                floats within 1e-5), timed with CUDA events beside the
                plain version, a library call where one computes the same
-               function, and the bound the card's peak rates set.
-4. edge      — the same comparison at shapes off the serving path.
+               function (K2: cdist + where + topk; K3: cdist + topk +
+               gather), and the bound the card's peak rates set; K1's time
+               per step and K2's time per level are logged, each also as
+               device time from a ``torch.profiler`` trace (the kernel
+               without the host's launch cost).
+4. edge      — the same comparison at shapes off the serving path, among
+               them the edge cases of K1's cluster split and K2's
+               32-point runs.
 5. slice     — the serving path at full width (``Config.ycb()``:
                480x640, 12288 points, 22 classes) with seeded random
                weights: three requests through ``make_inference_step``
@@ -77,23 +83,6 @@ def bound_ms(n_bytes: float, flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def depth_cloud(rng, n: int) -> np.ndarray:
-    """A depth-camera-like cloud: n pixels of a 480x640 YCB camera
-    (K1 intrinsics) back-projected from a table plane with three objects
-    on it, so the finest SA radii (17.5 mm) collect neighbours."""
-    from pvn3d_tpu_torch.config import INTRINSICS
-    k = INTRINSICS["ycb_K1"]
-    u = rng.randint(0, 640, n).astype(np.float32)
-    v = rng.randint(0, 480, n).astype(np.float32)
-    z = 0.9 + 0.15 * (v / 480.0)
-    for cu, cv, r in ((220, 200, 60), (400, 260, 80), (320, 360, 50)):
-        blob = ((u - cu) ** 2 + (v - cv) ** 2) < r * r
-        z = np.where(blob, z - 0.08, z)
-    x = (u - k[0, 2]) * z / k[0, 0]
-    y = (v - k[1, 2]) * z / k[1, 1]
-    return np.stack([x, y, z], axis=-1).astype(np.float32)
-
-
 def phase_device() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", flush=True)
@@ -140,7 +129,9 @@ def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
     from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import depth_cloud
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
+    from pvn3d_tpu_torch.tools.kernel_variants import device_ms
     cfg = Config.ycb().model
     pcfg = cfg.pointnet2
     dev = torch.device("cuda")
@@ -163,8 +154,12 @@ def phase_kernels(rng):
         library_ms=None,
         bound=bound_ms(n * 12 + m0 * 4, (m0 - 1) * n * (D2_FLOPS + 1)),
         replaces="pvn3d_tpu/ops/pallas/fps.py:150")
+    fps_dev = device_ms(lambda: fps.fps(xyz, m0))
     log("kernels", f"K1 fps {rec['fps']['shapes'][0]}: indices equal, "
-        f"{rec['fps']['ms']:.3f} ms (plain {rec['fps']['plain_ms']:.3f})")
+        f"{rec['fps']['ms']:.3f} ms = "
+        f"{rec['fps']['ms'] * 1e3 / (m0 - 1):.3f} us per step; on the "
+        f"device {fps_dev:.3f} ms = {fps_dev * 1e3 / (m0 - 1):.3f} us per "
+        f"step (plain {rec['fps']['plain_ms']:.3f})")
 
     # Level point sets as the serving path builds them (fps_prefix).
     levels = [xyz]
@@ -173,7 +168,7 @@ def phase_kernels(rng):
         levels.append(pts[:, :lvl.npoint].contiguous())
 
     # K2: four launches per frame, two scales each.
-    ms = plain = 0.0
+    ms = plain = lib = 0.0
     n_bytes = flops = 0.0
     shapes = []
     err = 0.0
@@ -184,11 +179,33 @@ def phase_kernels(rng):
         if not _index_equal(got, want):
             raise AssertionError(f"K2 query L{li}: kernel differs from plain")
         err = max(err, _err(got, want))
-        ms += time_ms(lambda: query.ball_query(lvl.radii, lvl.nsamples,
-                                               src, cen))
+        level_ms = time_ms(lambda: query.ball_query(lvl.radii, lvl.nsamples,
+                                                    src, cen))
+        ms += level_ms
         plain += time_ms(lambda: query.ball_query_plain(
             lvl.radii, lvl.nsamples, src, cen), reps=1)
         npts, m = src.shape[1], cen.shape[1]
+
+        def library():
+            # One unchunked composition: distances, hit indices (misses
+            # score N), the ns smallest, then the first-hit fill.
+            d = torch.cdist(cen, src)
+            iota = torch.arange(npts, device=dev)
+            res = []
+            for r, ns in zip(lvl.radii, lvl.nsamples):
+                score = torch.where(d < r, iota, npts)
+                vals = torch.topk(score, ns, dim=-1, largest=False).values
+                found = vals < npts
+                first = torch.where(found[..., 0], vals[..., 0], 0)
+                res.append(torch.where(found, vals, first[..., None]))
+            return res
+        level_lib = time_ms(library)
+        lib += level_lib
+        level_dev = device_ms(lambda: query.ball_query(
+            lvl.radii, lvl.nsamples, src, cen))
+        log("kernels", f"K2 query L{li} N={npts} m={m}: {level_ms:.4f} ms, "
+            f"on the device {level_dev:.4f} ms (cdist+where+topk "
+            f"{level_lib:.4f})")
         # Pairs the scan must test: per centroid, up to the index of the
         # last slot of the scale that fills last (all N if one never fills).
         tests = torch.zeros(m, dtype=torch.float64, device=dev)
@@ -202,11 +219,11 @@ def phase_kernels(rng):
         n_bytes += npts * 12 + m * 12 + m * sum(lvl.nsamples) * 4
         shapes.append(f"L{li} N={npts} m={m} r={lvl.radii}")
     rec["query"] = dict(shapes=shapes, max_abs_err=err, tol="indices exact",
-                        ms=ms, plain_ms=plain, library_ms=None,
+                        ms=ms, plain_ms=plain, library_ms=lib,
                         bound=bound_ms(n_bytes, flops),
                         replaces="pvn3d_tpu/ops/pallas/query.py:118")
     log("kernels", f"K2 query x4 levels: indices equal, {ms:.3f} ms "
-        f"(plain {plain:.3f})")
+        f"(plain {plain:.3f}, cdist+where+topk {lib:.3f})")
 
     # K3: four launches per frame (fp3 .. fp0), known features of the
     # dense graph's widths.
@@ -291,30 +308,70 @@ def phase_kernels(rng):
 
 def phase_edge_cases(rng) -> None:
     """Each kernel against its plain version at shapes off the serving
-    path: batch > 1, rows past FPS's register path, three scales and
-    empty balls, fewer than three known points, no channels, K past one
-    shared-memory tile, an all-invalid hypothesis."""
+    path.  K1: batch 3; a 20000-point row (past the register path, the
+    scratch path); N not a multiple of the cluster's point stride; N below
+    one CTA's share; duplicated points beside skipped ones, so real points
+    reach min-d^2 0; an all-skipped row in a batch of 3.  K2: more than ns
+    hits in one 32-point run; hits straddling indices 31/32; N not a
+    multiple of 32; one scale full while the other never fills; empty
+    balls; B = 2 with 3 scales.  K3: fewer than three known points, no
+    channels.  K4: K past one shared-memory tile, an all-invalid
+    hypothesis."""
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
     dev = torch.device("cuda")
 
     def cloud(*shape, scale=0.3):
         return torch.tensor((rng.rand(*shape).astype(np.float32) - 0.5)
                             * scale, device=dev)
-    cases = 0
-    for b, n, m in ((3, 700, 96), (2, 20000, 128), (1, 5, 9)):
+    fps_rows = {}
+    for b, n, m in ((3, 700, 96), (2, 20000, 128), (1, 5, 9),
+                    (1, 9001, 512), (2, 200, 64)):
         xyz = cloud(b, n, 3, scale=4.0)
         xyz[:, 1:3] = 0.0
-        if not torch.equal(fps.fps(xyz, m), fps.fps_plain(xyz, m)):
-            raise AssertionError(f"edge fps B={b} N={n} m={m}")
-        cases += 1
-    xyz = cloud(2, 3000, 3)
-    cen = torch.cat([xyz[:, :200], torch.full((2, 8, 3), 9.0, device=dev)],
+        fps_rows[f"B={b} N={n} m={m}"] = (xyz, m)
+    dup = cloud(1, 500, 3, scale=4.0).repeat(1, 4, 1)
+    dup[:, ::7] = 0.0
+    fps_rows["500 points x4 copies, every 7th skipped, m=700"] = (dup, 700)
+    rows = cloud(3, 1000, 3, scale=4.0)
+    rows[1] *= 0.005          # |p|^2 <= 1e-3: every point skipped
+    fps_rows["all-skipped row 1 of B=3"] = (rows, 64)
+    for name, (xyz, m) in fps_rows.items():
+        got = fps.fps(xyz, m)
+        if not torch.equal(got, fps.fps_plain(xyz, m)):
+            raise AssertionError(f"edge fps {name}")
+    if not bool((got[1] == 0).all()):
+        raise AssertionError("edge fps: all-skipped row is not all 0")
+    cases = len(fps_rows)
+
+    def near_origin(b, n, near):
+        """n points far from the origin except indices ``near``, which lie
+        within 5 mm of it."""
+        xyz = 5.0 + cloud(b, n, 3)
+        xyz[:, near] = cloud(b, len(near), 3, scale=0.01)
+        return xyz
+    dense = cloud(2, 3000, 3)
+    far = torch.cat([dense[:, :200], torch.full((2, 8, 3), 9.0, device=dev)],
                     dim=1)
-    for radii, ns in (((0.02, 0.05, 0.1), (8, 16, 64)), ((0.3,), (100,))):
+    query_cases = {
+        ">ns hits in one 32-point run": (
+            near_origin(1, 256, list(range(32)) + list(range(64, 80))),
+            cloud(1, 5, 3, scale=0.01), (0.05, 0.1), (8, 40)),
+        "hits straddling 31/32": (
+            near_origin(2, 100, list(range(28, 38))),
+            cloud(2, 6, 3, scale=0.01), (0.05, 0.1), (4, 16)),
+        "N=1013, m=77": (cloud(1, 1013, 3), cloud(1, 77, 3), (0.05, 0.1),
+                         (16, 32)),
+        "one scale full, one never": (dense, dense[:, :50], (0.5, 1e-4),
+                                      (8, 32)),
+        "B=2, 3 scales, empty balls": (dense, far, (0.02, 0.05, 0.1),
+                                       (8, 16, 64)),
+        "one scale, ns=100, empty balls": (dense, far, (0.3,), (100,)),
+    }
+    for name, (xyz, cen, radii, ns) in query_cases.items():
         if not _index_equal(query.ball_query(radii, ns, xyz, cen),
                             query.ball_query_plain(radii, ns, xyz, cen)):
-            raise AssertionError(f"edge query r={radii}")
-        cases += 1
+            raise AssertionError(f"edge query {name}")
+    cases += len(query_cases)
     for n, m, c in ((500, 2, 7), (300, 1500, 0), (1000, 3, 33)):
         u, k = cloud(2, n, 3), cloud(2, m, 3)
         f = torch.randn(2, m, c, device=dev)
@@ -432,7 +489,7 @@ def phase_reference(seed: int = 1):
     > 99.9% seg agreement; and the full-width pose stage on labelled votes
     (three classes present) within 1e-4, timed on the card."""
     from pvn3d_tpu_torch.config import Config, small_model_config
-    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.data.synthetic import depth_cloud, synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)

@@ -109,17 +109,15 @@ class PointNet2Config:
     query_mode: str = "auto"
     # FP-stage 3-NN interpolation kernel, independent of the ball query:
     # "auto" resolves to the fused exact 3-NN+IDW pallas kernel on TPU
-    # (ops/pallas/interp.py — exact, grads match XLA, and measured faster
-    # at every FP level: 0.75 vs 1.02 ms at n=12288/C=256 down to 0.46 vs
-    # 0.54 ms at n=512/C=1024 on v5-lite, benchmarks/fp_bench.py) and to
-    # exact top_k elsewhere; "exact"/"approx" force the XLA three_nn
-    # formulation, "pallas" forces the fused kernel.
+    # (ops/pallas/interp.py — exact, grads match XLA) and to exact top_k
+    # elsewhere; "exact"/"approx" force the XLA three_nn formulation,
+    # "pallas" forces the fused kernel.
     interp_mode: str = "auto"
     # Sharded FPS: sort by the widest axis, cut into G contiguous
     # equal-count slabs, run G parallel FPS chains of m/G steps each
     # (ops/sampling.py::_fps_grouped).  1 = reference-exact serial FPS.
-    # G=4 cuts the ~5 ms serial chain (~40% of single-frame forward
-    # latency) ~4x; covering radius measured ~1.12x exact greedy.
+    # G=4 cuts the serial chain of dependent steps 4x; covering radius
+    # measured ~1.12x exact greedy.
     # MEASURED accuracy cost on the synthetic e2e world (600-step
     # training, benchmarks/synthetic_e2e.py): exact ADD-AUC 33.5 /
     # seg 0.854; trained+evaled with G=4: 24.7 / 0.757; weights trained
@@ -138,16 +136,16 @@ class PointNet2Config:
     # containing it, so FPS over a previous level's pick-ordered output
     # (seeded at its index 0, the previous seed) selects exactly rows
     # [0, npoint).  Levels 1..3 therefore slice instead of running their
-    # serial chains: 3712 -> 2048 dependent steps (~45% of the ~5 ms FPS
-    # stage) with bit-identical selection (modulo float ties; the
+    # serial chains: 3712 -> 2048 dependent steps (45% fewer) with
+    # bit-identical selection (modulo float ties; the
     # mag<=1e-3 skip quirk is per-point and subset-independent, so it
     # preserves the property).  Exact mode only (fps_groups == 1).
     fps_prefix: bool = True
     # approx_min_k recall_target for approx-mode ball query.  The cost is
     # almost entirely the exact-aggregation phase over the reduction
     # buffer, whose width is recall-driven: at L0 (N=12288, k=32) 0.99
-    # keeps 6144 candidates (2.2 ms) while 0.95 keeps 768 (0.43 ms, 5x)
-    # and 0.98 keeps 1536.  MEASURED neighbor-set recall on the bench's
+    # keeps 6144 candidates while 0.95 keeps 768 (8x fewer) and 0.98
+    # keeps 1536.  MEASURED neighbor-set recall on the bench's
     # synthetic depth clouds: 0.9956/0.9945 (scales 1/2) at target 0.95
     # vs 0.9984/0.9994 at 0.99.  BUT e2e accuracy is sharply sensitive:
     # evaluating 0.99-trained weights at 0.95 dropped ADD-AUC 33.1 ->
@@ -226,8 +224,7 @@ class CNNConfig:
     # layout-bound full-res resize disappears.  Same parameters; equal to
     # the reference graph up to summation-order rounding.  Train mode
     # always uses the standard graph; the last (full-res) stage always
-    # runs standard (measured slower fused, cnn_breakdown.py).  Measured
-    # v5-lite: up1 1.28 -> 0.74 ms, up2 1.08 -> 0.91 ms.
+    # runs standard (measured slower fused, cnn_breakdown.py).
     fuse_upsample: bool = True
 
 
@@ -247,8 +244,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"   # MXU-friendly; params stay f32
     # Evaluate the CNN tail (last PSP upsample + embedding head) only at
     # the N sampled pixels in eval mode.  Parameter-identical and
-    # output-equivalent to dense-then-gather (tests/test_sparse_cnn.py);
-    # measured 80.0 vs 75.9 fps full-pipeline on v5-lite (chip_queue).
+    # output-equivalent to dense-then-gather (tests/test_sparse_cnn.py).
     # Train mode always runs dense (batch stats over the full map).
     sparse_cnn_eval: bool = True
     # Eval-only: evaluate the three heads' first Dense on the split
@@ -288,9 +284,8 @@ class TrainConfig:
     loss_weights: Tuple[float, float, float] = (2.0, 1.0, 1.0)
     focal_gamma: float = 2.0
     seed: int = 0
-    # Rematerialize the forward in backward (jax.checkpoint).  Needed for
-    # large per-chip batches (bs 24 on a single 16 GB chip spills HBM and
-    # collapses to host-offload speeds without it).
+    # Rematerialize the forward in backward (jax.checkpoint): trades
+    # recompute for activation memory at large per-device batches.
     remat: bool = False
     # What the checkpointed forward is allowed to keep (jax.checkpoint
     # ``policy``).  "full" saves nothing (max recompute, min memory);

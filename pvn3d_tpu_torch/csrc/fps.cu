@@ -1,4 +1,4 @@
-// K1: iterative farthest-point sampling, one thread block per batch row.
+// K1: iterative farthest-point sampling, one thread-block cluster per row.
 //
 // Replaces pvn3d_tpu/ops/pallas/fps.py::fps_pallas (_fps_kernel_wide at
 // B <= 2, _fps_kernel at B > 2).  Semantics (sampling_gpu.cu:92-110 of the
@@ -7,29 +7,84 @@
 // points with |p|^2 <= 1e-3 never win and never update the cache; a row
 // where every point is skipped yields 0.
 //
-// Bound: latency.  npoint-1 dependent steps, each an O(N) update plus a
-// block-wide argmax; at N=12288, m=2048 the whole row is ~150 KB of data
-// and ~0.2 GFLOP, so neither bytes nor operations bound it, the chain of
-// 2047 block barriers does.  Design: 1024 threads hold the row's points and
-// their min-d^2 cache in registers (PER points each, a template constant),
-// so a step reads no memory beyond the picked point; the argmax is a warp
-// shuffle reduction plus one shared-memory round, two barriers per step.
-// Rows longer than 12 * 1024 points keep the cache in a global scratch row.
+// Bound: latency.  npoint-1 dependent steps, each an O(N) update plus an
+// argmax over the row; at N=12288, m=2048 the row is ~150 KB and the work
+// ~0.2 GFLOP, so neither bytes nor operations bound it: the chain of 2047
+// steps does, and each step's cost is its update (spread over the SMs
+// that hold the row) plus one cross-SM exchange.
+//
+// Design: the row and its min-d^2 cache are split across a cluster of
+// kCluster CTAs on neighbouring SMs, kPer points per thread in registers.
+// Each CTA also keeps the whole row's xyz in shared memory, so the last
+// pick's coordinates are a local shared read and a step touches no global
+// memory.  A step is:
+//   1. every thread updates its kPer cache entries and folds them into one
+//      packed 64-bit key (pack() below: one unsigned max orders by value,
+//      then by lowest index), then a warp max (two redux.sync);
+//   2. lane r of every warp stores the warp's key into CTA r's key array
+//      through distributed shared memory (DSMEM), at the sender's own
+//      place (rank * kWarps + warp), so every place has one writer;
+//   3. one cluster barrier (arrive.release / wait.acquire);
+//   4. every warp reads the kKeys keys of its own CTA's array (kKeys / 32
+//      loads a lane) and takes their warp max: the pick.
+// The arrays are double-buffered by step (s_keys[i & 1] at step i).  Step
+// i + 1 writes the array that step i - 1 read; its writers pass barrier i
+// first, which every reader of step i - 1 reaches only after its reads, so
+// one barrier per step orders them.  No array is ever cleared: every place
+// is rewritten each step.  (A 64-bit atomicMax into one remote slot would
+// save the reads, but nvcc lowers a 64-bit shared-memory atomicMax to a
+// compare-and-swap loop on the CTA's own shared memory (ATOMS.CAST.SPIN.64
+// in the SASS), which does not reach the other CTAs: each CTA read a
+// different maximum.  A 32-bit key cannot hold value and index.)
+//
+// Rows longer than the register capacity (kRegisterRow points) keep the
+// cache in a global scratch row and read the pick's coordinates from
+// global memory (fps_kernel<0>); batch B launches B clusters.  Compile-time
+// knobs (FPS_CLUSTER, FPS_THREADS, FPS_CTA_REDUCE) exist so that
+// pvn3d_tpu_torch/tools/kernel_variants.py can time the alternatives; the
+// defaults are the measured fastest (PERF.md).  FPS_CTA_REDUCE=1 reduces
+// within the CTA first (one more CTA barrier) and sends one key per CTA,
+// so a step reads kCluster keys instead of kCluster * kWarps;
+// FPS_CLUSTER=1 with FPS_THREADS=1024 is the single-block kernel built the
+// same way.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics, so
 // nvcc cannot contract it into FMAs and it equals the plain version's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <climits>
 #include <math_constants.h>
+
+#ifndef FPS_CLUSTER
+#define FPS_CLUSTER 16
+#endif
+#ifndef FPS_THREADS
+#define FPS_THREADS 128
+#endif
+#ifndef FPS_CTA_REDUCE
+#define FPS_CTA_REDUCE 0
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kCluster = FPS_CLUSTER;
+constexpr int kThreads = FPS_THREADS;
+// Rows up to this many points keep their cache in registers: the serving
+// path's row, split exactly over the cluster's threads.
+constexpr int kRegisterRow = 12288;
+constexpr int kPer = kRegisterRow / (kCluster * kThreads);
+static_assert(kPer * kCluster * kThreads == kRegisterRow,
+              "the cluster's threads must split the register row evenly");
+static_assert(kCluster <= 32 && kThreads <= 1024,
+              "one lane per destination CTA, one warp per CTA key");
 constexpr int kWarps = kThreads / 32;
-// Points per thread on the register path: 12 * 1024 = 12288, the serving
-// path's row, with no spills.
-constexpr int kRegisterPer = 12;
+// Keys a step gathers in every CTA: one per warp of the cluster, or one
+// per CTA when the CTA reduces first.
+constexpr int kKeys = FPS_CTA_REDUCE ? kCluster : kCluster * kWarps;
+// Returned when no cluster of kCluster CTAs fits on the card.
+constexpr int kErrNoCluster = -1;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -40,19 +95,8 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// (v, i) <- max of (v, i) and (v2, i2): larger value, lower index on ties.
-__device__ __forceinline__ void take_better(float& v, int& i, float v2,
-                                            int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
 // Initial cache value: skipped points and padding hold -inf, which no
-// min() ever raises and which loses every argmax to a real cache value;
-// in a row where every point is skipped the lowest index (point 0) wins,
-// as in the reference.
+// fminf ever raises.
 __device__ __forceinline__ float initial_min(float x, float y, float z,
                                              bool in_row) {
   const float mag =
@@ -60,27 +104,66 @@ __device__ __forceinline__ float initial_min(float x, float y, float z,
   return (in_row && !(mag <= 1e-3f)) ? 1e10f : -CUDART_INF_F;
 }
 
+// Argmax key of point j with cache value v: the high word orders by value,
+// the low word (the inverted index) by lowest index on ties.  A real value
+// v >= 0 maps to bits(v) + 1, which orders as v does for non-negative
+// floats; -inf (skipped or padding) maps to 0.  So a real point whose
+// min-d^2 has fallen to 0 still beats every skipped point, and a row where
+// every point is skipped yields its lowest index, 0 (padding indices are
+// all above n).
+__device__ __forceinline__ unsigned long long pack(float v, int j) {
+  const unsigned hi = v >= 0.f ? __float_as_uint(v) + 1u : 0u;
+  return (static_cast<unsigned long long>(hi) << 32) |
+         (0xffffffffu - static_cast<unsigned>(j));
+}
+
+__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// Max of a key over the warp, left in every lane: two single-instruction
+// 32-bit warp reductions (redux.sync), the high word's max and then the
+// largest low word among the lanes that hold it, in place of five rounds of
+// 64-bit shuffles.
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+  const unsigned hi = static_cast<unsigned>(v >> 32);
+  const unsigned top = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, hi == top ? static_cast<unsigned>(v) : 0u);
+  return (static_cast<unsigned long long>(top) << 32) | lo;
+}
+
 template <int PER>
 __global__ void __launch_bounds__(kThreads)
     fps_kernel(const float* __restrict__ xyz, int n, int m,
                int* __restrict__ out, float* __restrict__ scratch) {
-  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
-  int* o = out + static_cast<size_t>(blockIdx.x) * m;
-  float* cache = scratch + static_cast<size_t>(blockIdx.x) * n;
+  extern __shared__ float s_xyz[];  // PER > 0: the row, 3n floats
+  // Step i's keys from every sender of the cluster: s_keys[i & 1].
+  __shared__ unsigned long long s_keys[2][kKeys];
+#if FPS_CTA_REDUCE
+  __shared__ unsigned long long s_warp[kWarps];  // this CTA's warp maxima
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / kCluster;
+  const float* p = xyz + static_cast<size_t>(row) * n * 3;
+  int* o = out + static_cast<size_t>(row) * m;
+  float* cache = scratch + static_cast<size_t>(row) * n;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ int s_best;
+  const int first = rank * kThreads + tid;  // this thread's first point
+  constexpr int kStride = kCluster * kThreads;
 
-  // PER > 0: this thread's points j = tid + k * kThreads live in registers.
+  // PER > 0: points j = first + k * kStride live in registers.
   float px[PER > 0 ? PER : 1], py[PER > 0 ? PER : 1], pz[PER > 0 ? PER : 1];
   float mind[PER > 0 ? PER : 1];
   if constexpr (PER > 0) {
+    for (int t = tid; t < 3 * n; t += kThreads) s_xyz[t] = p[t];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int j = tid + k * kThreads;
+      const int j = first + k * kStride;
       const bool in_row = j < n;
       px[k] = in_row ? p[3 * j] : 0.f;
       py[k] = in_row ? p[3 * j + 1] : 0.f;
@@ -88,79 +171,109 @@ __global__ void __launch_bounds__(kThreads)
       mind[k] = initial_min(px[k], py[k], pz[k], in_row);
     }
   } else {
-    for (int j = tid; j < n; j += kThreads) {
+    for (int j = first; j < n; j += kStride) {
       cache[j] = initial_min(p[3 * j], p[3 * j + 1], p[3 * j + 2], true);
     }
   }
-  if (tid == 0) o[0] = 0;
+  if (rank == 0 && tid == 0) o[0] = 0;
+  // Every CTA of the cluster is running, and its copy of the row is
+  // complete, before any remote store or shared read.
+  cluster.sync();
 
   int last = 0;
   for (int i = 1; i < m; ++i) {
-    const float lx = p[3 * last], ly = p[3 * last + 1], lz = p[3 * last + 2];
-    float bv = -CUDART_INF_F;
-    int bi = INT_MAX;
+    const float* lp = PER > 0 ? s_xyz + 3 * last : p + 3 * last;
+    const float lx = lp[0], ly = lp[1], lz = lp[2];
+    unsigned long long best = 0ull;
     if constexpr (PER > 0) {
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        const float d = sqdist(px[k], py[k], pz[k], lx, ly, lz);
-        mind[k] = fminf(mind[k], d);
-        const int j = tid + k * kThreads;
-        if (j < n) take_better(bv, bi, mind[k], j);
+        mind[k] = fminf(mind[k], sqdist(px[k], py[k], pz[k], lx, ly, lz));
+        best = umax64(best, pack(mind[k], first + k * kStride));
       }
     } else {
-      for (int j = tid; j < n; j += kThreads) {
+      for (int j = first; j < n; j += kStride) {
         const float d =
             sqdist(p[3 * j], p[3 * j + 1], p[3 * j + 2], lx, ly, lz);
         const float c = fminf(cache[j], d);
         cache[j] = c;
-        take_better(bv, bi, c, j);
+        best = umax64(best, pack(c, j));
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float v2 = __shfl_down_sync(0xffffffffu, bv, off);
-      const int i2 = __shfl_down_sync(0xffffffffu, bi, off);
-      take_better(bv, bi, v2, i2);
-    }
-    if (lane == 0) {
-      s_val[warp] = bv;
-      s_idx[warp] = bi;
-    }
+    best = warp_max(best);
+    unsigned long long* keys = s_keys[i & 1];
+#if FPS_CTA_REDUCE
+    // s_warp is read below by warp 0 before it arrives at barrier i and
+    // written next in step i + 1, after barrier i.
+    if (lane == 0) s_warp[warp] = best;
     __syncthreads();
     if (warp == 0) {
-      bv = s_val[lane];
-      bi = s_idx[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float v2 = __shfl_down_sync(0xffffffffu, bv, off);
-        const int i2 = __shfl_down_sync(0xffffffffu, bi, off);
-        take_better(bv, bi, v2, i2);
-      }
-      if (lane == 0) {
-        const int nxt = bi == INT_MAX ? 0 : bi;
-        s_best = nxt;
-        o[i] = nxt;
-      }
+      best = warp_max(lane < kWarps ? s_warp[lane] : 0ull);
+      if (lane < kCluster) *cluster.map_shared_rank(keys + rank, lane) = best;
     }
-    __syncthreads();
-    last = s_best;
+#else
+    if (lane < kCluster) {
+      *cluster.map_shared_rank(keys + rank * kWarps + warp, lane) = best;
+    }
+#endif
+    cluster.sync();
+    unsigned long long key = 0ull;
+#pragma unroll
+    for (int q = lane; q < kKeys; q += 32) key = umax64(key, keys[q]);
+    key = warp_max(key);
+    last = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+    if (rank == 0 && tid == 0) o[i] = last;
   }
+}
+
+template <int PER>
+int launch(const float* xyz, int b, int n, int m, int* out, float* scratch,
+           cudaStream_t stream) {
+  auto kernel = fps_kernel<PER>;
+  const size_t smem = PER > 0 ? static_cast<size_t>(n) * 3 * sizeof(float)
+                              : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && kCluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters == 0) return kErrNoCluster;
+  err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, m, out, scratch);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
+// scratch holds b * n floats when n > kRegisterRow (the cache of the
+// scratch path); it is not read otherwise.
 extern "C" int fps_launch(const float* xyz, int b, int n, int m, int* out,
                           float* scratch, cudaStream_t stream) {
-  const dim3 grid(b), block(kThreads);
-  if (n <= kRegisterPer * kThreads) {
-    fps_kernel<kRegisterPer><<<grid, block, 0, stream>>>(xyz, n, m, out,
-                                                         scratch);
-  } else {
-    fps_kernel<0><<<grid, block, 0, stream>>>(xyz, n, m, out, scratch);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return n <= kRegisterRow ? launch<kPer>(xyz, b, n, m, out, scratch, stream)
+                           : launch<0>(xyz, b, n, m, out, scratch, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {
+  if (code == kErrNoCluster) {
+    return "no cluster of FPS_CLUSTER CTAs with this row's shared memory "
+           "can be scheduled on this card";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,4 +1,4 @@
-// K2: exact multi-scale ball query, one thread per centroid.
+// K2: exact multi-scale ball query, one warp per centroid.
 //
 // Replaces pvn3d_tpu/ops/pallas/query.py::ball_query_pallas
 // (_query_kernel).  Semantics (ball_query_gpu.cu:26-43 of the reference):
@@ -7,26 +7,59 @@
 // nothing hits.  The TPU kernel was exact only up to query_capacity hits per
 // residue class (a lane-layout artefact); this one is exact with no limit.
 //
-// Bound: operations on the scan.  Each centroid compares against points in
-// index order until every scale holds ns hits, so the work is data
-// dependent: at most m * N distance evaluations (L0: 2048 x 12288 = 25M,
-// ~9 flops each), far less on a depth cloud whose small radii fill late.
-// Bytes are tiny (N*12 in, m*(ns1+ns2)*4 out).  Design: the reference
-// algorithm, with the block's points staged through shared memory in tiles
-// that every thread of the block scans in the same order (broadcast reads),
-// d^2 computed once for all scales, and the block leaving the scan as soon
-// as all its centroids are full (__syncthreads_and).
+// Bound: operations on the scan.  Each centroid tests points in index
+// order until every scale holds ns hits, so the work is data dependent: at
+// most m * N direct-form distance tests per level (L0: 2048 x 12288 =
+// 25M), far fewer where the balls fill early.  Bytes are small (N*12 in,
+// m*(ns1+ns2)*4 out).  What held the work back was the grid, not the
+// tests: one thread per centroid filled 8 blocks at L0.
+//
+// Design: one warp serves one centroid, so L0 runs 2048 warps over the
+// whole card.  Lane l tests point base + l for base = 0, 32, 64, ...,
+// with coalesced loads of the row, which stays in L1 across the block's
+// warps.  d^2 is computed once per pair and compared against every
+// scale's r^2.  Per scale, __ballot_sync gives the 32-point run's hits and
+// __popc(hits & lanemask_lt) each hitting lane's rank, so the lane's slot
+// is cnt + rank; lanes whose slot is below ns store their index, and the
+// output stays in index order with no sort.  cnt advances by
+// __popc(hits), capped at ns; the run's first hit is kept in a register.
+// The warp leaves the scan once every scale is full (a warp-uniform test),
+// then fills slots [cnt, ns) with the first hit, or 0 when cnt == 0.
+// Each trip of the scan loads kRuns runs before it ballots the first, so
+// a lane keeps kRuns points in flight.  Up to 4 scales.
+//
+// Compile-time knobs, timed by pvn3d_tpu_torch/tools/kernel_variants.py
+// (the defaults are the measured fastest, PERF.md): QUERY_THREADS (warps,
+// so centroids, per block), QUERY_RUNS, and QUERY_STAGED=1, which copies
+// the row into shared memory once per block with one bulk asynchronous
+// copy (cp.async.bulk + mbarrier) and scans it there.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics: no FMA
 // contraction, so radius membership equals the plain version's bit for bit.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
+
+#ifndef QUERY_STAGED
+#define QUERY_STAGED 0
+#endif
+#ifndef QUERY_THREADS
+#define QUERY_THREADS 256
+#endif
+#ifndef QUERY_RUNS
+#define QUERY_RUNS 2
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;
+constexpr int kThreads = QUERY_THREADS;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRuns = QUERY_RUNS;  // 32-point runs loaded per scan trip
 constexpr int kMaxScales = 4;
+// Largest dynamic shared memory one block may use on sm_90.
+constexpr int kMaxSmem = 232448;
 
 struct Scales {
   float r2[kMaxScales];
@@ -43,69 +76,129 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+#if QUERY_STAGED
+// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared memory; every thread of the block waits
+// for the copy on an mbarrier.
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned bar_addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  const unsigned dst_addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_addr)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar_addr),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst_addr),
+        "l"(src), "r"(bytes), "r"(bar_addr)
+        : "memory");
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar_addr)
+        : "memory");
+  }
+}
+#endif
+
+// One run of 32 consecutive points (lane l holds point base + l at d2):
+// every scale that is not full yet takes the run's hits in index order.
+// Returns whether every scale is full.  cnt is the same in every lane, so
+// every branch here is uniform across the warp.
+__device__ __forceinline__ bool take_run(int (&cnt)[kMaxScales],
+                                         int (&first)[kMaxScales],
+                                         int* (&dst)[kMaxScales],
+                                         const Scales& sc, int n_scales,
+                                         float d2, int base, int lane) {
+  const unsigned lanes_below = (1u << lane) - 1u;
+  bool full = true;
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s < n_scales && cnt[s] < sc.ns[s]) {
+      const int ns = sc.ns[s];
+      const unsigned hits = __ballot_sync(0xffffffffu, d2 < sc.r2[s]);
+      const int slot = cnt[s] + __popc(hits & lanes_below);
+      if (((hits >> lane) & 1u) && slot < ns) dst[s][slot] = base + lane;
+      if (cnt[s] == 0 && hits) first[s] = base + __ffs(hits) - 1;
+      cnt[s] = min(ns, cnt[s] + __popc(hits));
+      full = full && cnt[s] == ns;
+    }
+  }
+  return full;
+}
+
 __global__ void __launch_bounds__(kThreads)
     ball_query_kernel(const float* __restrict__ xyz,
                       const float* __restrict__ centers, int n, int m,
-                      int n_scales, Scales sc) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
+                      int n_scales, Scales sc, int staged) {
   const int b = blockIdx.y;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = row < m;
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const float* p = xyz + static_cast<size_t>(b) * n * 3;
-  const size_t crow = static_cast<size_t>(b) * m + row;
-
-  float cx = 0.f, cy = 0.f, cz = 0.f;
-  if (active) {
-    cx = centers[3 * crow];
-    cy = centers[3 * crow + 1];
-    cz = centers[3 * crow + 2];
+#if QUERY_STAGED
+  extern __shared__ __align__(16) float s_row[];
+  __shared__ __align__(8) unsigned long long s_bar;
+  if (staged) {
+    stage_row(s_row, p, static_cast<unsigned>(n) * 12u, &s_bar);
+    p = s_row;
   }
-  int cnt[kMaxScales];
+#endif
+  if (c >= m) return;  // whole warps only: c is uniform across the warp
+  const size_t crow = static_cast<size_t>(b) * m + c;
+  const float cx = centers[3 * crow];
+  const float cy = centers[3 * crow + 1];
+  const float cz = centers[3 * crow + 2];
+
+  int cnt[kMaxScales], first[kMaxScales];
   int* dst[kMaxScales];
 #pragma unroll
   for (int s = 0; s < kMaxScales; ++s) {
     cnt[s] = 0;
+    first[s] = 0;
     dst[s] = s < n_scales ? sc.out[s] + crow * sc.ns[s] : nullptr;
   }
-  bool done = !active;
 
-  for (int base = 0; base < n; base += kTile) {
-    if (__syncthreads_and(done)) break;
-    const int lim = min(kTile, n - base);
-    for (int t = threadIdx.x; t < lim; t += kThreads) {
-      sx[t] = p[3 * (base + t)];
-      sy[t] = p[3 * (base + t) + 1];
-      sz[t] = p[3 * (base + t) + 2];
-    }
-    __syncthreads();
-    for (int k = 0; k < lim && !done; ++k) {
-      const float d2 = sqdist(cx, cy, cz, sx[k], sy[k], sz[k]);
-      const int idx = base + k;
-      bool full = true;
+  // kRuns runs of 32 points per trip: their loads are all issued before
+  // the first run's ballots, so a lane has kRuns points in flight.
+  for (int base = 0; base < n; base += 32 * kRuns) {
+    float d2[kRuns];
 #pragma unroll
-      for (int s = 0; s < kMaxScales; ++s) {
-        if (s >= n_scales) break;
-        const int ns = sc.ns[s];
-        if (cnt[s] < ns && d2 < sc.r2[s]) {
-          if (cnt[s] == 0) {
-            for (int q = 0; q < ns; ++q) dst[s][q] = idx;
-          }
-          dst[s][cnt[s]] = idx;
-          ++cnt[s];
-        }
-        full = full && cnt[s] == ns;
-      }
-      done = full;
+    for (int r = 0; r < kRuns; ++r) {
+      const int j = base + 32 * r + lane;
+      d2[r] = j < n
+                  ? sqdist(cx, cy, cz, p[3 * j], p[3 * j + 1], p[3 * j + 2])
+                  : CUDART_INF_F;
     }
+    bool full = false;
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r) {
+      if (!full) {
+        full = take_run(cnt, first, dst, sc, n_scales, d2[r], base + 32 * r,
+                        lane);
+      }
+    }
+    if (full) break;
   }
-  if (active) {
 #pragma unroll
-    for (int s = 0; s < kMaxScales; ++s) {
-      if (s >= n_scales) break;
-      if (cnt[s] == 0) {
-        for (int q = 0; q < sc.ns[s]; ++q) dst[s][q] = 0;
-      }
-    }
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s >= n_scales) break;
+    const int fill = cnt[s] > 0 ? first[s] : 0;
+    for (int q = cnt[s] + lane; q < sc.ns[s]; q += 32) dst[s][q] = fill;
   }
 }
 
@@ -127,9 +220,25 @@ extern "C" int ball_query_launch(const float* xyz, const float* centers,
     sc.ns[s] = used ? nsamples[s] : 0;
     sc.out[s] = used ? outs[s] : nullptr;
   }
-  const dim3 grid((m + kThreads - 1) / kThreads, b), block(kThreads);
-  ball_query_kernel<<<grid, block, 0, stream>>>(xyz, centers, n, m, n_scales,
-                                                sc);
+  int smem = 0;
+  int staged = 0;
+#if QUERY_STAGED
+  // The bulk copy needs 16-byte aligned rows whose size is a multiple of
+  // 16 bytes; other rows are scanned from global memory.
+  const size_t row_bytes = static_cast<size_t>(n) * 12;
+  staged = row_bytes % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(xyz) % 16 == 0 &&
+           row_bytes <= static_cast<size_t>(kMaxSmem) - 1024;
+  if (staged) {
+    smem = static_cast<int>(row_bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+#endif
+  const dim3 grid((m + kWarps - 1) / kWarps, b), block(kThreads);
+  ball_query_kernel<<<grid, block, smem, stream>>>(xyz, centers, n, m,
+                                                   n_scales, sc, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,13 +2,18 @@
 
 Replaces ``pvn3d_tpu/ops/pallas/fps.py::fps_pallas`` (the Pallas kernels
 ``_fps_kernel_wide`` and ``_fps_kernel``).  Bound on the card: latency —
-npoint-1 dependent steps of an O(N) update and a block-wide argmax, with
-~150 KB of data per row; the kernel keeps the row and its min-d^2 cache in
-registers of one 1024-thread block, so a step costs two block barriers and
-no memory traffic beyond the picked point (source note in ``fps.cu``).
+npoint-1 dependent steps of an O(N) update and an argmax over the row,
+with ~150 KB of data per row.  The kernel splits the row and its min-d^2
+cache over one cluster of 16 CTAs per row (registers, 6 points a thread
+at N = 12288), keeps the row's xyz in every CTA's shared memory,
+and gathers the step's packed (value, index) keys in every CTA through
+distributed shared memory: one cluster barrier per step (source note in
+``fps.cu``).
+Rows past 12288 points keep the cache in a global scratch row.
 
 ``fps`` takes the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor; it never falls back from one to the other.
+for a CUDA tensor; it never falls back from one to the other.  Where no
+cluster fits on the card the launch raises.
 """
 from __future__ import annotations
 

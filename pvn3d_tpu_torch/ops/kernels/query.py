@@ -5,9 +5,10 @@ Replaces ``pvn3d_tpu/ops/pallas/query.py::ball_query_pallas``
 (``_query_kernel``).  The TPU kernel is exact only up to
 ``query_capacity`` hits per residue class; this kernel is exact, with the
 reference's first-ns-in-index-order semantics.  Bound on the card: the
-data-dependent scan, at most m*N direct-form distance tests per level; the
-kernel stages points through shared memory in index order, tests each pair
-once for every scale, and stops a block once all its centroids are full
+data-dependent scan, at most m*N direct-form distance tests per level.
+The kernel gives each centroid one warp (2048 warps at L0): lanes test 32
+consecutive points at once, a ballot and a popcount place each hit in its
+index-order slot, and the warp leaves the scan once every scale is full
 (source note in ``query.cu``).
 
 ``ball_query`` takes the plain version for a CPU tensor and launches the

@@ -57,6 +57,22 @@ class TestFPS:
         np.testing.assert_array_equal(got, np.asarray(jax_fps(
             jnp.asarray(xyz), 8, use_pallas=False)))
 
+    @pytest.mark.parametrize("b,distinct,copies,m", [(1, 100, 3, 150),
+                                                     (2, 64, 4, 96)])
+    def test_duplicates_beside_skipped(self, b, distinct, copies, m):
+        """More picks than distinct real points: real points reach min-d^2
+        0 and must still beat the skipped points (|p|^2 <= 1e-3), lowest
+        index first."""
+        xyz = np.tile(_cloud(11 + b, b, distinct, scale=4.0), (1, copies, 1))
+        xyz[:, ::7] = 0.0
+        got = fps.fps(torch.tensor(xyz), m).numpy()
+        assert not np.any(np.take_along_axis(
+            np.abs(xyz).sum(-1), got[:, 1:].astype(np.int64), 1) == 0)
+        np.testing.assert_array_equal(got, np.asarray(jax_fps(
+            jnp.asarray(xyz), m, use_pallas=False)))
+        np.testing.assert_array_equal(got, np.asarray(fps_pallas(
+            jnp.asarray(xyz), m, interpret=True)))
+
     def test_sampling_module(self):
         xyz = _cloud(3, 2, 256)
         idx = sampling.furthest_point_sample(torch.tensor(xyz), 32)
@@ -91,6 +107,29 @@ class TestBallQuery:
                               jnp.asarray(cen), mode="exact")[0]
         np.testing.assert_array_equal(got, np.asarray(want))
         assert (got[0, 3:] == 0).all()
+
+    @pytest.mark.parametrize("near", [
+        list(range(40)) + list(range(70, 90)),   # > ns hits in one run
+        list(range(28, 38)),                     # hits straddle 31/32
+    ], ids=["over_ns_in_one_run", "straddle_31_32"])
+    def test_runs_of_32(self, near):
+        """Hits packed into runs of 32 consecutive indices, as the
+        kernel's warp tests them: more hits than ns inside one run, and
+        hits either side of the 31/32 boundary."""
+        rng = np.random.RandomState(len(near))
+        xyz = 5.0 + rng.rand(2, 130, 3).astype(np.float32)
+        xyz[:, near] = (rng.rand(2, len(near), 3).astype(np.float32)
+                        - 0.5) * 0.01
+        cen = (rng.rand(2, 6, 3).astype(np.float32) - 0.5) * 0.01
+        radii, ns = (0.05, 0.1, 0.2), (4, 8, 48)
+        got = query.ball_query(radii, ns, torch.tensor(xyz),
+                               torch.tensor(cen))
+        want = jax_ball_query(radii, ns, jnp.asarray(xyz), jnp.asarray(cen),
+                              mode="exact")
+        for g, w, k in zip(got, want, ns):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert (g[..., :min(k, len(near))].numpy()
+                    == np.asarray(near[:k])).all()
 
     def test_group_points(self):
         rng = np.random.RandomState(9)

@@ -4,6 +4,7 @@ wrapper takes its plain version only for CPU tensors — any other tensor
 launches the kernel or raises."""
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -47,6 +48,22 @@ def test_port_imports_no_jax_and_no_jax_package():
                 assert name.split(".")[0] not in banned, f"{path}: {name}"
         seen += 1
     assert seen > 20
+
+
+def test_port_names_no_tpu_generation():
+    """The port states no TPU time, rate or size, so no source of it names
+    a TPU generation (a bare "v4" stays allowed: PTX has ld.global.v4)."""
+    generation = re.compile(r"v5[- ]?lite|\bv5e\b|\bv5p\b|TPU v(?=\d)",
+                            re.IGNORECASE)
+    pkg = os.path.join(ROOT, "pvn3d_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, files in os.walk(pkg)
+             for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    paths.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert any(p.endswith(".cu") for p in paths)
+    for path in paths:
+        with open(path) as f:
+            for no, line in enumerate(f, 1):
+                assert not generation.search(line), f"{path}:{no}: {line}"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
