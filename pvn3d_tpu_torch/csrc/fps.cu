@@ -64,6 +64,9 @@
 #ifndef FPS_CTA_REDUCE
 #define FPS_CTA_REDUCE 0
 #endif
+#ifndef FPS_ASYNC
+#define FPS_ASYNC 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -122,6 +125,46 @@ __device__ __forceinline__ unsigned long long umax64(unsigned long long a,
   return a > b ? a : b;
 }
 
+#if FPS_ASYNC
+// The shared::cluster address of `p` (this CTA's shared memory) in CTA
+// `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  return remote;
+}
+
+// Arm mbarrier `bar` (arrival count 1) for a phase that completes when
+// `bytes` more bytes have landed on it.
+__device__ __forceinline__ void arm(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete.  A phase that
+// never completes is a fault of the protocol: trap rather than hang.
+__device__ __forceinline__ void wait_phase(unsigned long long* bar,
+                                           unsigned parity) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done = 0;
+  for (unsigned tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+#endif
+
 // Max of a key over the warp, left in every lane: two single-instruction
 // 32-bit warp reductions (redux.sync), the high word's max and then the
 // largest low word among the lanes that hold it, in place of five rounds of
@@ -143,6 +186,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ unsigned long long s_keys[2][kKeys];
 #if FPS_CTA_REDUCE
   __shared__ unsigned long long s_warp[kWarps];  // this CTA's warp maxima
+#endif
+#if FPS_ASYNC
+  // s_bar[b] completes a phase when a step's kKeys keys have landed in
+  // s_keys[b].
+  __shared__ unsigned long long s_bar[2];
 #endif
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -176,6 +224,25 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (rank == 0 && tid == 0) o[0] = 0;
+#if FPS_ASYNC
+  constexpr unsigned kStepBytes = kKeys * sizeof(unsigned long long);
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       static_cast<unsigned>(__cvta_generic_to_shared(
+                           &s_bar[b])))
+                   : "memory");
+      arm(&s_bar[b], kStepBytes);  // steps 2 and 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // This lane's destination in CTA `lane` (buffer 0; buffer 1 lies at a
+  // fixed offset from it), and the phase parity of s_bar[b] in bit b.
+  const int dest = lane < kCluster ? lane : 0;
+  const unsigned r_key = cluster_addr(&s_keys[0][rank * kWarps + warp], dest);
+  const unsigned r_bar = cluster_addr(&s_bar[0], dest);
+  unsigned parities = 0u;
+#endif
   // Every CTA of the cluster is running, and its copy of the row is
   // complete, before any remote store or shared read.
   cluster.sync();
@@ -211,19 +278,46 @@ __global__ void __launch_bounds__(kThreads)
       best = warp_max(lane < kWarps ? s_warp[lane] : 0ull);
       if (lane < kCluster) *cluster.map_shared_rank(keys + rank, lane) = best;
     }
+#elif FPS_ASYNC
+    // Each store completes 8 bytes of the receiver's s_bar[i & 1] phase;
+    // a CTA waits for its own phase only, with no cluster barrier.  The
+    // buffer step i + 2 writes is safe to overwrite: its senders waited
+    // for every warp's step i + 1 key, each sent after that warp read
+    // step i's keys.
+    const int buf = i & 1;
+    if (lane < kCluster) {
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.u64 "
+          "[%0], %1, [%2];\n" ::"r"(r_key + buf * kStepBytes),
+          "l"(best), "r"(r_bar + buf * 8u)
+          : "memory");
+    }
+    wait_phase(&s_bar[buf], (parities >> buf) & 1u);
+    parities ^= 1u << buf;
 #else
     if (lane < kCluster) {
       *cluster.map_shared_rank(keys + rank * kWarps + warp, lane) = best;
     }
 #endif
+#if !FPS_ASYNC
     cluster.sync();
+#endif
     unsigned long long key = 0ull;
 #pragma unroll
     for (int q = lane; q < kKeys; q += 32) key = umax64(key, keys[q]);
     key = warp_max(key);
     last = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
     if (rank == 0 && tid == 0) o[i] = last;
+#if FPS_ASYNC
+    // Re-arm for step i + 2 before warp 0 sends its step i + 1 key, which
+    // every sender of a step i + 2 key must have received first.
+    if (tid == 0) arm(&s_bar[i & 1], kStepBytes);
+#endif
   }
+#if FPS_ASYNC
+  // No CTA leaves while another may still send to it.
+  cluster.sync();
+#endif
 }
 
 template <int PER>

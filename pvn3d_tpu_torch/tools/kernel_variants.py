@@ -27,7 +27,17 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-FPS_VARIANTS = {   # cluster CTAs, threads per CTA, CTA reduce first
+FPS_VARIANTS = {   # cluster CTAs, threads per CTA, exchange scheme
+    "cluster 16 x 128 threads, st.async + mbarrier": (16, 128, 2),
+    "cluster 16 x 256 threads, st.async + mbarrier": (16, 256, 2),
+    "cluster 16 x 64 threads, st.async + mbarrier": (16, 64, 2),
+    "cluster 8 x 512 threads, st.async + mbarrier": (8, 512, 2),
+    "cluster 8 x 256 threads, st.async + mbarrier": (8, 256, 2),
+    "cluster 8 x 128 threads, st.async + mbarrier": (8, 128, 2),
+    "cluster 4 x 1024 threads, st.async + mbarrier": (4, 1024, 2),
+    "cluster 4 x 512 threads, st.async + mbarrier": (4, 512, 2),
+    "cluster 4 x 256 threads, st.async + mbarrier": (4, 256, 2),
+    "cluster 2 x 1024 threads, st.async + mbarrier": (2, 1024, 2),
     "cluster 16 x 256 threads, per-warp send": (16, 256, 0),
     "cluster 16 x 256 threads, CTA reduce": (16, 256, 1),
     "cluster 16 x 128 threads, per-warp send": (16, 128, 0),
@@ -100,12 +110,13 @@ def main(argv=None) -> int:
                          text=True, timeout=60,
                          check=True).stdout.strip(), flush=True)
     variants = []   # (module, label, kernel)
-    for label, (cluster, threads, reduce) in FPS_VARIANTS.items():
+    for label, (cluster, threads, scheme) in FPS_VARIANTS.items():
         variants.append((fps, label, CudaKernel(
-            f"fps_c{cluster}_t{threads}_r{reduce}", "fps.cu",
+            f"fps_c{cluster}_t{threads}_x{scheme}", "fps.cu",
             fps.KERNEL.symbol, fps.KERNEL.argtypes[:-1],
             defines=(f"-DFPS_CLUSTER={cluster}", f"-DFPS_THREADS={threads}",
-                     f"-DFPS_CTA_REDUCE={reduce}"))))
+                     f"-DFPS_CTA_REDUCE={int(scheme == 1)}",
+                     f"-DFPS_ASYNC={int(scheme == 2)}"))))
     for label, (staged, threads, n_runs) in QUERY_VARIANTS.items():
         variants.append((query, label, CudaKernel(
             f"query_s{staged}_t{threads}_r{n_runs}", "query.cu",
