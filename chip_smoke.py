@@ -336,10 +336,9 @@ def phase_edge_cases(rng) -> None:
     rows[1] *= 0.005          # |p|^2 <= 1e-3: every point skipped
     fps_rows["all-skipped row 1 of B=3"] = (rows, 64)
     for name, (xyz, m) in fps_rows.items():
-        got = fps.fps(xyz, m)
-        if not torch.equal(got, fps.fps_plain(xyz, m)):
+        if not torch.equal(fps.fps(xyz, m), fps.fps_plain(xyz, m)):
             raise AssertionError(f"edge fps {name}")
-    if not bool((got[1] == 0).all()):
+    if not bool((fps.fps(rows, 64)[1] == 0).all()):
         raise AssertionError("edge fps: all-skipped row is not all 0")
     cases = len(fps_rows)
 

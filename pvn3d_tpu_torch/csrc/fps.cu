@@ -11,7 +11,7 @@
 // argmax over the row; at N=12288, m=2048 the row is ~150 KB and the work
 // ~0.2 GFLOP, so neither bytes nor operations bound it: the chain of 2047
 // steps does, and each step's cost is its update (spread over the SMs
-// that hold the row) plus one cross-SM exchange.
+// that hold the row) plus one exchange between those SMs.
 //
 // Design: the row and its min-d^2 cache are split across a cluster of
 // kCluster CTAs on neighbouring SMs, kPer points per thread in registers.
@@ -21,32 +21,35 @@
 //   1. every thread updates its kPer cache entries and folds them into one
 //      packed 64-bit key (pack() below: one unsigned max orders by value,
 //      then by lowest index), then a warp max (two redux.sync);
-//   2. lane r of every warp stores the warp's key into CTA r's key array
-//      through distributed shared memory (DSMEM), at the sender's own
-//      place (rank * kWarps + warp), so every place has one writer;
-//   3. one cluster barrier (arrive.release / wait.acquire);
-//   4. every warp reads the kKeys keys of its own CTA's array (kKeys / 32
-//      loads a lane) and takes their warp max: the pick.
-// The arrays are double-buffered by step (s_keys[i & 1] at step i).  Step
-// i + 1 writes the array that step i - 1 read; its writers pass barrier i
-// first, which every reader of step i - 1 reaches only after its reads, so
-// one barrier per step orders them.  No array is ever cleared: every place
-// is rewritten each step.  (A 64-bit atomicMax into one remote slot would
-// save the reads, but nvcc lowers a 64-bit shared-memory atomicMax to a
-// compare-and-swap loop on the CTA's own shared memory (ATOMS.CAST.SPIN.64
-// in the SASS), which does not reach the other CTAs: each CTA read a
-// different maximum.  A 32-bit key cannot hold value and index.)
+//   2. lane r of every warp stores the warp's key into CTA r's key buffer
+//      with st.async, at the sender's own place (rank * kWarps + warp);
+//      each store completes its 8 bytes on CTA r's mbarrier;
+//   3. every CTA waits on its own mbarrier until the step's kKeys keys
+//      have landed: no cluster-wide barrier, only the one-way latency of
+//      the stores;
+//   4. every warp reads the kKeys keys (kKeys / 32 loads a lane) and takes
+//      their warp max: the pick.
+// The buffers and their mbarriers are double-buffered by step (b = i & 1).
+// Thread 0 arms s_bar[b] for step i + 2 (expect kKeys * 8 bytes) right
+// after reading step i, before warp 0 sends its step i + 1 key; every
+// sender of a step i + 2 key has first received that key, so no step
+// i + 2 byte lands before the arming.  By the same chain a step i + 2 store
+// lands only after every warp of the receiver has sent its step i + 1 key,
+// which each warp computes from the keys it read at step i, so it never
+// overwrites a key still to be read.
+//
+// Measured alternatives (pvn3d_tpu_torch/tools/kernel_variants.py sweeps
+// FPS_CLUSTER and FPS_THREADS; the defaults are the fastest, PERF.md):
+// one cluster barrier per step (remote stores, barrier.cluster arrive /
+// wait) took 0.8 us a step on an H100 against 0.5 here.  A 64-bit
+// atomicMax into one remote slot does not work: nvcc lowers a 64-bit
+// shared-memory atomicMax to a compare-and-swap loop on the CTA's own
+// shared memory (ATOMS.CAST.SPIN.64 in the SASS), which never reaches the
+// other CTAs.
 //
 // Rows longer than the register capacity (kRegisterRow points) keep the
 // cache in a global scratch row and read the pick's coordinates from
-// global memory (fps_kernel<0>); batch B launches B clusters.  Compile-time
-// knobs (FPS_CLUSTER, FPS_THREADS, FPS_CTA_REDUCE) exist so that
-// pvn3d_tpu_torch/tools/kernel_variants.py can time the alternatives; the
-// defaults are the measured fastest (PERF.md).  FPS_CTA_REDUCE=1 reduces
-// within the CTA first (one more CTA barrier) and sends one key per CTA,
-// so a step reads kCluster keys instead of kCluster * kWarps;
-// FPS_CLUSTER=1 with FPS_THREADS=1024 is the single-block kernel built the
-// same way.
+// global memory (fps_kernel<0>); batch B launches B clusters.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics, so
 // nvcc cannot contract it into FMAs and it equals the plain version's.
@@ -56,16 +59,10 @@
 #include <math_constants.h>
 
 #ifndef FPS_CLUSTER
-#define FPS_CLUSTER 16
+#define FPS_CLUSTER 8
 #endif
 #ifndef FPS_THREADS
-#define FPS_THREADS 128
-#endif
-#ifndef FPS_CTA_REDUCE
-#define FPS_CTA_REDUCE 0
-#endif
-#ifndef FPS_ASYNC
-#define FPS_ASYNC 0
+#define FPS_THREADS 256
 #endif
 
 namespace cg = cooperative_groups;
@@ -80,12 +77,11 @@ constexpr int kRegisterRow = 12288;
 constexpr int kPer = kRegisterRow / (kCluster * kThreads);
 static_assert(kPer * kCluster * kThreads == kRegisterRow,
               "the cluster's threads must split the register row evenly");
-static_assert(kCluster <= 32 && kThreads <= 1024,
-              "one lane per destination CTA, one warp per CTA key");
+static_assert(kCluster <= 32, "one lane per destination CTA");
 constexpr int kWarps = kThreads / 32;
-// Keys a step gathers in every CTA: one per warp of the cluster, or one
-// per CTA when the CTA reduces first.
-constexpr int kKeys = FPS_CTA_REDUCE ? kCluster : kCluster * kWarps;
+// Keys a step gathers in every CTA: one per warp of the cluster.
+constexpr int kKeys = kCluster * kWarps;
+constexpr unsigned kStepBytes = kKeys * sizeof(unsigned long long);
 // Returned when no cluster of kCluster CTAs fits on the card.
 constexpr int kErrNoCluster = -1;
 
@@ -125,46 +121,6 @@ __device__ __forceinline__ unsigned long long umax64(unsigned long long a,
   return a > b ? a : b;
 }
 
-#if FPS_ASYNC
-// The shared::cluster address of `p` (this CTA's shared memory) in CTA
-// `rank` of the cluster.
-__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
-  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(local), "r"(rank));
-  return remote;
-}
-
-// Arm mbarrier `bar` (arrival count 1) for a phase that completes when
-// `bytes` more bytes have landed on it.
-__device__ __forceinline__ void arm(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with this parity to complete.  A phase that
-// never completes is a fault of the protocol: trap rather than hang.
-__device__ __forceinline__ void wait_phase(unsigned long long* bar,
-                                           unsigned parity) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  unsigned done = 0;
-  for (unsigned tries = 0; !done; ++tries) {
-    if (tries == (1u << 24)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-#endif
-
 // Max of a key over the warp, left in every lane: two single-instruction
 // 32-bit warp reductions (redux.sync), the high word's max and then the
 // largest low word among the lanes that hold it, in place of five rounds of
@@ -177,21 +133,56 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return (static_cast<unsigned long long>(top) << 32) | lo;
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in CTA
+// `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
+// Arm mbarrier `bar` (arrival count 1) for a phase that completes when
+// kStepBytes more bytes have landed on it.
+__device__ __forceinline__ void arm(unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(kStepBytes)
+      : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete.  A phase that
+// never completes is a fault of the protocol: trap rather than hang.
+__device__ __forceinline__ void wait_phase(unsigned long long* bar,
+                                           unsigned parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
 template <int PER>
 __global__ void __launch_bounds__(kThreads)
     fps_kernel(const float* __restrict__ xyz, int n, int m,
                int* __restrict__ out, float* __restrict__ scratch) {
   extern __shared__ float s_xyz[];  // PER > 0: the row, 3n floats
-  // Step i's keys from every sender of the cluster: s_keys[i & 1].
+  // Step i's keys from every warp of the cluster land in s_keys[i & 1] and
+  // complete a phase of s_bar[i & 1].
   __shared__ unsigned long long s_keys[2][kKeys];
-#if FPS_CTA_REDUCE
-  __shared__ unsigned long long s_warp[kWarps];  // this CTA's warp maxima
-#endif
-#if FPS_ASYNC
-  // s_bar[b] completes a phase when a step's kKeys keys have landed in
-  // s_keys[b].
   __shared__ unsigned long long s_bar[2];
-#endif
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int row = blockIdx.x / kCluster;
@@ -224,27 +215,23 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (rank == 0 && tid == 0) o[0] = 0;
-#if FPS_ASYNC
-  constexpr unsigned kStepBytes = kKeys * sizeof(unsigned long long);
   if (tid == 0) {
     for (int b = 0; b < 2; ++b) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       static_cast<unsigned>(__cvta_generic_to_shared(
-                           &s_bar[b])))
+                       smem_addr(&s_bar[b]))
                    : "memory");
-      arm(&s_bar[b], kStepBytes);  // steps 2 and 1
+      arm(&s_bar[b]);  // steps 2 and 1
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // This lane's destination in CTA `lane` (buffer 0; buffer 1 lies at a
-  // fixed offset from it), and the phase parity of s_bar[b] in bit b.
+  // This lane's destination in CTA `lane` for buffer 0 (buffer 1 lies at a
+  // fixed offset from it); the parity of s_bar[b]'s next phase in bit b.
   const int dest = lane < kCluster ? lane : 0;
   const unsigned r_key = cluster_addr(&s_keys[0][rank * kWarps + warp], dest);
   const unsigned r_bar = cluster_addr(&s_bar[0], dest);
   unsigned parities = 0u;
-#endif
-  // Every CTA of the cluster is running, and its copy of the row is
-  // complete, before any remote store or shared read.
+  // Every CTA of the cluster is running, with its mbarriers armed and its
+  // copy of the row complete, before any remote store or shared read.
   cluster.sync();
 
   int last = 0;
@@ -268,56 +255,26 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     best = warp_max(best);
-    unsigned long long* keys = s_keys[i & 1];
-#if FPS_CTA_REDUCE
-    // s_warp is read below by warp 0 before it arrives at barrier i and
-    // written next in step i + 1, after barrier i.
-    if (lane == 0) s_warp[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      best = warp_max(lane < kWarps ? s_warp[lane] : 0ull);
-      if (lane < kCluster) *cluster.map_shared_rank(keys + rank, lane) = best;
-    }
-#elif FPS_ASYNC
-    // Each store completes 8 bytes of the receiver's s_bar[i & 1] phase;
-    // a CTA waits for its own phase only, with no cluster barrier.  The
-    // buffer step i + 2 writes is safe to overwrite: its senders waited
-    // for every warp's step i + 1 key, each sent after that warp read
-    // step i's keys.
-    const int buf = i & 1;
+    const int b = i & 1;
     if (lane < kCluster) {
       asm volatile(
           "st.async.shared::cluster.mbarrier::complete_tx::bytes.u64 "
-          "[%0], %1, [%2];\n" ::"r"(r_key + buf * kStepBytes),
-          "l"(best), "r"(r_bar + buf * 8u)
+          "[%0], %1, [%2];\n" ::"r"(r_key + b * kStepBytes),
+          "l"(best), "r"(r_bar + b * 8u)
           : "memory");
     }
-    wait_phase(&s_bar[buf], (parities >> buf) & 1u);
-    parities ^= 1u << buf;
-#else
-    if (lane < kCluster) {
-      *cluster.map_shared_rank(keys + rank * kWarps + warp, lane) = best;
-    }
-#endif
-#if !FPS_ASYNC
-    cluster.sync();
-#endif
+    wait_phase(&s_bar[b], (parities >> b) & 1u);
+    parities ^= 1u << b;
     unsigned long long key = 0ull;
 #pragma unroll
-    for (int q = lane; q < kKeys; q += 32) key = umax64(key, keys[q]);
+    for (int q = lane; q < kKeys; q += 32) key = umax64(key, s_keys[b][q]);
     key = warp_max(key);
     last = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
     if (rank == 0 && tid == 0) o[i] = last;
-#if FPS_ASYNC
-    // Re-arm for step i + 2 before warp 0 sends its step i + 1 key, which
-    // every sender of a step i + 2 key must have received first.
-    if (tid == 0) arm(&s_bar[i & 1], kStepBytes);
-#endif
+    if (tid == 0) arm(&s_bar[b]);  // step i + 2
   }
-#if FPS_ASYNC
-  // No CTA leaves while another may still send to it.
+  // No CTA leaves while another may still store into it.
   cluster.sync();
-#endif
 }
 
 template <int PER>

@@ -11,8 +11,8 @@
 // order until every scale holds ns hits, so the work is data dependent: at
 // most m * N direct-form distance tests per level (L0: 2048 x 12288 =
 // 25M), far fewer where the balls fill early.  Bytes are small (N*12 in,
-// m*(ns1+ns2)*4 out).  What held the work back was the grid, not the
-// tests: one thread per centroid filled 8 blocks at L0.
+// m*(ns1+ns2)*4 out).  So the scans must be spread over the card: one
+// thread per centroid would fill only 8 blocks of 256 at L0.
 //
 // Design: one warp serves one centroid, so L0 runs 2048 warps over the
 // whole card.  Lane l tests point base + l for base = 0, 32, 64, ...,
@@ -28,11 +28,13 @@
 // Each trip of the scan loads kRuns runs before it ballots the first, so
 // a lane keeps kRuns points in flight.  Up to 4 scales.
 //
-// Compile-time knobs, timed by pvn3d_tpu_torch/tools/kernel_variants.py
-// (the defaults are the measured fastest, PERF.md): QUERY_THREADS (warps,
-// so centroids, per block), QUERY_RUNS, and QUERY_STAGED=1, which copies
-// the row into shared memory once per block with one bulk asynchronous
-// copy (cp.async.bulk + mbarrier) and scans it there.
+// pvn3d_tpu_torch/tools/kernel_variants.py sweeps QUERY_THREADS (warps,
+// so centroids, per block) and QUERY_RUNS; the defaults are the fastest
+// (PERF.md).  Staging the row into shared memory once per block with one
+// bulk asynchronous copy (cp.async.bulk + mbarrier) was measured slower
+// on an H100 (0.16 against 0.12 ms a frame): 147 KB of shared memory at L0
+// leaves one block on an SM, and the copy is made before any scan can
+// stop early.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics: no FMA
 // contraction, so radius membership equals the plain version's bit for bit.
@@ -40,13 +42,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include <cstdint>
-
-#ifndef QUERY_STAGED
-#define QUERY_STAGED 0
-#endif
 #ifndef QUERY_THREADS
-#define QUERY_THREADS 256
+#define QUERY_THREADS 128
 #endif
 #ifndef QUERY_RUNS
 #define QUERY_RUNS 2
@@ -58,8 +55,6 @@ constexpr int kThreads = QUERY_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRuns = QUERY_RUNS;  // 32-point runs loaded per scan trip
 constexpr int kMaxScales = 4;
-// Largest dynamic shared memory one block may use on sm_90.
-constexpr int kMaxSmem = 232448;
 
 struct Scales {
   float r2[kMaxScales];
@@ -75,46 +70,6 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
-
-#if QUERY_STAGED
-// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global memory into shared memory; every thread of the block waits
-// for the copy on an mbarrier.
-__device__ __forceinline__ void stage_row(float* dst, const float* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  const unsigned bar_addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  const unsigned dst_addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_addr)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            bar_addr),
-        "r"(bytes)
-        : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(dst_addr),
-        "l"(src), "r"(bytes), "r"(bar_addr)
-        : "memory");
-  }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar_addr)
-        : "memory");
-  }
-}
-#endif
 
 // One run of 32 consecutive points (lane l holds point base + l at d2):
 // every scale that is not full yet takes the run's hits in index order.
@@ -145,19 +100,11 @@ __device__ __forceinline__ bool take_run(int (&cnt)[kMaxScales],
 __global__ void __launch_bounds__(kThreads)
     ball_query_kernel(const float* __restrict__ xyz,
                       const float* __restrict__ centers, int n, int m,
-                      int n_scales, Scales sc, int staged) {
+                      int n_scales, Scales sc) {
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const float* p = xyz + static_cast<size_t>(b) * n * 3;
-#if QUERY_STAGED
-  extern __shared__ __align__(16) float s_row[];
-  __shared__ __align__(8) unsigned long long s_bar;
-  if (staged) {
-    stage_row(s_row, p, static_cast<unsigned>(n) * 12u, &s_bar);
-    p = s_row;
-  }
-#endif
   if (c >= m) return;  // whole warps only: c is uniform across the warp
   const size_t crow = static_cast<size_t>(b) * m + c;
   const float cx = centers[3 * crow];
@@ -220,25 +167,9 @@ extern "C" int ball_query_launch(const float* xyz, const float* centers,
     sc.ns[s] = used ? nsamples[s] : 0;
     sc.out[s] = used ? outs[s] : nullptr;
   }
-  int smem = 0;
-  int staged = 0;
-#if QUERY_STAGED
-  // The bulk copy needs 16-byte aligned rows whose size is a multiple of
-  // 16 bytes; other rows are scanned from global memory.
-  const size_t row_bytes = static_cast<size_t>(n) * 12;
-  staged = row_bytes % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(xyz) % 16 == 0 &&
-           row_bytes <= static_cast<size_t>(kMaxSmem) - 1024;
-  if (staged) {
-    smem = static_cast<int>(row_bytes);
-    const cudaError_t err = cudaFuncSetAttribute(
-        ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-#endif
   const dim3 grid((m + kWarps - 1) / kWarps, b), block(kThreads);
-  ball_query_kernel<<<grid, block, smem, stream>>>(xyz, centers, n, m,
-                                                   n_scales, sc, staged);
+  ball_query_kernel<<<grid, block, 0, stream>>>(xyz, centers, n, m, n_scales,
+                                                sc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,11 @@ Replaces ``pvn3d_tpu/ops/pallas/fps.py::fps_pallas`` (the Pallas kernels
 ``_fps_kernel_wide`` and ``_fps_kernel``).  Bound on the card: latency —
 npoint-1 dependent steps of an O(N) update and an argmax over the row,
 with ~150 KB of data per row.  The kernel splits the row and its min-d^2
-cache over one cluster of 16 CTAs per row (registers, 6 points a thread
-at N = 12288), keeps the row's xyz in every CTA's shared memory,
-and gathers the step's packed (value, index) keys in every CTA through
-distributed shared memory: one cluster barrier per step (source note in
-``fps.cu``).
+cache over one cluster of 8 CTAs per row (registers, 6 points a thread
+at N = 12288) and keeps the row's xyz in every CTA's shared memory.  Each
+step every warp sends its packed (value, index) key to every CTA of the
+cluster with ``st.async``, and each CTA waits on its own mbarrier for
+the step's keys: no cluster-wide barrier (source note in ``fps.cu``).
 Rows past 12288 points keep the cache in a global scratch row.
 
 ``fps`` takes the plain version for a CPU tensor and launches the kernel

@@ -2,10 +2,9 @@
 
     python3 -m pvn3d_tpu_torch.tools.kernel_variants [--seed 0]
 
-Builds each variant of ``csrc/fps.cu`` (cluster size, threads per CTA,
-how the step's keys are exchanged) and of ``csrc/query.cu`` (threads per
-block, the row read directly or staged in shared memory by one bulk
-copy) with its ``-D`` flags, one ``nvcc`` per variant, all at once.  At
+Builds each variant of ``csrc/fps.cu`` (CTAs per cluster, threads per
+CTA) and of ``csrc/query.cu`` (threads per block, 32-point runs loaded per
+scan trip) with its ``-D`` flags, one ``nvcc`` per variant, all at once.  At
 the serving path's shapes (``Config.ycb()``: a 12288-point depth cloud,
 FPS to 2048 points, the four SA levels' ball queries) it holds every
 variant against the plain version (indices exact) and prints the ptxas
@@ -27,35 +26,24 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-FPS_VARIANTS = {   # cluster CTAs, threads per CTA, exchange scheme
-    "cluster 16 x 128 threads, st.async + mbarrier": (16, 128, 2),
-    "cluster 16 x 256 threads, st.async + mbarrier": (16, 256, 2),
-    "cluster 16 x 64 threads, st.async + mbarrier": (16, 64, 2),
-    "cluster 8 x 512 threads, st.async + mbarrier": (8, 512, 2),
-    "cluster 8 x 256 threads, st.async + mbarrier": (8, 256, 2),
-    "cluster 8 x 128 threads, st.async + mbarrier": (8, 128, 2),
-    "cluster 4 x 1024 threads, st.async + mbarrier": (4, 1024, 2),
-    "cluster 4 x 512 threads, st.async + mbarrier": (4, 512, 2),
-    "cluster 4 x 256 threads, st.async + mbarrier": (4, 256, 2),
-    "cluster 2 x 1024 threads, st.async + mbarrier": (2, 1024, 2),
-    "cluster 16 x 256 threads, per-warp send": (16, 256, 0),
-    "cluster 16 x 256 threads, CTA reduce": (16, 256, 1),
-    "cluster 16 x 128 threads, per-warp send": (16, 128, 0),
-    "cluster 16 x 128 threads, CTA reduce": (16, 128, 1),
-    "cluster 16 x 64 threads, per-warp send": (16, 64, 0),
-    "cluster 8 x 256 threads, per-warp send": (8, 256, 0),
-    "cluster 8 x 256 threads, CTA reduce": (8, 256, 1),
-    "cluster 8 x 512 threads, per-warp send": (8, 512, 0),
-    "single block x 1024 threads": (1, 1024, 0),
+FPS_VARIANTS = {   # CTAs in the cluster, threads per CTA
+    "cluster 16 x 256 threads": (16, 256),
+    "cluster 16 x 128 threads": (16, 128),
+    "cluster 16 x 64 threads": (16, 64),
+    "cluster 8 x 512 threads": (8, 512),
+    "cluster 8 x 256 threads": (8, 256),
+    "cluster 8 x 128 threads": (8, 128),
+    "cluster 4 x 512 threads": (4, 512),
+    "cluster 4 x 256 threads": (4, 256),
+    "cluster 2 x 1024 threads": (2, 1024),
+    "single block x 1024 threads": (1, 1024),
 }
-QUERY_VARIANTS = {   # staged row, threads per block, runs per trip
-    "direct loads, 256 threads, 1 run": (0, 256, 1),
-    "direct loads, 256 threads, 2 runs": (0, 256, 2),
-    "direct loads, 128 threads, 1 run": (0, 128, 1),
-    "direct loads, 128 threads, 2 runs": (0, 128, 2),
-    "direct loads, 128 threads, 4 runs": (0, 128, 4),
-    "staged row, 256 threads, 2 runs": (1, 256, 2),
-    "staged row, 1024 threads, 2 runs": (1, 1024, 2),
+QUERY_VARIANTS = {   # threads per block, 32-point runs per scan trip
+    "256 threads, 1 run": (256, 1),
+    "256 threads, 2 runs": (256, 2),
+    "128 threads, 1 run": (128, 1),
+    "128 threads, 2 runs": (128, 2),
+    "128 threads, 4 runs": (128, 4),
 }
 
 
@@ -110,18 +98,17 @@ def main(argv=None) -> int:
                          text=True, timeout=60,
                          check=True).stdout.strip(), flush=True)
     variants = []   # (module, label, kernel)
-    for label, (cluster, threads, scheme) in FPS_VARIANTS.items():
+    for label, (cluster, threads) in FPS_VARIANTS.items():
         variants.append((fps, label, CudaKernel(
-            f"fps_c{cluster}_t{threads}_x{scheme}", "fps.cu",
-            fps.KERNEL.symbol, fps.KERNEL.argtypes[:-1],
-            defines=(f"-DFPS_CLUSTER={cluster}", f"-DFPS_THREADS={threads}",
-                     f"-DFPS_CTA_REDUCE={int(scheme == 1)}",
-                     f"-DFPS_ASYNC={int(scheme == 2)}"))))
-    for label, (staged, threads, n_runs) in QUERY_VARIANTS.items():
+            f"fps_c{cluster}_t{threads}", "fps.cu", fps.KERNEL.symbol,
+            fps.KERNEL.argtypes[:-1],
+            defines=(f"-DFPS_CLUSTER={cluster}",
+                     f"-DFPS_THREADS={threads}"))))
+    for label, (threads, n_runs) in QUERY_VARIANTS.items():
         variants.append((query, label, CudaKernel(
-            f"query_s{staged}_t{threads}_r{n_runs}", "query.cu",
-            query.KERNEL.symbol, query.KERNEL.argtypes[:-1],
-            defines=(f"-DQUERY_STAGED={staged}", f"-DQUERY_THREADS={threads}",
+            f"query_t{threads}_r{n_runs}", "query.cu", query.KERNEL.symbol,
+            query.KERNEL.argtypes[:-1],
+            defines=(f"-DQUERY_THREADS={threads}",
                      f"-DQUERY_RUNS={n_runs}"))))
     logs = build_all(k for _, _, k in variants)
     for entry in logs:
