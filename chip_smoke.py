@@ -77,10 +77,41 @@ def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time per call of the kernels ``fn`` launches, from a
+    ``torch.profiler`` trace: the kernel alone, without the host's launch
+    cost that the CUDA-event time of a short kernel also holds."""
+    from torch.autograd import DeviceType
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def bound_ms(n_bytes: float, flops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32 * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def depth_cloud(rng, n: int) -> np.ndarray:
+    """A depth-camera-like cloud: n pixels of a 480x640 YCB camera
+    (K1 intrinsics) back-projected from a table plane with three objects
+    on it, so the finest SA radii (17.5 mm) collect neighbours."""
+    from pvn3d_tpu_torch.config import INTRINSICS
+    k = INTRINSICS["ycb_K1"]
+    u = rng.randint(0, 640, n).astype(np.float32)
+    v = rng.randint(0, 480, n).astype(np.float32)
+    z = 0.9 + 0.15 * (v / 480.0)
+    for cu, cv, r in ((220, 200, 60), (400, 260, 80), (320, 360, 50)):
+        blob = ((u - cu) ** 2 + (v - cv) ** 2) < r * r
+        z = np.where(blob, z - 0.08, z)
+    x = (u - k[0, 2]) * z / k[0, 0]
+    y = (v - k[1, 2]) * z / k[1, 1]
+    return np.stack([x, y, z], axis=-1).astype(np.float32)
 
 
 def phase_device() -> str:
@@ -129,9 +160,7 @@ def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
     from pvn3d_tpu_torch.config import Config
-    from pvn3d_tpu_torch.data.synthetic import depth_cloud
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
-    from pvn3d_tpu_torch.tools.kernel_variants import device_ms
     cfg = Config.ycb().model
     pcfg = cfg.pointnet2
     dev = torch.device("cuda")
@@ -488,7 +517,7 @@ def phase_reference(seed: int = 1):
     > 99.9% seg agreement; and the full-width pose stage on labelled votes
     (three classes present) within 1e-4, timed on the card."""
     from pvn3d_tpu_torch.config import Config, small_model_config
-    from pvn3d_tpu_torch.data.synthetic import depth_cloud, synthetic_batch
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)

@@ -38,10 +38,10 @@
 // which each warp computes from the keys it read at step i, so it never
 // overwrites a key still to be read.
 //
-// Measured alternatives (pvn3d_tpu_torch/tools/kernel_variants.py sweeps
-// FPS_CLUSTER and FPS_THREADS; the defaults are the fastest, PERF.md):
-// one cluster barrier per step (remote stores, barrier.cluster arrive /
-// wait) took 0.8 us a step on an H100 against 0.5 here.  A 64-bit
+// Measured alternatives (PERF.md, section 6): 8 CTAs x 256 threads was the
+// fastest of the cluster sizes 1-16 and block sizes 64-1024 timed on an
+// H100; one cluster barrier per step (remote stores, barrier.cluster
+// arrive / wait) took 0.8 us a step there against 0.5 here.  A 64-bit
 // atomicMax into one remote slot does not work: nvcc lowers a 64-bit
 // shared-memory atomicMax to a compare-and-swap loop on the CTA's own
 // shared memory (ATOMS.CAST.SPIN.64 in the SASS), which never reaches the
@@ -58,19 +58,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#ifndef FPS_CLUSTER
-#define FPS_CLUSTER 8
-#endif
-#ifndef FPS_THREADS
-#define FPS_THREADS 256
-#endif
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = FPS_CLUSTER;
-constexpr int kThreads = FPS_THREADS;
+constexpr int kCluster = 8;  // the largest portable cluster
+constexpr int kThreads = 256;
 // Rows up to this many points keep their cache in registers: the serving
 // path's row, split exactly over the cluster's threads.
 constexpr int kRegisterRow = 12288;
@@ -84,6 +79,7 @@ constexpr int kKeys = kCluster * kWarps;
 constexpr unsigned kStepBytes = kKeys * sizeof(unsigned long long);
 // Returned when no cluster of kCluster CTAs fits on the card.
 constexpr int kErrNoCluster = -1;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -277,25 +273,12 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 }
 
-template <int PER>
-int launch(const float* xyz, int b, int n, int m, int* out, float* scratch,
-           cudaStream_t stream) {
-  auto kernel = fps_kernel<PER>;
-  const size_t smem = PER > 0 ? static_cast<size_t>(n) * 3 * sizeof(float)
-                              : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && kCluster > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+cudaLaunchConfig_t launch_config(int b, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(b * kCluster);
   cfg.blockDim = dim3(kThreads);
@@ -303,11 +286,55 @@ int launch(const float* xyz, int b, int n, int m, int* out, float* scratch,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return cfg;
+}
+
+// Dynamic shared memory of the instance: the largest row it takes.
+template <int PER>
+constexpr size_t kMaxSmem = PER > 0 ? kRegisterRow * 3 * sizeof(float) : 0;
+
+// Allows the instance its largest dynamic shared memory and checks that a
+// cluster of kCluster CTAs with it can be scheduled on the current device.
+// A function attribute holds per device, so this runs once per device
+// (not per launch, where it would add host time to every call).
+template <int PER>
+int prepare() {
+  static std::once_flag once[kMaxDevices];
+  static int status[kMaxDevices];
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters == 0) return kErrNoCluster;
-  err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, m, out, scratch);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[device], [device] {
+    auto kernel = fps_kernel<PER>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem<PER>));
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        launch_config(1, kMaxSmem<PER>, nullptr, &attr);
+    int clusters = 0;
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    }
+    status[device] = e != cudaSuccess ? static_cast<int>(e)
+                     : clusters == 0  ? kErrNoCluster
+                                      : 0;
+  });
+  return status[device];
+}
+
+template <int PER>
+int launch(const float* xyz, int b, int n, int m, int* out, float* scratch,
+           cudaStream_t stream) {
+  const int ready = prepare<PER>();
+  if (ready != 0) return ready;
+  const size_t smem = PER > 0 ? static_cast<size_t>(n) * 3 * sizeof(float)
+                              : 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(b, smem, stream, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, fps_kernel<PER>, xyz, n, m, out, scratch);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -323,7 +350,7 @@ extern "C" int fps_launch(const float* xyz, int b, int n, int m, int* out,
 
 extern "C" const char* kernel_error_string(int code) {
   if (code == kErrNoCluster) {
-    return "no cluster of FPS_CLUSTER CTAs with this row's shared memory "
+    return "no cluster of 8 CTAs with a 12288-point row in shared memory "
            "can be scheduled on this card";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -28,11 +28,11 @@
 // Each trip of the scan loads kRuns runs before it ballots the first, so
 // a lane keeps kRuns points in flight.  Up to 4 scales.
 //
-// pvn3d_tpu_torch/tools/kernel_variants.py sweeps QUERY_THREADS (warps,
-// so centroids, per block) and QUERY_RUNS; the defaults are the fastest
-// (PERF.md).  Staging the row into shared memory once per block with one
-// bulk asynchronous copy (cp.async.bulk + mbarrier) was measured slower
-// on an H100 (0.16 against 0.12 ms a frame): 147 KB of shared memory at L0
+// Measured alternatives (PERF.md, section 6): 128 threads (4 centroids) a
+// block and 2 runs a trip were the fastest of 128-256 threads and 1-4 runs
+// timed on an H100.  Staging the row into shared memory once per block
+// with one bulk asynchronous copy (cp.async.bulk + mbarrier) was slower
+// there (0.16 against 0.12 ms a frame): 147 KB of shared memory at L0
 // leaves one block on an SM, and the copy is made before any scan can
 // stop early.
 //
@@ -42,18 +42,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#ifndef QUERY_THREADS
-#define QUERY_THREADS 128
-#endif
-#ifndef QUERY_RUNS
-#define QUERY_RUNS 2
-#endif
-
 namespace {
 
-constexpr int kThreads = QUERY_THREADS;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRuns = QUERY_RUNS;  // 32-point runs loaded per scan trip
+constexpr int kRuns = 2;  // 32-point runs loaded per scan trip
 constexpr int kMaxScales = 4;
 
 struct Scales {

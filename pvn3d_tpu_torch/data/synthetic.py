@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pvn3d_tpu_torch.config import INTRINSICS, Config
+from pvn3d_tpu_torch.config import Config
 
 
 def synthetic_batch(cfg: Config, batch_size: int = 2, n_points: int = 0,
@@ -67,19 +67,3 @@ def synthetic_batch(cfg: Config, batch_size: int = 2, n_points: int = 0,
         "labels": labels, "kp_targ_ofst": kp_t, "ctr_targ_ofst": ctr_t,
         "cls_ids": cls_ids, "rts": rts,
     }
-
-
-def depth_cloud(rng, n: int) -> np.ndarray:
-    """A depth-camera-like cloud: n pixels of a 480x640 YCB camera
-    (K1 intrinsics) back-projected from a table plane with three objects
-    on it, so the finest SA radii (17.5 mm) collect neighbours."""
-    k = INTRINSICS["ycb_K1"]
-    u = rng.randint(0, 640, n).astype(np.float32)
-    v = rng.randint(0, 480, n).astype(np.float32)
-    z = 0.9 + 0.15 * (v / 480.0)
-    for cu, cv, r in ((220, 200, 60), (400, 260, 80), (320, 360, 50)):
-        blob = ((u - cu) ** 2 + (v - cv) ** 2) < r * r
-        z = np.where(blob, z - 0.08, z)
-    x = (u - k[0, 2]) * z / k[0, 0]
-    y = (v - k[1, 2]) * z / k[1, 1]
-    return np.stack([x, y, z], axis=-1).astype(np.float32)

@@ -47,13 +47,10 @@ class CudaKernel:
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, defines: Sequence[str] = ()):
+                 argtypes: Sequence):
         self.name = name
         self.source = os.path.join(CSRC_DIR, source)
         self.symbol = symbol
-        # Extra ``-D`` flags: a build of one of the source's compile-time
-        # variants (tools/kernel_variants.py); empty for the shipped build.
-        self.defines = tuple(defines)
         # Every entry point takes the stream last.
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
@@ -63,7 +60,7 @@ class CudaKernel:
     def lib_path(self) -> str:
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read())
-        digest.update(" ".join(NVCC_FLAGS + self.defines).encode())
+        digest.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
                             f"lib{self.name}-{digest.hexdigest()[:16]}.so")
 
@@ -75,7 +72,7 @@ class CudaKernel:
             return None, target
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{target}.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, *self.defines, "-o", tmp, self.source]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, target
