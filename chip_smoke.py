@@ -7,7 +7,7 @@ that fails):
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all four CUDA kernels from ``pvn3d_tpu_torch/csrc`` (one
+2. build     — all five CUDA kernels from ``pvn3d_tpu_torch/csrc`` (one
                ``nvcc`` per source, all at once) into ``build/kernels``.
 3. kernels   — each kernel against its plain PyTorch version on the card
                at the shapes the serving path gives it (indices exact,
@@ -17,10 +17,14 @@ that fails):
                gather), and the bound the card's peak rates set; K1's time
                per step and K2's time per level are logged, each also as
                device time from a ``torch.profiler`` trace (the kernel
-               without the host's launch cost).
-4. edge      — the same comparison at shapes off the serving path, among
-               them the edge cases of K1's cluster split and K2's
-               32-point runs.
+               without the host's launch cost).  K3's backward kernel is
+               held bit for bit against its plain version at the training
+               step's shapes (batch 4, fp3 .. fp0), run twice for
+               determinism, and timed beside ``index_add_``; K1, K2 and
+               K3 forward are checked once more at batch 4.
+4. edge      — the same comparison at shapes off the main paths, among
+               them the edge cases of K1's cluster split, K2's 32-point
+               runs and K3 backward's longest accumulation chains.
 5. slice     — the serving path at full width (``Config.ycb()``:
                480x640, 12288 points, 22 classes) with seeded random
                weights: three requests through ``make_inference_step``
@@ -31,8 +35,28 @@ that fails):
                (plain versions): a small frame's forward within 2e-3, and
                the full-width pose stage on labelled votes (several
                classes present) within 1e-4.
-7. a JSON line per kernel (launches on the slice, error, times, bound),
-   the ``nvidia-smi`` line again, then the result line.
+7. train     — the training path at full width (``Config.ycb()``, bf16,
+               batch 4, ``grad_accum`` 1): ``create_train_state`` ->
+               ``make_train_step`` -> ``Trainer.fit``, one warm-up step,
+               then three steps with every launch count set to 0 just
+               before and read just after (per step fps 1, query 4,
+               interp 4, interp_bwd 4); loss finite and falling on the
+               repeated batch, BN running statistics moved, gradients
+               finite; step time and peak memory logged.  Then one step at
+               ``grad_accum`` 2 (twice a step's launches) and one at
+               batch 24 with the smallest ``grad_accum`` of 1, 2, 3, 4, 6
+               that fits in memory (an out-of-memory below 6 is logged,
+               not a failure).  Then one small float32 step on the card
+               (kernels) and on the CPU (plain versions) from the same
+               weights and batch: loss within 1e-4, gradient within 3e-2
+               in global L2 (the float32 conditioning floor of a
+               batch-statistics gradient is ~1e-2:
+               ``tests/test_torch_train.py``); and the same backward with
+               BN on its running statistics, every leaf within
+               1e-3 * max|g|.
+8. a JSON line per kernel (launches on the serving slice and the training
+   steps, error, times, bound), the ``nvidia-smi`` line again, then the
+   result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
@@ -298,6 +322,102 @@ def phase_kernels(rng):
     log("kernels", f"K3 interp x4 levels: idx equal, max err {err:.2e}, "
         f"{ms:.3f} ms (plain {plain:.3f}, cdist+topk {lib:.3f})")
 
+    # The training step's shapes: batch 4.  K1, K2 and K3 forward checked
+    # once there; K3 backward held, timed and bounded there (4 launches a
+    # micro-batch, fp3 .. fp0, cotangent random).
+    tb = 4
+    xyz4 = torch.tensor(np.stack([depth_cloud(rng, cfg.n_sample_points)
+                                  for _ in range(tb)]), device=dev)
+    got4 = fps.fps(xyz4, m0)
+    if not torch.equal(got4, fps.fps_plain(xyz4, m0)):
+        raise AssertionError("K1 fps at batch 4: indices differ from plain")
+    pts4 = torch.gather(xyz4, 1, got4.long()[..., None].expand(-1, -1, 3))
+    levels4 = [xyz4] + [pts4[:, :lvl.npoint].contiguous()
+                        for lvl in pcfg.sa_levels]
+    for li, lvl in enumerate(pcfg.sa_levels):
+        src, cen = levels4[li], levels4[li + 1]
+        if not _index_equal(
+                query.ball_query(lvl.radii, lvl.nsamples, src, cen),
+                query.ball_query_plain(lvl.radii, lvl.nsamples, src, cen)):
+            raise AssertionError(f"K2 query L{li} at batch 4 differs")
+    ms = plain = lib = lib_call = dev_ms = 0.0
+    n_bytes = 0.0
+    shapes = []
+    err = 0.0
+    for li in range(3, -1, -1):
+        unk, kn = levels4[li], levels4[li + 1]
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        feats = torch.tensor(rng.randn(tb, nk, c).astype(np.float32),
+                             device=dev)
+        fwd = interp.three_interpolate_fused(unk, kn, feats)
+        fwd_plain = interp.three_interpolate_plain(unk, kn, feats)
+        if (not torch.equal(fwd[2], fwd_plain[2])
+                or _err(fwd[:2], fwd_plain[:2]) > 1e-5):
+            raise AssertionError(f"K3 interp fp{li} at batch 4 differs")
+        _, dist, idx = fwd
+        g_out = torch.tensor(rng.randn(tb, nu, c).astype(np.float32),
+                             device=dev)
+
+        def kernel():
+            return interp.three_interpolate_backward(g_out, idx, dist, nk)
+        got = kernel()
+        want = interp.three_interpolate_backward_plain(g_out, idx, dist, nk)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K3 interp_bwd fp{li}: differs from plain by "
+                f"{_err(got, want)}")
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"K3 interp_bwd fp{li}: two runs differ")
+        err = max(err, _err(got, want))
+        level_ms = time_ms(kernel)
+        level_dev = device_ms(kernel)
+        ms += level_ms
+        dev_ms += level_dev
+        plain += time_ms(lambda: interp.three_interpolate_backward_plain(
+            g_out, idx, dist, nk), reps=1)
+        rows = (idx.long() + (torch.arange(tb, device=dev) * nk)[:, None,
+                                                                None]
+                ).reshape(-1)
+
+        def updates():
+            w = 1.0 / (dist + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            return (w[..., None] * g_out[:, :, None, :]).reshape(-1, c)
+
+        def library():
+            # The library composition: the (B * 3n, C) updates, then one
+            # index_add_ into the (B * m, C) rows (atomics, no fixed order).
+            return torch.zeros(tb * nk, c, device=dev).index_add_(
+                0, rows, updates())
+        lib_err = _err(library().reshape(tb, nk, c), got)
+        if lib_err > 1e-4 * max(1.0, float(got.abs().max())):
+            raise AssertionError(f"K3 interp_bwd fp{li}: index_add_ "
+                                 f"disagrees by {lib_err}")
+        level_lib = time_ms(library)
+        upd = updates()
+        level_call = time_ms(lambda: torch.zeros(
+            tb * nk, c, device=dev).index_add_(0, rows, upd))
+        lib += level_lib
+        lib_call += level_call
+        chain = int(torch.bincount(rows).max())
+        level_bytes = tb * (nu * c + nk * c) * 4 + tb * nu * 24
+        n_bytes += level_bytes
+        shapes.append(f"fp{li} B={tb} n={nu} m={nk} C={c}")
+        log("kernels", f"K3 interp_bwd fp{li} B={tb} n={nu} m={nk} C={c}: "
+            f"equal to plain bit for bit, twice; {level_ms:.4f} ms, on the "
+            f"device {level_dev:.4f} ms, bound "
+            f"{level_bytes / PEAK_BYTES * 1e3:.4f} ms; updates+index_add_ "
+            f"{level_lib:.4f} ms (the call alone {level_call:.4f}); longest "
+            f"row {chain} hits")
+    rec["interp_bwd"] = dict(
+        shapes=shapes, max_abs_err=err, tol="bit for bit", ms=ms,
+        plain_ms=plain, library_ms=lib, bound=bound_ms(n_bytes, 0.0),
+        replaces="pvn3d_tpu/ops/pallas/interp.py:180")
+    log("kernels", f"K3 interp_bwd x4 levels at batch {tb}: equal, "
+        f"{ms:.3f} ms, on the device {dev_ms:.3f} ms (plain {plain:.3f}, "
+        f"updates+index_add_ {lib:.3f}, index_add_ alone {lib_call:.3f}); "
+        f"K1, K2, K3 forward equal their plain versions at batch {tb}")
+
     # K4: three launches per frame, H = 21, 21, 168 at K = 512 (clustered
     # votes: a few tight modes plus scatter, ~70% valid).
     k = Config.ycb().cluster.max_points_per_class
@@ -344,8 +464,11 @@ def phase_edge_cases(rng) -> None:
     hits in one 32-point run; hits straddling indices 31/32; N not a
     multiple of 32; one scale full while the other never fills; empty
     balls; B = 2 with 3 scales.  K3: fewer than three known points, no
-    channels.  K4: K past one shared-memory tile, an all-invalid
-    hypothesis."""
+    channels.  K3 backward: m < 3 (every slot of every unknown point names
+    row 0: a chain of 3n), C = 0, C = 33 (no float4 path), B = 2, every
+    unknown point sharing one nearest neighbour (a chain of n), n not a
+    multiple of 32, a strided bf16 cotangent.  K4: K past one
+    shared-memory tile, an all-invalid hypothesis."""
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
     dev = torch.device("cuda")
 
@@ -408,6 +531,40 @@ def phase_edge_cases(rng) -> None:
         if not torch.equal(got[2], want[2]) or _err(got[:2], want[:2]) > 1e-5:
             raise AssertionError(f"edge interp n={n} m={m} C={c}")
         cases += 1
+    bwd_cases = {
+        "m=1, chain 3n": (2, 333, 1, 16, False),
+        "m=2": (2, 500, 2, 7, False),
+        "C=0": (2, 300, 40, 0, False),
+        "C=33, n=1000": (2, 1000, 3, 33, False),
+        "one shared neighbour, n=1001": (2, 1001, 77, 64, True),
+        "n=45 (under two runs), C=4": (1, 45, 9, 4, False),
+    }
+    for name, (b, n, m, c, shared) in bwd_cases.items():
+        k = cloud(b, m, 3)
+        u = cloud(b, n, 3)
+        if shared:
+            u = k[:, :1] + u * 1e-3       # every point nearest to row 0
+        f = torch.randn(b, m, c, device=dev)
+        _, dist, idx = interp.three_interpolate_fused(u, k, f)
+        g = torch.randn(b, n, c, device=dev)
+        got = interp.three_interpolate_backward(g, idx, dist, m)
+        if not torch.equal(got, interp.three_interpolate_backward_plain(
+                g, idx, dist, m)):
+            raise AssertionError(f"edge interp_bwd {name}")
+        if shared and int((idx[..., 0] == 0).sum()) != b * n:
+            raise AssertionError(f"edge interp_bwd {name}: not one chain")
+        cases += 1
+    # Through autograd, with the cotangent autograd hands over: bf16 and
+    # strided (a transposed view), made float32 contiguous by the wrapper.
+    k, u = cloud(2, 50, 3), cloud(2, 700, 3)
+    f = torch.randn(2, 50, 24, device=dev, requires_grad=True)
+    out, dist, idx = interp.three_interpolate_fused(u, k, f)
+    g = torch.randn(2, 24, 700, device=dev).to(torch.bfloat16).transpose(1, 2)
+    out.backward(g)
+    if not torch.equal(f.grad, interp.three_interpolate_backward_plain(
+            g, idx, dist, 50)):
+        raise AssertionError("edge interp_bwd through autograd")
+    cases += 1
     for h, k in ((4, 1500), (3, 7)):
         pts = cloud(h, k, 3)
         msk = torch.rand(h, k, device=dev) < 0.6
@@ -462,6 +619,8 @@ def phase_slice(seed: int = 0):
         if not bool(present.any()):
             raise AssertionError(f"request {i}: no class present")
     want = {"fps": 3, "query": 12, "interp": 12, "winner": 9}
+    if launches["interp_bwd"] != 0:
+        raise AssertionError("serving launched the backward kernel")
     for name, n in want.items():
         if launches[name] < n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
@@ -509,6 +668,220 @@ def labelled_votes(cfg, seed: int):
     return (torch.tensor(pcld), torch.tensor(batch["labels"]),
             torch.tensor(ctr_of, dtype=torch.float32),
             torch.tensor(kp_of, dtype=torch.float32))
+
+
+def phase_train(smi: str, seed: int = 0):
+    """The training path on the card.  Returns the launch counts of its
+    three counted steps."""
+    import dataclasses
+    import gc
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    from pvn3d_tpu_torch.train.state import (create_train_state,
+                                             param_count)
+    from pvn3d_tpu_torch.train.step import make_train_step, to_device
+    from pvn3d_tpu_torch.train.trainer import Trainer
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    n_batch, n_steps = 4, 3
+    state = create_train_state(cfg, seed)
+    step = make_train_step(cfg)
+    batch = to_device(synthetic_batch(cfg, batch_size=n_batch, seed=seed),
+                      dev)
+    step(state, batch)                                   # warm-up
+    torch.cuda.synchronize()
+    stats0 = {k: v.clone() for k, v in state.model.named_buffers()
+              if "running_" in k}
+
+    losses, times = [], []
+
+    def timed_step(st, b, step_seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, metrics = step(st, b, step_seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        return st, metrics
+    trainer = Trainer(cfg, state, timed_step, log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    trainer.fit([batch] * n_steps, max_steps=state.step + n_steps)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    want = {"fps": 1, "query": 4, "interp": 4, "interp_bwd": 4, "winner": 0}
+    for name, per_step in want.items():
+        if launches[name] != per_step * n_steps:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches over {n_steps} training "
+                f"steps, expected {per_step} a step")
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall on a repeated "
+                             f"batch: {losses}")
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in state.model.named_buffers() if k in stats0)
+    if moved != len(stats0):
+        raise AssertionError(f"train: {moved} of {len(stats0)} BN running "
+                             f"statistics moved")
+    for name, p in state.model.named_parameters():
+        if p.grad is None:
+            if "final_seg" not in name:    # the auxiliary head is in no loss
+                raise AssertionError(f"train: no gradient for {name}")
+        elif not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"train: non-finite gradient for {name}")
+    log("train", f"{n_steps} steps through Trainer.fit at batch {n_batch}, "
+        f"480x640 + 12288 points, 22 classes, bf16, "
+        f"{param_count(state.model)} parameters: step ms "
+        + ", ".join(f"{t:.1f}" for t in times) + "; loss "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; peak memory {peak_gb:.2f} GiB; launches {launches}; all "
+        f"{len(stats0)} BN running statistics moved, gradients finite "
+        f"[{smi}]")
+
+    # grad_accum 2 on the same batch: two micro-batches of 2, so twice a
+    # step's launches and one optimizer update.
+    accum_step = make_train_step(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, grad_accum=2)))
+    for k in KERNELS:
+        k.launches = 0
+    _, metrics = accum_step(state, batch)
+    accum_loss = float(metrics["loss"])
+    accum_launches = {k.name: k.launches for k in KERNELS}
+    if accum_launches != {name: 2 * n for name, n in want.items()}:
+        raise AssertionError(f"train: grad_accum 2 launched "
+                             f"{accum_launches}")
+    if not np.isfinite(accum_loss) or not accum_loss < losses[0]:
+        raise AssertionError(f"train: grad_accum 2 loss {accum_loss}")
+    log("train", f"one more step at grad_accum 2 (micro-batches of 2): "
+        f"loss {accum_loss:.4f}, launches {accum_launches}")
+    fit_batch_24(cfg, state, smi, seed + 1)
+    del state, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_reference(seed)
+    return launches
+
+
+def fit_batch_24(cfg, state, smi: str, seed: int) -> None:
+    """One training step at ``mini_batch_size`` 24 with the smallest
+    ``grad_accum`` of 1, 2, 3, 4, 6 that fits in memory.  An out-of-memory
+    below 6 is logged and the next tried; at 6 (micro-batch 4, which the
+    steps before ran) it is a failure."""
+    import dataclasses
+    import gc
+
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.train.step import make_train_step, to_device
+    dev = torch.device("cuda")
+    big = to_device(synthetic_batch(cfg, batch_size=24, seed=seed), dev)
+    for accum in (1, 2, 3, 4, 6):
+        cfg_a = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, grad_accum=accum))
+        big_step = make_train_step(cfg_a)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oom = None
+        try:
+            _, metrics = big_step(state, big)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            if accum == 6:
+                raise
+            oom = str(e).splitlines()[0]
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if oom is not None:
+            state.optimizer.zero_grad(set_to_none=True)
+            log("train", f"batch 24, grad_accum {accum} (micro-batch "
+                f"{24 // accum}): out of memory at {peak:.2f} GiB allocated "
+                f"({oom[:100]})")
+            continue
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"train: batch 24 loss {loss}")
+        log("train", f"batch 24, grad_accum {accum} (micro-batch "
+            f"{24 // accum}): fits, peak memory {peak:.2f} GiB, first step "
+            f"{ms:.1f} ms, loss {loss:.4f} [{smi}]")
+        return
+
+
+def train_reference(seed: int) -> None:
+    """One small float32 backward on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batch, one block per ResNet
+    stage and no dropout (what tests/test_torch_train.py holds against the
+    JAX package), so the whole backward through the kernels is held end to
+    end, twice: as a train step (batch-statistics BN, whose gradient is
+    rough in float32 on any device: loss within 1e-4, gradient within 3e-2
+    in global L2), and with BN on its running statistics, where the
+    gradient is well conditioned (every leaf within 1e-3 * max|g|, 1e-4 in
+    global L2)."""
+    import dataclasses
+
+    from pvn3d_tpu_torch.config import Config, small_model_config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.train.state import create_train_state
+    from pvn3d_tpu_torch.train.step import (compute_losses, make_train_step,
+                                            to_device)
+    mcfg = small_model_config()
+    mcfg = dataclasses.replace(mcfg, cnn=dataclasses.replace(
+        mcfg.cnn, dropout_psp=0.0, dropout_up=0.0,
+        backbone_layers=(1, 1, 1, 1)))
+    scfg = Config(model=mcfg)
+    # synthetic_batch's own cloud: a cloud shrunk to fit the small radii
+    # leaves level 0's grouped offsets with batch variances near the BN
+    # epsilon, where E[x^2] - E[x]^2 is rounding noise on any device.
+    small = synthetic_batch(scfg, batch_size=2, seed=seed + 2)
+
+    def grads_of(model):
+        return {k: p.grad.detach().cpu().double()
+                for k, p in model.named_parameters() if p.grad is not None}
+
+    def compare(got, want):
+        """(global L2 relative error, worst leaf max-abs / max|g|); a conv
+        bias in front of a BN has an exact gradient of 0 and is left out
+        of the second."""
+        num = sum(float(((got[k] - g) ** 2).sum()) for k, g in want.items())
+        den = sum(float((g ** 2).sum()) for g in want.values())
+        worst = max(float((got[k] - g).abs().max() / (g.abs().max() + 1e-12))
+                    for k, g in want.items() if not k.endswith("conv.1.bias"))
+        return (num / den) ** 0.5, worst
+
+    train, running, loss = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        st = create_train_state(scfg, seed, device=d)
+        st.model.eval()
+        tb = to_device(small, torch.device(d))
+        compute_losses(scfg, st.model(tb["pointcloud"], tb["rgb"],
+                                      tb["choose"]), tb)["loss"].backward()
+        running[d] = grads_of(st.model)
+        _, metrics = make_train_step(scfg, device=d)(st, small)
+        loss[d] = float(metrics["loss"])
+        train[d] = grads_of(st.model)
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    train_err, train_worst = compare(train["cuda"], train["cpu"])
+    run_err, run_worst = compare(running["cuda"], running["cpu"])
+    if (loss_err > 1e-4 or train_err > 3e-2 or run_err > 1e-4
+            or run_worst > 1e-3):
+        raise AssertionError(
+            f"train-reference: loss err {loss_err}, train-step gradient err "
+            f"{train_err}, running-statistics gradient err {run_err} "
+            f"(worst leaf {run_worst})")
+    log("train", f"train-reference, small float32 model, card (kernels) vs "
+        f"CPU (plain): train step loss {loss['cuda']:.6f} vs "
+        f"{loss['cpu']:.6f} (rel {loss_err:.2e}), gradient global L2 rel "
+        f"{train_err:.2e} (worst leaf max-abs / max|g| {train_worst:.2e}); "
+        f"on running statistics gradient global L2 rel {run_err:.2e}, "
+        f"worst leaf {run_worst:.2e}")
 
 
 def phase_reference(seed: int = 1):
@@ -572,15 +945,23 @@ def main() -> int:
     phase_edge_cases(rng)
     launches, _ = phase_slice()
     phase_reference()
+    train_launches = phase_train(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
         r = rec[k.name]
         bound, by = r["bound"]
+        # Launches: over the serving slice's three requests plus the
+        # training path's three steps, each counted from 0.
+        if launches[k.name] + train_launches[k.name] < 1:
+            raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"pvn3d_tpu_torch/csrc/{k.name}.cu",
-            "replaces": r["replaces"], "launches": launches[k.name],
+            "replaces": r["replaces"],
+            "launches": launches[k.name] + train_launches[k.name],
+            "launches_serving": launches[k.name],
+            "launches_training": train_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})

@@ -1,4 +1,4 @@
-"""Shared building blocks of the port (eval mode).
+"""Shared building blocks of the port (eval and train mode).
 
 Port of the JAX package's ``models/layers.py``.  The point branch and the
 heads keep channels last (``(..., C)``) as the JAX package does; the image
@@ -8,7 +8,10 @@ shapes and names of the reference PyTorch checkpoint (``conv.weight``
 ``state_dict`` keys are the reference keys.
 
 Every module computes in ``dtype`` (float32 or bfloat16) with float32
-parameters and float32 BN statistics, as the JAX package does.
+parameters and float32 BN statistics, as the JAX package does.  In train
+mode (``module.train()``) every BN normalises by its batch statistics and
+moves its running ones with the momentum the caller passes per call, so
+the BN-momentum schedule is an argument of the forward, not module state.
 """
 from __future__ import annotations
 
@@ -22,19 +25,45 @@ from torch import nn
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode batch norm over the LAST axis, f32 statistics:
+    """Batch norm over the LAST axis with float32 statistics:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
-    back to the input dtype (``layers.py:29-69`` of the JAX package)."""
+    back to the input dtype (``layers.py:29-69`` of the JAX package).
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * inv + self.bias
+    Eval mode reads the running statistics.  Train mode takes the batch
+    mean and the biased ``E[x^2] - E[x]^2`` (clamped at 0: it can round
+    negative for a large-mean, low-variance channel) over every axis but
+    the channel, normalises by them, and updates the running statistics
+    with the torch-convention ``momentum`` passed per call:
+    ``running <- (1 - m) * running + m * batch``, the running variance
+    unbiased by ``n / (n - 1)``.  Plain tensor code, so autograd
+    differentiates it; the buffers are updated in place outside the graph.
+    """
+
+    def _statistics(self, x: torch.Tensor, axes, momentum):
+        if not self.training:
+            return self.running_mean, self.running_var
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            n = x.numel() // mean.numel()
+            m = float(momentum)
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(
+                m * (var * (n / max(n - 1, 1))))
+        return mean, var
+
+    def forward(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
+        mean, var = self._statistics(x, tuple(range(x.dim() - 1)), momentum)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean) * inv + self.bias
         return y.to(x.dtype)
 
-    def nchw(self, x: torch.Tensor) -> torch.Tensor:
+    def nchw(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
         """The same normalisation over axis 1 of an NCHW map."""
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean[:, None, None])
+        mean, var = self._statistics(x, (0, 2, 3), momentum)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = ((x.float() - mean[:, None, None])
              * inv[:, None, None] + self.bias[:, None, None])
         return y.to(x.dtype)
 
@@ -59,8 +88,9 @@ class Conv1x1BN(nn.Module):
         self.normlayer = nn.Module()
         self.normlayer.bn = BatchNorm(c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.normlayer.bn(linear(x, self.conv.weight)))
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        return F.relu(self.normlayer.bn(linear(x, self.conv.weight),
+                                        bn_momentum))
 
 
 class SharedMLP(nn.Module):
@@ -74,9 +104,9 @@ class SharedMLP(nn.Module):
             c_in = w
         self.n_layers = len(widths)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         for k in range(self.n_layers):
-            x = getattr(self, f"layer{k}")(x)
+            x = getattr(self, f"layer{k}")(x, bn_momentum)
         return x
 
 
@@ -93,10 +123,10 @@ class ConvBnRelu(nn.Module):
         self.bn = BatchNorm(c_out) if use_bn else None
         self.use_relu = use_relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         x = conv2d(x, self.conv)
         if self.bn is not None:
-            x = self.bn.nchw(x)
+            x = self.bn.nchw(x, bn_momentum)
         return F.relu(x) if self.use_relu else x
 
 
@@ -105,6 +135,20 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
                     conv.padding, conv.dilation)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Elementwise dropout (``flax.linen.Dropout``, not ``Dropout2d``):
+    in train mode each element is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``; the mask is drawn from ``generator`` (on
+    ``x``'s device), or from the default generator when it is None.  Eval
+    mode draws nothing."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return x * (mask.to(x.dtype) / keep)
 
 
 class PReLU(nn.Module):

@@ -1,4 +1,5 @@
-"""PointNet++ MSG trunk of the point branch (channels-last, eval mode).
+"""PointNet++ MSG trunk of the point branch (channels-last; eval and train
+mode).
 
 Port of the JAX package's ``models/pointnet2.py`` (the reference
 Pointnet2MSG, pvn3d.py:46-154): four set-abstraction levels with
@@ -7,7 +8,9 @@ feature-propagation levels with exact 3-NN IDW interpolation.  Level 0 runs
 FPS (kernel K1); levels 1-3 take the prefix of the previous level's
 pick-ordered points when ``fps_prefix`` is set (greedy FPS is prefix
 consistent, ``config.py:133-142``).  Every level's ball query is kernel
-K2, every FP blend kernel K3.  The eval restructures
+K2, every FP blend kernel K3, whose backward kernel carries the gradient
+to the known features in train mode (K1 and K2 return indices and need
+none).  ``bn_momentum`` is passed down to every BN.  The eval restructures
 ``sa/fp_precompute_first`` equal this graph up to summation order and are
 not ported.  Module names give the reference checkpoint's
 ``pointnet2.SA_modules.{i}.mlps.{j}`` / ``FP_modules.{i}.mlp`` keys.
@@ -41,7 +44,8 @@ class SetAbstractionMSG(nn.Module):
         self.mlps = nn.ModuleList([SharedMLP(c0, w) for w in level.mlps])
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                dtype: torch.dtype, bn_momentum=0.1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.fps_prefix:
             new_xyz = xyz[:, :self.level.npoint]
         else:
@@ -56,7 +60,7 @@ class SetAbstractionMSG(nn.Module):
                 feat = group_points(features, g_idx)
                 grouped = (torch.cat([grouped, feat.to(grouped.dtype)], -1)
                            if self.use_xyz else feat)
-            outs.append(mlp(grouped.to(dtype)).amax(dim=2))
+            outs.append(mlp(grouped.to(dtype), bn_momentum).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -69,13 +73,13 @@ class FeaturePropagation(nn.Module):
         self.mlp = SharedMLP(c_in, widths)
 
     def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, bn_momentum=0.1) -> torch.Tensor:
         interp, _, _ = three_interpolate_fused(unknown_xyz, known_xyz,
                                                known_feats.float())
         interp = interp.to(dtype)
         if unknown_feats is not None:
             interp = torch.cat([interp, unknown_feats.to(dtype)], dim=-1)
-        return self.mlp(interp)
+        return self.mlp(interp, bn_momentum)
 
 
 class PointNet2MSG(nn.Module):
@@ -103,16 +107,18 @@ class PointNet2MSG(nn.Module):
         self.FP_modules = nn.ModuleList(fp)
 
     def forward(self, pointcloud: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                bn_momentum=0.1) -> torch.Tensor:
         xyz = pointcloud[..., :3].float().contiguous()
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [features]
         for li, sa in enumerate(self.SA_modules):
-            nxyz, nfeat = sa(l_xyz[li], l_feats[li], dtype)
+            nxyz, nfeat = sa(l_xyz[li], l_feats[li], dtype, bn_momentum)
             l_xyz.append(nxyz)
             l_feats.append(nfeat)
         # Coarsest -> finest (pvn3d.py:149-152).
         for li in range(len(self.FP_modules) - 1, -1, -1):
             l_feats[li] = self.FP_modules[li](
-                l_xyz[li], l_xyz[li + 1], l_feats[li], l_feats[li + 1], dtype)
+                l_xyz[li], l_xyz[li + 1], l_feats[li], l_feats[li + 1], dtype,
+                bn_momentum)
         return l_feats[0]

@@ -4,14 +4,17 @@ Port of the JAX package's ``models/pspnet.py`` on the dense path
 (``PSPModule``, ``PSPUpsample.__call__``, ``PSPNetEmbedding`` without
 ``choose``): the reference Modified_PSPNet (pspnet.py:7-90).  The eval
 restructures ``PSPUpsample.fused`` / ``.sparse`` equal this graph up to
-summation order and are not ported.  Runs NCHW inside; its interface is
-channels-last like the JAX package's.  Module names give the reference
-checkpoint's ``cnn.model.*`` keys (``psp.stages.{i}.1``,
+summation order and are not ported.  Train mode (``module.train()``)
+takes this same dense path, with batch-statistics BN and the two
+elementwise dropouts of the JAX package (``dropout_psp`` after the pyramid,
+``dropout_up`` after the first two upsamples).  Runs NCHW inside; its
+interface is channels-last like the JAX package's.  Module names give the
+reference checkpoint's ``cnn.model.*`` keys (``psp.stages.{i}.1``,
 ``up_{k}.conv.{1,2,3}``, ``final.0``, ``final_seg.0``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +22,8 @@ from torch import nn
 
 from pvn3d_tpu_torch.models.layers import (BatchNorm, PReLU,
                                            adaptive_avg_pool, conv2d,
-                                           named_sequential, resize_bilinear)
+                                           dropout, named_sequential,
+                                           resize_bilinear)
 from pvn3d_tpu_torch.models.resnet import DilatedResNet
 
 
@@ -61,11 +65,11 @@ class PSPUpsample(nn.Module):
             "2": BatchNorm(features),
             "3": PReLU()})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         h, w = x.shape[-2:]
         x = resize_bilinear(x, 2 * h, 2 * w, align_corners=True,
                             channels_last=False)
-        x = self.conv[1].nchw(conv2d(x, self.conv[0]))
+        x = self.conv[1].nchw(conv2d(x, self.conv[0]), bn_momentum)
         return self.conv[2](x)
 
 
@@ -78,8 +82,11 @@ class PSPNetEmbedding(nn.Module):
                  psp_features: int = 512, psp_out: int = 1024,
                  up_channels: Sequence[int] = (256, 64, 64),
                  embedding_dim: int = 128,
-                 backbone_layers: Sequence[int] = (3, 4, 6, 3)):
+                 backbone_layers: Sequence[int] = (3, 4, 6, 3),
+                 dropout_psp: float = 0.3, dropout_up: float = 0.15):
         super().__init__()
+        self.dropout_psp = dropout_psp
+        self.dropout_up = dropout_up
         self.feats = DilatedResNet(layers=backbone_layers)
         self.psp = PSPModule(psp_features, psp_out, sizes)
         c = psp_out
@@ -90,12 +97,15 @@ class PSPNetEmbedding(nn.Module):
         self.final = named_sequential(**{"0": nn.Conv2d(c, embedding_dim, 1)})
         self.final_seg = named_sequential(**{"0": nn.Conv2d(c, n_classes, 1)})
 
-    def forward(self, rgb: torch.Tensor
+    def forward(self, rgb: torch.Tensor, bn_momentum=0.1,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.feats(rgb.permute(0, 3, 1, 2))
-        x = self.psp(x)
+        x = self.feats(rgb.permute(0, 3, 1, 2), bn_momentum)
+        x = dropout(self.psp(x), self.dropout_psp, self.training, generator)
         for k in range(1, self.n_up + 1):
-            x = getattr(self, f"up_{k}")(x)
+            x = getattr(self, f"up_{k}")(x, bn_momentum)
+            if k < self.n_up:
+                x = dropout(x, self.dropout_up, self.training, generator)
         emb = conv2d(x, self.final[0]).permute(0, 2, 3, 1)
         seg = conv2d(x, self.final_seg[0]).permute(0, 2, 3, 1)
         return emb, F.log_softmax(seg.float(), dim=-1)

@@ -1,7 +1,8 @@
 """The full PVN3D model of the port: CNN + PointNet++ + DenseFusion + heads.
 
-Port of the JAX package's ``models/pvn3d.py`` in eval mode on the dense
-reference graph (``PVN3D(cfg, train=False, sparse_cnn=False)``): the image
+Port of the JAX package's ``models/pvn3d.py`` on the dense reference
+graph (``PVN3D(cfg, sparse_cnn=False)``), in eval mode (the state a new
+model is in) and, after ``model.train()``, in train mode: the image
 branch's embedding map gathered at each point's ``choose`` pixel
 (pvn3d.py:172-178), the point branch, DenseFusion with the literal
 global-feature concat, and the three heads.  ``head_split_global`` and the
@@ -13,7 +14,7 @@ checkpoint and ``utils.weights.from_jax_variables`` maps JAX weights in.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -78,15 +79,18 @@ class PredictionHead(nn.Module):
         self.add_module(str(len(widths)), out)
         self.n_hidden = len(widths)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         for k in range(self.n_hidden):
-            x = getattr(self, str(k))(x)
+            x = getattr(self, str(k))(x, bn_momentum)
         out = getattr(self, str(self.n_hidden)).conv
         return linear(x, out.weight, out.bias)
 
 
 class PVN3D(nn.Module):
-    """Full model, eval mode.
+    """Full model.  A new model is in eval mode (running BN statistics, no
+    dropout); ``model.train()`` switches to batch statistics, updated with
+    ``bn_momentum``, and to the image branch's dropouts, drawn from
+    ``generator``.
 
     ``forward(pointcloud (B, N, 9), rgb (B, H, W, 3), choose (B, N))``
     returns ``seg_logits`` (B, N, n_classes), ``kp_offsets``
@@ -104,7 +108,8 @@ class PVN3D(nn.Module):
             n_classes=cfg.n_classes, sizes=cc.psp_sizes,
             psp_features=cc.psp_features, psp_out=cc.psp_out,
             up_channels=cc.up_channels, embedding_dim=cc.embedding_dim,
-            backbone_layers=cc.backbone_layers)
+            backbone_layers=cc.backbone_layers, dropout_psp=cc.dropout_psp,
+            dropout_up=cc.dropout_up)
         self.pointnet2 = PointNet2MSG(cfg.pointnet2)
         self.rgbd_feat = DenseFusion(cc.embedding_dim)
         self.SEG_layer = PredictionHead(cfg.fusion_dim, cfg.seg_head,
@@ -115,19 +120,23 @@ class PVN3D(nn.Module):
         self.eval()
 
     def forward(self, pointcloud: torch.Tensor, rgb: torch.Tensor,
-                choose: torch.Tensor) -> Dict[str, torch.Tensor]:
+                choose: torch.Tensor, bn_momentum=0.1,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         b, n, _ = pointcloud.shape
-        emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype))
+        emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype), bn_momentum,
+                                          generator)
         h, w, di = emb_map.shape[1:]
         rgb_emb = torch.gather(
             emb_map.reshape(b, h * w, di), 1,
             choose.long()[..., None].expand(-1, -1, di))
-        cld_emb = self.pointnet2(pointcloud, self.dtype)
+        cld_emb = self.pointnet2(pointcloud, self.dtype, bn_momentum)
         fused = self.rgbd_feat(rgb_emb, cld_emb)
-        seg = self.SEG_layer(fused)
-        kp = self.KpOF_layer(fused).reshape(b, n, cfg.n_keypoints, 3)
-        ctr = self.CtrOf_layer(fused).reshape(b, n, 1, 3)
+        seg = self.SEG_layer(fused, bn_momentum)
+        kp = self.KpOF_layer(fused, bn_momentum).reshape(
+            b, n, cfg.n_keypoints, 3)
+        ctr = self.CtrOf_layer(fused, bn_momentum).reshape(b, n, 1, 3)
         return {
             "seg_logits": seg.float(),
             "kp_offsets": kp.permute(0, 2, 1, 3).float(),

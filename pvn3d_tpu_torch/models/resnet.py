@@ -1,4 +1,4 @@
-"""Stride-8 ResNet-34 trunk of the image branch (NCHW, eval mode).
+"""Stride-8 ResNet-34 trunk of the image branch (NCHW, eval and train mode).
 
 Port of the JAX package's ``models/resnet.py::DilatedResNet`` as the
 reference graph: layers 1/2 stride 1/2, layers 3/4 stride 1 (output
@@ -38,12 +38,13 @@ class BasicBlock(nn.Module):
             **{"0": nn.Conv2d(c_in, planes, 1, stride=stride, bias=False),
                "1": BatchNorm(planes)}) if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1.nchw(conv2d(x, self.conv1)))
-        y = self.bn2.nchw(conv2d(y, self.conv2))
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        y = F.relu(self.bn1.nchw(conv2d(x, self.conv1), bn_momentum))
+        y = self.bn2.nchw(conv2d(y, self.conv2), bn_momentum)
         res = x
         if self.downsample is not None:
-            res = self.downsample[1].nchw(conv2d(x, self.downsample[0]))
+            res = self.downsample[1].nchw(conv2d(x, self.downsample[0]),
+                                          bn_momentum)
         return F.relu(y + res)
 
 
@@ -71,9 +72,10 @@ class DilatedResNet(nn.Module):
             self.add_module(f"layer{s + 1}", nn.Sequential(*blocks))
             in_planes = planes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1.nchw(conv2d(x, self.conv1)))
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        x = F.relu(self.bn1.nchw(conv2d(x, self.conv1), bn_momentum))
         x = max_pool_3x3_s2(x)
         for s in range(1, 5):
-            x = getattr(self, f"layer{s}")(x)
+            for block in getattr(self, f"layer{s}"):
+                x = block(x, bn_momentum)
         return x

@@ -1,18 +1,31 @@
-"""K3: exact 3-NN + IDW blend forward (``csrc/interp.cu``) and its plain
-version.
+"""K3: exact 3-NN + IDW blend, forward (``csrc/interp.cu``) and backward
+(``csrc/interp_bwd.cu``), each beside its plain version.
 
-Replaces ``pvn3d_tpu/ops/pallas/interp.py::three_interpolate_fused``
-(``_fused_fwd`` / ``_interp_kernel``), forward only: the serving path takes
-no gradient, and the backward scatter-add waits for the training slice.
-Bound on the card: the n*m direct-form distance tests of the search
-(fp0: 25M) and, at the finest level, the n*C float32 output (12.6 MB).
-The kernel keeps a running top-3 per unknown point over shared-memory
-tiles of the known points, then writes the blend with threads along the
-channel axis so reads and writes are coalesced (source note in
-``interp.cu``).  The TPU blend was a bf16 MXU matmul; this one is float32.
+Replaces ``pvn3d_tpu/ops/pallas/interp.py::three_interpolate_fused``:
+``_fused_fwd`` / ``_interp_kernel`` forward and the custom VJP
+``_fused_bwd`` backward, joined here by ``ThreeInterpolateFused`` (a
+``torch.autograd.Function``).
 
-``three_interpolate_fused`` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; it never falls back.
+Forward.  Bound on the card: the n*m direct-form distance tests of the
+search (fp0: 25M) and, at the finest level, the n*C float32 output
+(12.6 MB).  The kernel keeps a running top-3 per unknown point over
+shared-memory tiles of the known points, then writes the blend with
+threads along the channel axis so reads and writes are coalesced (source
+note in ``interp.cu``).  The TPU blend was a bf16 MXU matmul; this one is
+float32.
+
+Backward.  ``g_features[b, idx[b,i,k], :] += w[b,i,k] * g_out[b,i,:]``, with
+``w`` recomputed from the saved distances in the forward's own order
+``(r0 + r1) + r2``; the coordinates get no gradient.  Bound: bytes (g_out
+read once, g_features written once).  The JAX package promises a
+deterministic scatter-add; the kernel is a gather by destination (one warp
+per known row scans the flattened ``idx`` in index order and sums its hits
+in ``(i, k)`` order, source note in ``interp_bwd.cu``), so it uses no
+atomics, two runs agree bit for bit, and it equals
+``three_interpolate_backward_plain``, which sums in the same order.
+
+Each wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors; it never falls back.
 """
 from __future__ import annotations
 
@@ -29,6 +42,11 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+KERNEL_BWD = CudaKernel(
+    "interp_bwd", "interp_bwd.cu", "three_interp_bwd_launch",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+     ctypes.c_void_p])
 # d^2 of an empty neighbour slot when m < 3 (interp.py:83-87 of the JAX
 # package; the reference's initialised running-min slots).
 _EMPTY = 1e30
@@ -62,6 +80,12 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor,
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+def _idw_weights(dist: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalised inverse-distance weights in the forward kernel's order."""
+    recip = 1.0 / (dist + eps)
+    return recip / ((recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3])
+
+
 def three_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor,
                             features: torch.Tensor, eps: float = 1e-8
                             ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -72,8 +96,7 @@ def three_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor,
         features.float()
     d2, idx = three_nn_plain(unknown, known)
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
-    recip = 1.0 / (dist + eps)
-    w = recip / ((recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3])
+    w = _idw_weights(dist, eps)
     b, n, _ = idx.shape
     g = torch.gather(features, 1,
                      idx.reshape(b, n * 3, 1).expand(-1, -1,
@@ -84,12 +107,68 @@ def three_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor,
     return out, dist, idx.to(torch.int32)
 
 
-def three_interpolate_fused(unknown: torch.Tensor, known: torch.Tensor,
-                            features: torch.Tensor, eps: float = 1e-8
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """Fused exact 3-NN IDW interpolation: (B, n, 3), (B, m, 3), (B, m, C)
-    -> (out (B, n, C) float32, dist (B, n, 3), idx (B, n, 3) int32)."""
+def three_interpolate_backward_plain(g_out: torch.Tensor, idx: torch.Tensor,
+                                     dist: torch.Tensor, m: int,
+                                     eps: float = 1e-8) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: (B, n, C), (B, n, 3),
+    (B, n, 3) -> g_features (B, m, C) float32.  Every row's sum is taken
+    in ``(i, k)`` order, one hit per round over the rows' stably sorted hit
+    lists, each term rounded before it is added, so the result does not
+    depend on the device."""
+    g_out = g_out.float()
+    b, n, c = g_out.shape
+    out = torch.zeros((b, m, c), dtype=torch.float32, device=g_out.device)
+    if out.numel() == 0 or n == 0:
+        return out
+    w = _idw_weights(dist.float(), eps).reshape(b, n * 3)
+    flat = idx.reshape(b, n * 3).long()
+    order = torch.sort(flat, dim=1, stable=True).indices
+    counts = torch.zeros((b, m), dtype=torch.long, device=g_out.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    start = torch.cumsum(counts, dim=1) - counts
+    for r in range(int(counts.max())):
+        live = counts > r
+        pos = torch.gather(order, 1, (start + r).clamp(max=n * 3 - 1))
+        rows = torch.div(pos, 3, rounding_mode="floor")
+        term = torch.gather(w, 1, pos)[..., None] * torch.gather(
+            g_out, 1, rows[..., None].expand(-1, -1, c))
+        out = torch.where(live[..., None], out + term, out)
+    return out
+
+
+def three_interpolate_backward(g_out: torch.Tensor, idx: torch.Tensor,
+                               dist: torch.Tensor, m: int,
+                               eps: float = 1e-8) -> torch.Tensor:
+    """The gradient of the blend with respect to the known features:
+    g_out (B, n, C), idx (B, n, 3) int32 and dist (B, n, 3) as the forward
+    returned them -> (B, m, C) float32."""
+    tensors = (g_out, idx, dist)
+    if all(t.device.type == "cpu" for t in tensors):
+        return three_interpolate_backward_plain(g_out, idx, dist, m, eps)
+    dev = require_cuda(*tensors)
+    b, n, c = g_out.shape
+    if idx.shape != (b, n, 3) or dist.shape != (b, n, 3):
+        raise ValueError(
+            f"three_interpolate_backward takes (B, n, C), (B, n, 3), "
+            f"(B, n, 3); got {tuple(g_out.shape)}, {tuple(idx.shape)}, "
+            f"{tuple(dist.shape)}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be int32, got {idx.dtype}")
+    out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # Autograd may hand over a bf16 or strided cotangent.
+    g_out = g_out.float().contiguous()
+    idx = idx.contiguous()
+    dist = dist.float().contiguous()
+    KERNEL_BWD.launch(dev, g_out.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+                      b, n, m, c, eps, out.data_ptr())
+    return out
+
+
+def _forward(unknown: torch.Tensor, known: torch.Tensor,
+             features: torch.Tensor, eps: float
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     tensors = (unknown, known, features)
     if all(t.device.type == "cpu" for t in tensors):
         return three_interpolate_plain(unknown, known, features, eps)
@@ -117,3 +196,41 @@ def three_interpolate_fused(unknown: torch.Tensor, known: torch.Tensor,
                   features.data_ptr(), b, n, m, c, eps, out.data_ptr(),
                   dist.data_ptr(), idx.data_ptr())
     return out, dist, idx
+
+
+class ThreeInterpolateFused(torch.autograd.Function):
+    """K3 forward and backward as one differentiable function: the
+    counterpart of the JAX package's ``custom_vjp``.  The gradient reaches
+    ``features`` only; ``dist`` and ``idx`` are not differentiable and the
+    coordinates are data."""
+
+    @staticmethod
+    def forward(ctx, unknown, known, features, eps):
+        out, dist, idx = _forward(unknown, known, features, eps)
+        ctx.mark_non_differentiable(dist, idx)
+        ctx.save_for_backward(dist, idx)
+        ctx.eps = eps
+        ctx.m = known.shape[1]
+        ctx.dtype = features.dtype
+        return out, dist, idx
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out, _g_dist, _g_idx):
+        dist, idx = ctx.saved_tensors
+        g_feat = three_interpolate_backward(g_out, idx, dist, ctx.m, ctx.eps)
+        return None, None, g_feat.to(ctx.dtype), None
+
+
+def three_interpolate_fused(unknown: torch.Tensor, known: torch.Tensor,
+                            features: torch.Tensor, eps: float = 1e-8
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Fused exact 3-NN IDW interpolation: (B, n, 3), (B, m, 3), (B, m, C)
+    -> (out (B, n, C) float32, dist (B, n, 3), idx (B, n, 3) int32).
+    Differentiable with respect to ``features``; where no gradient is
+    asked for (serving under ``torch.inference_mode``) it is the forward
+    launch alone and saves nothing."""
+    if torch.is_grad_enabled() and features.requires_grad:
+        return ThreeInterpolateFused.apply(unknown, known, features, eps)
+    return _forward(unknown, known, features, eps)

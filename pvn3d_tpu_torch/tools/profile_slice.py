@@ -1,6 +1,7 @@
-"""Where a serving request's time goes on the card.
+"""Where a serving request's, or a training step's, time goes on the card.
 
     python3 -m pvn3d_tpu_torch.tools.profile_slice [--requests 3]
+    python3 -m pvn3d_tpu_torch.tools.profile_slice --train
 
 Runs the full-width ``Config.ycb()`` serving path (seeded random weights,
 ``synthetic_batch`` frames) on CUDA and prints:
@@ -10,6 +11,12 @@ Runs the full-width ``Config.ycb()`` serving path (seeded random weights,
 * a ``torch.profiler`` trace of ``--requests`` requests: device time by
   kernel (top 25), the four ported kernels' share, and the device's busy
   share of the wall time.
+
+With ``--train`` it runs the full-width training path instead
+(``create_train_state`` -> ``make_train_step``, bf16, batch 4,
+``grad_accum`` 1) and prints the step's stages alone (forward, loss,
+backward, optimizer; CUDA-event medians), the whole step by the host
+clock, peak memory, and the same trace over 2 steps.
 
 Needs a card; exits 1 without one.
 """
@@ -39,14 +46,116 @@ def _time_ms(fn, trials: int = 5) -> float:
     return statistics.median(out)
 
 
+_TRAIN_BATCH = 4
+_OURS = ("fps_kernel", "ball_query_kernel", "three_interp_kernel",
+         "three_interp_bwd_kernel", "winner_kernel")
+
+
+def _trace(fn, n: int, unit: str) -> None:
+    """Run ``fn(i)`` n times under ``torch.profiler`` and print the
+    device's busy share of the wall time, the ported kernels' time (each
+    by name) and the top 25 device entries."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side entries only (kernels, copies): the launching CPU ops
+    # also carry their kernels' time and would count it twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = [e for e in events if any(o in e.key for o in _OURS)]
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    print(f"[trace] {n} {unit}s: wall {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"ported kernels {ours_ms:.2f} ms", flush=True)
+    for e in ours:
+        name = next(o for o in reversed(_OURS) if o in e.key)
+        print(f"[trace] ported {name}: "
+              f"{e.self_device_time_total / 1e3 / n:.4f} ms/{unit} "
+              f"x{e.count / n:g}", flush=True)
+    for e in events[:25]:
+        print(f"[trace] {e.self_device_time_total / 1e3 / n:9.3f}"
+              f" ms/{unit}  x{e.count // n:<5d} {e.key[:90]}", flush=True)
+
+
+def _profile_train(args) -> int:
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.train.schedule import bn_momentum_at
+    from pvn3d_tpu_torch.train.state import create_train_state
+    from pvn3d_tpu_torch.train.step import (compute_losses, make_train_step,
+                                            to_device)
+
+    cfg = Config.ycb()
+    dev = torch.device("cuda")
+    state = create_train_state(cfg, args.seed)
+    step = make_train_step(cfg)
+    batch = to_device(synthetic_batch(cfg, batch_size=_TRAIN_BATCH,
+                                      seed=args.seed), dev)
+    model, opt = state.model, state.optimizer
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+
+    # The stages of one step, each timed alone on the step's own tensors.
+    bn_m = bn_momentum_at(state.step, cfg.train)
+    held = {}
+
+    def forward():
+        held["out"] = model(batch["pointcloud"], batch["rgb"],
+                            batch["choose"], bn_m)
+
+    def loss():
+        held["loss"] = compute_losses(cfg, held["out"], batch)["loss"]
+
+    def backward():
+        opt.zero_grad(set_to_none=True)
+        held["loss"].backward(retain_graph=True)
+
+    for name, fn in (("forward (train mode, batch statistics)", forward),
+                     ("loss (focal + 2 offset L1)", loss),
+                     ("backward", backward),
+                     ("optimizer (fused Adam)", opt.step)):
+        print(f"[stage] {name}: {_time_ms(fn):.3f} ms", flush=True)
+    held.clear()
+    opt.zero_grad(set_to_none=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[stage] whole step (make_train_step, batch {_TRAIN_BATCH}), host "
+          f"clock: median {statistics.median(times):.3f} ms of "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    _trace(lambda i: step(state, batch), 2, "step")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--train", action="store_true",
+                        help="profile the training step, not serving")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", flush=True)
         return 1
+    if args.train:
+        return _profile_train(args)
 
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
@@ -95,32 +204,9 @@ def main(argv=None) -> int:
         for name, fn in stages.items():
             print(f"[stage] {name}: {_time_ms(fn):.3f} ms", flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(args.requests):
-            step(synthetic_batch(cfg, batch_size=1, seed=args.seed + i))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side entries only (kernels, copies): the launching CPU ops
-    # also carry their kernels' time and would count it twice.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    ours = ("fps_kernel", "ball_query_kernel", "three_interp_kernel",
-            "winner_kernel")
-    ours_ms = sum(e.self_device_time_total for e in events
-                  if any(o in e.key for o in ours)) / 1e3
-    print(f"[trace] {args.requests} requests: wall {wall_ms:.2f} ms, "
-          f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"ported kernels {ours_ms:.2f} ms", flush=True)
-    for e in events[:25]:
-        print(f"[trace] {e.self_device_time_total / 1e3 / args.requests:9.3f}"
-              f" ms/request  x{e.count // args.requests:<5d} {e.key[:90]}",
-              flush=True)
+    _trace(lambda i: step(synthetic_batch(cfg, batch_size=1,
+                                          seed=args.seed + i)),
+           args.requests, "request")
     return 0
 
 

@@ -16,10 +16,19 @@ heads carry one (zero when converted from a reference checkpoint).  It is
 folded into the BN's running mean, ``BN(x + b) = BN'(x)`` with
 ``mean' = mean - b``, which is exact for the zero bias of every converted
 or freshly initialised JAX tree.
+
+``to_jax_variables`` is the inverse of ``from_jax_variables`` (numpy
+leaves, the hidden head biases as zeros), so a training step on each side
+can be compared leaf by leaf in one layout; applied to the ``.grad`` of
+every parameter it gives a gradient tree.  After training steps the JAX
+heads' hidden biases are no longer zero (their exact gradient is zero, but
+Adam turns rounding noise into steps of the learning rate) and the JAX
+running mean carries them: compare those layers as ``mean - bias``, which
+is what ``from_jax_variables`` yields.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -140,6 +149,133 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{torch_name}.{k}.conv.weight"] = _dense(hp["out"]["kernel"], 3)
         sd[f"{torch_name}.{k}.conv.bias"] = _t(hp["out"]["bias"])
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _conv_inv(w) -> np.ndarray:
+    return np.transpose(_np(w), (2, 3, 1, 0))
+
+
+def _dense_inv(w) -> np.ndarray:
+    w = _np(w)
+    return np.ascontiguousarray(w.reshape(w.shape[0], w.shape[1]).T)
+
+
+def _bn_inv(sd: Mapping, prefix: str, params: Dict, stats: Dict) -> None:
+    params["scale"] = _np(sd[f"{prefix}.weight"])
+    params["bias"] = _np(sd[f"{prefix}.bias"])
+    stats["mean"] = _np(sd[f"{prefix}.running_mean"])
+    stats["var"] = _np(sd[f"{prefix}.running_var"])
+
+
+def _shared_mlp_inv(sd: Mapping, prefix: str):
+    params, stats, k = {}, {}, 0
+    while f"{prefix}.layer{k}.conv.weight" in sd:
+        params[f"Dense_{k}"] = {
+            "kernel": _dense_inv(sd[f"{prefix}.layer{k}.conv.weight"])}
+        params[f"BatchNorm_{k}"], stats[f"BatchNorm_{k}"] = {}, {}
+        _bn_inv(sd, f"{prefix}.layer{k}.normlayer.bn",
+                params[f"BatchNorm_{k}"], stats[f"BatchNorm_{k}"])
+        k += 1
+    return params, stats
+
+
+def to_jax_variables(sd: Mapping, psp_sizes: Sequence[int] = (1, 2, 3, 6)
+                     ) -> Dict[str, Dict]:
+    """The port's ``state_dict`` (tensors or arrays) -> the JAX PVN3D
+    ``{"params", "batch_stats"}`` tree with numpy leaves: the inverse of
+    ``from_jax_variables``.  The JAX heads' hidden ``Dense`` biases, which
+    the port does not have, come out as zeros."""
+    p: Dict = {"cnn": {"trunk": {}, "psp": {}}, "pointnet2": {},
+               "fusion": {}}
+    s: Dict = {"cnn": {"trunk": {}}, "pointnet2": {}}
+
+    tp, ts = p["cnn"]["trunk"], s["cnn"]["trunk"]
+    pre = "cnn.model.feats"
+    tp["conv1"] = {"kernel": _conv_inv(sd[f"{pre}.conv1.weight"])}
+    tp["bn1"], ts["bn1"] = {}, {}
+    _bn_inv(sd, f"{pre}.bn1", tp["bn1"], ts["bn1"])
+    for stage in range(1, 5):
+        block = 0
+        while f"{pre}.layer{stage}.{block}.conv1.weight" in sd:
+            q = f"{pre}.layer{stage}.{block}"
+            bp, bs = {}, {}
+            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+                bp[conv] = {"kernel": _conv_inv(sd[f"{q}.{conv}.weight"])}
+                bp[bn], bs[bn] = {}, {}
+                _bn_inv(sd, f"{q}.{bn}", bp[bn], bs[bn])
+            if f"{q}.downsample.0.weight" in sd:
+                bp["down_conv"] = {
+                    "kernel": _conv_inv(sd[f"{q}.downsample.0.weight"])}
+                bp["down_bn"], bs["down_bn"] = {}, {}
+                _bn_inv(sd, f"{q}.downsample.1", bp["down_bn"],
+                        bs["down_bn"])
+            tp[f"layer{stage}_block{block}"] = bp
+            ts[f"layer{stage}_block{block}"] = bs
+            block += 1
+
+    cp, cs = p["cnn"], s["cnn"]
+    for i, size in enumerate(sorted(psp_sizes)):
+        cp["psp"][f"stage{size}"] = {
+            "kernel": _conv_inv(sd[f"cnn.model.psp.stages.{i}.1.weight"])}
+    cp["psp"]["bottleneck"] = {
+        "kernel": _conv_inv(sd["cnn.model.psp.bottleneck.weight"]),
+        "bias": _np(sd["cnn.model.psp.bottleneck.bias"])}
+    k = 1
+    while f"cnn.model.up_{k}.conv.1.weight" in sd:
+        q = f"cnn.model.up_{k}.conv"
+        up = {"conv": {"kernel": _conv_inv(sd[f"{q}.1.weight"]),
+                       "bias": _np(sd[f"{q}.1.bias"])},
+              "bn": {},
+              "prelu": {"alpha": _np(sd[f"{q}.3.weight"]).reshape((1,))}}
+        cs[f"up{k}"] = {"bn": {}}
+        _bn_inv(sd, f"{q}.2", up["bn"], cs[f"up{k}"]["bn"])
+        cp[f"up{k}"] = up
+        k += 1
+    for name in ("final", "final_seg"):
+        cp[name] = {"kernel": _conv_inv(sd[f"cnn.model.{name}.0.weight"]),
+                    "bias": _np(sd[f"cnn.model.{name}.0.bias"])}
+
+    pp, ps = p["pointnet2"], s["pointnet2"]
+    i = 0
+    while f"pointnet2.FP_modules.{i}.mlp.layer0.conv.weight" in sd:
+        pp[f"sa{i}"], ps[f"sa{i}"] = {}, {}
+        j = 0
+        while (f"pointnet2.SA_modules.{i}.mlps.{j}.layer0.conv.weight"
+               in sd):
+            pp[f"sa{i}"][f"mlp{j}"], ps[f"sa{i}"][f"mlp{j}"] = \
+                _shared_mlp_inv(sd, f"pointnet2.SA_modules.{i}.mlps.{j}")
+            j += 1
+        mlp_p, mlp_s = _shared_mlp_inv(sd, f"pointnet2.FP_modules.{i}.mlp")
+        pp[f"fp{i}"], ps[f"fp{i}"] = {"mlp": mlp_p}, {"mlp": mlp_s}
+        i += 1
+
+    for name in ("conv2_rgb", "conv2_cld", "conv3", "conv4"):
+        p["fusion"][name] = {
+            "kernel": _dense_inv(sd[f"rgbd_feat.{name}.weight"]),
+            "bias": _np(sd[f"rgbd_feat.{name}.bias"])}
+
+    for torch_name, ours in (("SEG_layer", "seg_head"),
+                             ("KpOF_layer", "kp_head"),
+                             ("CtrOf_layer", "ctr_head")):
+        hp, hs = {}, {}
+        k = 0
+        while f"{torch_name}.{k}.normlayer.bn.weight" in sd:
+            kernel = _dense_inv(sd[f"{torch_name}.{k}.conv.weight"])
+            hp[f"dense{k}"] = {
+                "kernel": kernel,
+                "bias": np.zeros((kernel.shape[1],), np.float32)}
+            hp[f"bn{k}"], hs[f"bn{k}"] = {}, {}
+            _bn_inv(sd, f"{torch_name}.{k}.normlayer.bn", hp[f"bn{k}"],
+                    hs[f"bn{k}"])
+            k += 1
+        hp["out"] = {"kernel": _dense_inv(sd[f"{torch_name}.{k}.conv.weight"]),
+                     "bias": _np(sd[f"{torch_name}.{k}.conv.bias"])}
+        p[ours], s[ours] = hp, hs
+    return {"params": p, "batch_stats": s}
 
 
 def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,9 @@ from pvn3d_tpu_torch.inference.pipeline import (  # noqa: E402
     make_inference_step, make_pose_fn)
 from pvn3d_tpu_torch.ops.kernels import (KERNELS, common, fps,  # noqa: E402
                                          interp, query, winner)
+from pvn3d_tpu_torch.train.state import create_train_state  # noqa: E402
+from pvn3d_tpu_torch.train.step import (make_eval_step,  # noqa: E402
+                                        make_train_step)
 from pvn3d_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +35,7 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    banned = {"jax", "jaxlib", "flax", "optax", "pvn3d_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pvn3d_tpu"}
     seen = 0
     for path in _port_sources():
         with open(path) as f:
@@ -74,34 +77,60 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                             np.ones(22))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_pose_fn(cfg, np.zeros((22, 9, 3)), np.ones(22))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(cfg)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    assert callable(make_train_step(cfg, device="cpu"))
 
 
 def _inputs():
+    """Per kernel of ``KERNELS``: its module, wrapper, the name of its
+    plain version and arguments for both."""
     rng = np.random.RandomState(0)
     xyz = torch.tensor(rng.rand(1, 64, 3).astype(np.float32))
     feats = torch.tensor(rng.randn(1, 16, 4).astype(np.float32))
     mask = torch.tensor(rng.rand(2, 16) < 0.8)
+    g_out = torch.tensor(rng.randn(1, 64, 4).astype(np.float32))
+    idx = torch.tensor(rng.randint(0, 16, (1, 64, 3)).astype(np.int32))
+    dist = torch.tensor(rng.rand(1, 64, 3).astype(np.float32))
     return {
         "fps": (fps, fps.fps, "fps_plain", (xyz, 8)),
         "query": (query, query.ball_query, "ball_query_plain",
                   ((0.2,), (4,), xyz, xyz[:, :8])),
         "interp": (interp, interp.three_interpolate_fused,
                    "three_interpolate_plain", (xyz, xyz[:, :16], feats)),
+        "interp_bwd": (interp, interp.three_interpolate_backward,
+                       "three_interpolate_backward_plain",
+                       (g_out, idx, dist, 16)),
         "winner": (winner, winner.winner_stats, "winner_stats_plain",
                    (xyz[:, :32].reshape(2, 16, 3), mask, 0.08)),
     }
 
 
-@pytest.mark.parametrize("name", ["fps", "query", "interp", "winner"])
+_KERNEL_NAMES = [k.name for k in KERNELS]
+
+
+def _kernel(name):
+    return next(k for k in KERNELS if k.name == name)
+
+
+def test_every_kernel_has_a_rules_case():
+    assert sorted(_inputs()) == sorted(_KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("name", _KERNEL_NAMES)
 def test_cpu_tensor_takes_plain_version(name, monkeypatch):
     mod, wrapper, plain_name, args = _inputs()[name]
 
     def no_launch(*a, **k):
         raise AssertionError("CPU tensors must not launch the kernel")
-    monkeypatch.setattr(mod.KERNEL, "launch", no_launch)
+    monkeypatch.setattr(_kernel(name), "launch", no_launch)
     got = wrapper(*args)
     want = getattr(mod, plain_name)(*args)
     got = got if isinstance(got, (list, tuple)) else [got]
@@ -110,12 +139,13 @@ def test_cpu_tensor_takes_plain_version(name, monkeypatch):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("name", ["fps", "query", "interp", "winner"])
+@pytest.mark.parametrize("name", _KERNEL_NAMES)
 def test_device_tensor_launches_or_raises(name, monkeypatch):
     """A tensor off the CPU never reaches the plain version: the wrapper
     launches its kernel (here a recorder, on 'meta' tensors standing in
     for CUDA ones) or, for a device that is not CUDA, raises."""
     mod, wrapper, plain_name, args = _inputs()[name]
+    kernel = _kernel(name)
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
 
     def no_plain(*a, **k):
@@ -126,11 +156,31 @@ def test_device_tensor_launches_or_raises(name, monkeypatch):
 
     calls = []
     monkeypatch.setattr(mod, "require_cuda", lambda *t: t[0].device)
-    monkeypatch.setattr(mod.KERNEL, "launch",
+    monkeypatch.setattr(kernel, "launch",
                         lambda dev, *a: calls.append(len(a)))
     wrapper(*meta)
     assert len(calls) == 1
-    assert calls[0] == len(mod.KERNEL.argtypes) - 1   # all but the stream
+    assert calls[0] == len(kernel.argtypes) - 1   # all but the stream
+
+
+def test_backward_of_a_device_tensor_launches_the_backward_kernel(
+        monkeypatch):
+    """Under autograd the FP blend's gradient goes through
+    ``ThreeInterpolateFused.backward`` to the backward kernel's wrapper,
+    never through autograd of a gather."""
+    seen = []
+    real = interp.three_interpolate_backward
+
+    def recording(*a, **k):
+        seen.append(a[3])
+        return real(*a, **k)
+    monkeypatch.setattr(interp, "three_interpolate_backward", recording)
+    _, _, _, (xyz, known, feats) = _inputs()["interp"]
+    feats = feats.clone().requires_grad_(True)
+    out, _, _ = interp.three_interpolate_fused(xyz, known, feats)
+    assert type(out.grad_fn).__name__ == "ThreeInterpolateFusedBackward"
+    out.sum().backward()
+    assert seen == [16]
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):
@@ -148,7 +198,8 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_its_source_and_counter():
-    assert [k.name for k in KERNELS] == ["fps", "query", "interp", "winner"]
+    assert len(KERNELS) == 5 and len(set(_KERNEL_NAMES)) == 5
     for k in KERNELS:
         assert os.path.exists(k.source)
+        assert os.path.basename(k.source) == f"{k.name}.cu"
         assert isinstance(k.launches, int)

@@ -23,7 +23,8 @@ from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,  # noqa: E402
                                           stacked_mesh_kps)
 from pvn3d_tpu_torch.utils.weights import (build_model,  # noqa: E402
                                            from_jax_variables,
-                                           seeded_state_dict)
+                                           seeded_state_dict,
+                                           to_jax_variables)
 from tests.test_torch_convert import _fake_pvn3d_sd  # noqa: E402
 
 
@@ -102,6 +103,25 @@ def test_from_jax_variables_inverts_convert_pvn3d():
     model = PVN3D(to_port(cfg))
     assert set(model.state_dict()) == set(port_sd)
     model.load_state_dict(port_sd, strict=True)
+
+
+def test_to_jax_variables_inverts_from_jax_variables():
+    """JAX tree -> the port's state_dict -> JAX tree gives back every leaf
+    exactly, in the same structure and shapes (the hidden head biases,
+    zero in a converted tree, come back as zeros)."""
+    import jax
+    variables, port_sd, _ = jax_and_port_weights(small_model_cfg(), seed=6)
+    back = to_jax_variables(port_sd)
+    want = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_leaves_with_path(variables)}
+    got = {jax.tree_util.keystr(k): v for k, v in
+           jax.tree_util.tree_leaves_with_path(back)}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    again = from_jax_variables(back)
+    assert all(torch.equal(again[k], port_sd[k]) for k in port_sd)
 
 
 def test_head_bias_folds_into_bn_mean():
