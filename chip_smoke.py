@@ -15,16 +15,21 @@ that fails):
                plain version, a library call where one computes the same
                function (K2: cdist + where + topk; K3: cdist + topk +
                gather), and the bound the card's peak rates set; K1's time
-               per step and K2's time per level are logged, each also as
-               device time from a ``torch.profiler`` trace (the kernel
-               without the host's launch cost).  K3's backward kernel is
-               held bit for bit against its plain version at the training
+               per step and K2's and K3's times per level are logged, each
+               also as device time from a ``torch.profiler`` trace (the
+               kernel without the host's launch cost); K3 forward logs
+               each level's grid and bound.  K3's backward kernel is held
+               bit for bit against its plain version at the training
                step's shapes (batch 4, fp3 .. fp0), run twice for
-               determinism, and timed beside ``index_add_``; K1, K2 and
-               K3 forward are checked once more at batch 4.
+               determinism, and timed per level beside ``index_add_``, on
+               depth-camera clouds and on the training batch's own clouds
+               (``synthetic_batch``, whose clusters give lists of ~1800
+               hits); K1, K2 and K3 forward are checked once more at
+               batch 4 on both.
 4. edge      — the same comparison at shapes off the main paths, among
                them the edge cases of K1's cluster split, K2's 32-point
-               runs and K3 backward's longest accumulation chains.
+               runs, K3's lane split and tie order, and K3 backward's
+               tiles, long lists and scalar instances.
 5. slice     — the serving path at full width (``Config.ycb()``:
                480x640, 12288 points, 22 classes) with seeded random
                weights: three requests through ``make_inference_step``
@@ -55,7 +60,8 @@ that fails):
                BN on its running statistics, every leaf within
                2e-3 * max|g|.
 8. a JSON line per kernel (launches on the serving slice and the training
-   steps, error, times, bound), the ``nvidia-smi`` line again, then the
+   steps, error, times, bound; K3 forward and backward also per level,
+   the backward on both clouds), the ``nvidia-smi`` line again, then the
    result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
@@ -180,6 +186,103 @@ def _index_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _level_record(per_level, err, tol, replaces):
+    """A kernel's JSON record from its per-level records: times summed over
+    the levels, the bound of the summed bytes and operations."""
+    def total(key):
+        vals = [lv[key] for lv in per_level]
+        return None if any(v is None for v in vals) else sum(vals)
+    rec = dict(shapes=[f"{lv['level']} n={lv['n']} m={lv['m']} C={lv['C']}"
+                       for lv in per_level],
+               max_abs_err=err, tol=tol, ms=total("ms"),
+               device_ms=total("device_ms"), plain_ms=total("plain_ms"),
+               library_ms=total("library_ms"),
+               bound=bound_ms(total("n_bytes"), total("flops")),
+               replaces=replaces, levels=per_level)
+    if "index_add_ms" in per_level[0]:
+        rec["index_add_ms"] = total("index_add_ms")
+    return rec
+
+
+def _backward_levels(rng, levels4, known_c, cloud):
+    """K3 backward at batch 4 on one set of level clouds: each level held
+    bit for bit against its plain version, twice, and timed by events and
+    on the device beside the updates + ``index_add_`` composition and the
+    ``index_add_`` call alone.  Returns (per-level records, max error)."""
+    from pvn3d_tpu_torch.ops.kernels import interp
+    dev = levels4[0].device
+    tb = levels4[0].shape[0]
+    per_level = []
+    err = 0.0
+    for li in range(3, -1, -1):
+        unk, kn = levels4[li], levels4[li + 1]
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        feats = torch.tensor(rng.randn(tb, nk, c).astype(np.float32),
+                             device=dev)
+        fwd = interp.three_interpolate_fused(unk, kn, feats)
+        fwd_plain = interp.three_interpolate_plain(unk, kn, feats)
+        if (not torch.equal(fwd[2], fwd_plain[2])
+                or _err(fwd[:2], fwd_plain[:2]) > 1e-5):
+            raise AssertionError(f"K3 interp fp{li} at batch 4 ({cloud}) "
+                                 f"differs")
+        _, dist, idx = fwd
+        g_out = torch.tensor(rng.randn(tb, nu, c).astype(np.float32),
+                             device=dev)
+
+        def kernel():
+            return interp.three_interpolate_backward(g_out, idx, dist, nk)
+        got = kernel()
+        want = interp.three_interpolate_backward_plain(g_out, idx, dist, nk)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K3 interp_bwd fp{li} ({cloud}): differs from plain by "
+                f"{_err(got, want)}")
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"K3 interp_bwd fp{li} ({cloud}): two runs "
+                                 f"differ")
+        err = max(err, _err(got, want))
+        rows = (idx.long() + (torch.arange(tb, device=dev) * nk)[:, None,
+                                                                None]
+                ).reshape(-1)
+
+        def updates():
+            w = 1.0 / (dist + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            return (w[..., None] * g_out[:, :, None, :]).reshape(-1, c)
+
+        def library():
+            # The library composition: the (B * 3n, C) updates, then one
+            # index_add_ into the (B * m, C) rows (atomics, no fixed order).
+            return torch.zeros(tb * nk, c, device=dev).index_add_(
+                0, rows, updates())
+        lib_err = _err(library().reshape(tb, nk, c), got)
+        if lib_err > 1e-4 * max(1.0, float(got.abs().max())):
+            raise AssertionError(f"K3 interp_bwd fp{li} ({cloud}): "
+                                 f"index_add_ disagrees by {lib_err}")
+        upd = updates()
+        n_bytes = tb * (nu * c + nk * c) * 4 + tb * nu * 24
+        lvl = dict(level=f"fp{li}", B=tb, n=nu, m=nk, C=c,
+                   ms=time_ms(kernel), device_ms=device_ms(kernel),
+                   plain_ms=time_ms(lambda: interp.
+                                    three_interpolate_backward_plain(
+                                        g_out, idx, dist, nk), reps=1),
+                   library_ms=time_ms(library),
+                   index_add_ms=time_ms(lambda: torch.zeros(
+                       tb * nk, c, device=dev).index_add_(0, rows, upd)),
+                   longest_list=int(torch.bincount(rows).max()),
+                   n_bytes=n_bytes, flops=0.0)
+        lvl["bound_ms"], lvl["bound_by"] = bound_ms(n_bytes, 0.0)
+        per_level.append(lvl)
+        log("kernels", f"K3 interp_bwd fp{li} B={tb} n={nu} m={nk} C={c} "
+            f"({cloud}): equal to plain bit for bit, twice; "
+            f"{lvl['ms']:.4f} ms, on the device {lvl['device_ms']:.4f} ms, "
+            f"bound {lvl['bound_ms']:.4f} ms; updates+index_add_ "
+            f"{lvl['library_ms']:.4f} ms (the call alone "
+            f"{lvl['index_add_ms']:.4f}); longest list "
+            f"{lvl['longest_list']} hits")
+    return per_level, err
+
+
 def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
@@ -279,18 +382,17 @@ def phase_kernels(rng):
         f"(plain {plain:.3f}, cdist+where+topk {lib:.3f})")
 
     # K3: four launches per frame (fp3 .. fp0), known features of the
-    # dense graph's widths.
+    # dense graph's widths; each level timed, traced and bounded alone.
     widths = [sum(m[-1] for m in lvl.mlps) for lvl in pcfg.sa_levels]
     known_c = [cfg.pointnet2.fp_mlps[i + 1][-1] if i < 3 else widths[3]
                for i in range(4)]
-    ms = plain = lib = 0.0
-    n_bytes = flops = 0.0
-    shapes = []
+    per_level = []
     err = 0.0
     for li in range(3, -1, -1):
         unk, kn = levels[li], levels[li + 1]
-        feats = torch.tensor(rng.randn(1, kn.shape[1], known_c[li])
-                             .astype(np.float32), device=dev)
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        feats = torch.tensor(rng.randn(1, nk, c).astype(np.float32),
+                             device=dev)
         got = interp.three_interpolate_fused(unk, kn, feats)
         want = interp.three_interpolate_plain(unk, kn, feats)
         if not torch.equal(got[2], want[2]):
@@ -299,9 +401,9 @@ def phase_kernels(rng):
         if e > 1e-5:
             raise AssertionError(f"K3 interp fp{li}: max abs err {e}")
         err = max(err, e)
-        ms += time_ms(lambda: interp.three_interpolate_fused(unk, kn, feats))
-        plain += time_ms(lambda: interp.three_interpolate_plain(
-            unk, kn, feats), reps=1)
+
+        def kernel():
+            return interp.three_interpolate_fused(unk, kn, feats)
 
         def library():
             d, i = torch.topk(torch.cdist(unk, kn), 3, largest=False)
@@ -309,114 +411,81 @@ def phase_kernels(rng):
             w = w / w.sum(-1, keepdim=True)
             g = feats[0][i[0]]
             return (g * w[0, :, :, None]).sum(1)
-        lib += time_ms(library)
-        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
-        flops += nu * nk * (D2_FLOPS + 1) + nu * c * 5
-        n_bytes += nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
-        shapes.append(f"fp{li} n={nu} m={nk} C={c}")
-    rec["interp"] = dict(shapes=shapes, max_abs_err=err,
-                         tol="indices exact, out/dist 1e-5", ms=ms,
-                         plain_ms=plain, library_ms=lib,
-                         bound=bound_ms(n_bytes, flops),
-                         replaces="pvn3d_tpu/ops/pallas/interp.py:162")
-    log("kernels", f"K3 interp x4 levels: idx equal, max err {err:.2e}, "
-        f"{ms:.3f} ms (plain {plain:.3f}, cdist+topk {lib:.3f})")
+        rows, warps, blocks = interp.forward_grid(1, nu)
+        n_bytes = nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
+        flops = nu * nk * (D2_FLOPS + 1) + nu * c * 5
+        lvl = dict(level=f"fp{li}", n=nu, m=nk, C=c, blocks=blocks,
+                   rows_per_warp=rows, warps_per_block=warps,
+                   ms=time_ms(kernel), device_ms=device_ms(kernel),
+                   plain_ms=time_ms(lambda: interp.three_interpolate_plain(
+                       unk, kn, feats), reps=1),
+                   library_ms=time_ms(library), n_bytes=n_bytes,
+                   flops=flops)
+        lvl["bound_ms"], lvl["bound_by"] = bound_ms(n_bytes, flops)
+        per_level.append(lvl)
+        log("kernels", f"K3 interp fp{li} n={nu} m={nk} C={c}: grid "
+            f"{blocks} blocks of {warps} warps, {rows} row(s) a warp; idx "
+            f"equal, max err {e:.2e}; {lvl['ms']:.4f} ms, on the device "
+            f"{lvl['device_ms']:.4f} ms, bound {lvl['bound_ms']:.4f} ms "
+            f"({lvl['bound_by']}); plain {lvl['plain_ms']:.3f}, "
+            f"cdist+topk+gather {lvl['library_ms']:.4f}")
+    rec["interp"] = _level_record(
+        per_level, err, "indices exact, out/dist 1e-5",
+        "pvn3d_tpu/ops/pallas/interp.py:162")
+    log("kernels", f"K3 interp x4 levels: {rec['interp']['ms']:.4f} ms, on "
+        f"the device {rec['interp']['device_ms']:.4f} ms (plain "
+        f"{rec['interp']['plain_ms']:.3f}, cdist+topk+gather "
+        f"{rec['interp']['library_ms']:.4f})")
 
     # The training step's shapes: batch 4.  K1, K2 and K3 forward checked
     # once there; K3 backward held, timed and bounded there (4 launches a
-    # micro-batch, fp3 .. fp0, cotangent random).
+    # micro-batch, fp3 .. fp0, cotangent random), on depth-camera clouds
+    # and on the training batch's own clouds (synthetic_batch at batch 4:
+    # tight object clusters, so a few rows collect far longer lists).
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     tb = 4
-    xyz4 = torch.tensor(np.stack([depth_cloud(rng, cfg.n_sample_points)
-                                  for _ in range(tb)]), device=dev)
-    got4 = fps.fps(xyz4, m0)
-    if not torch.equal(got4, fps.fps_plain(xyz4, m0)):
-        raise AssertionError("K1 fps at batch 4: indices differ from plain")
-    pts4 = torch.gather(xyz4, 1, got4.long()[..., None].expand(-1, -1, 3))
-    levels4 = [xyz4] + [pts4[:, :lvl.npoint].contiguous()
-                        for lvl in pcfg.sa_levels]
-    for li, lvl in enumerate(pcfg.sa_levels):
-        src, cen = levels4[li], levels4[li + 1]
-        if not _index_equal(
-                query.ball_query(lvl.radii, lvl.nsamples, src, cen),
-                query.ball_query_plain(lvl.radii, lvl.nsamples, src, cen)):
-            raise AssertionError(f"K2 query L{li} at batch 4 differs")
-    ms = plain = lib = lib_call = dev_ms = 0.0
-    n_bytes = 0.0
-    shapes = []
-    err = 0.0
-    for li in range(3, -1, -1):
-        unk, kn = levels4[li], levels4[li + 1]
-        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
-        feats = torch.tensor(rng.randn(tb, nk, c).astype(np.float32),
-                             device=dev)
-        fwd = interp.three_interpolate_fused(unk, kn, feats)
-        fwd_plain = interp.three_interpolate_plain(unk, kn, feats)
-        if (not torch.equal(fwd[2], fwd_plain[2])
-                or _err(fwd[:2], fwd_plain[:2]) > 1e-5):
-            raise AssertionError(f"K3 interp fp{li} at batch 4 differs")
-        _, dist, idx = fwd
-        g_out = torch.tensor(rng.randn(tb, nu, c).astype(np.float32),
-                             device=dev)
-
-        def kernel():
-            return interp.three_interpolate_backward(g_out, idx, dist, nk)
-        got = kernel()
-        want = interp.three_interpolate_backward_plain(g_out, idx, dist, nk)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K3 interp_bwd fp{li}: differs from plain by "
-                f"{_err(got, want)}")
-        if not torch.equal(got, kernel()):
-            raise AssertionError(f"K3 interp_bwd fp{li}: two runs differ")
-        err = max(err, _err(got, want))
-        level_ms = time_ms(kernel)
-        level_dev = device_ms(kernel)
-        ms += level_ms
-        dev_ms += level_dev
-        plain += time_ms(lambda: interp.three_interpolate_backward_plain(
-            g_out, idx, dist, nk), reps=1)
-        rows = (idx.long() + (torch.arange(tb, device=dev) * nk)[:, None,
-                                                                None]
-                ).reshape(-1)
-
-        def updates():
-            w = 1.0 / (dist + 1e-8)
-            w = w / w.sum(-1, keepdim=True)
-            return (w[..., None] * g_out[:, :, None, :]).reshape(-1, c)
-
-        def library():
-            # The library composition: the (B * 3n, C) updates, then one
-            # index_add_ into the (B * m, C) rows (atomics, no fixed order).
-            return torch.zeros(tb * nk, c, device=dev).index_add_(
-                0, rows, updates())
-        lib_err = _err(library().reshape(tb, nk, c), got)
-        if lib_err > 1e-4 * max(1.0, float(got.abs().max())):
-            raise AssertionError(f"K3 interp_bwd fp{li}: index_add_ "
-                                 f"disagrees by {lib_err}")
-        level_lib = time_ms(library)
-        upd = updates()
-        level_call = time_ms(lambda: torch.zeros(
-            tb * nk, c, device=dev).index_add_(0, rows, upd))
-        lib += level_lib
-        lib_call += level_call
-        chain = int(torch.bincount(rows).max())
-        level_bytes = tb * (nu * c + nk * c) * 4 + tb * nu * 24
-        n_bytes += level_bytes
-        shapes.append(f"fp{li} B={tb} n={nu} m={nk} C={c}")
-        log("kernels", f"K3 interp_bwd fp{li} B={tb} n={nu} m={nk} C={c}: "
-            f"equal to plain bit for bit, twice; {level_ms:.4f} ms, on the "
-            f"device {level_dev:.4f} ms, bound "
-            f"{level_bytes / PEAK_BYTES * 1e3:.4f} ms; updates+index_add_ "
-            f"{level_lib:.4f} ms (the call alone {level_call:.4f}); longest "
-            f"row {chain} hits")
-    rec["interp_bwd"] = dict(
-        shapes=shapes, max_abs_err=err, tol="bit for bit", ms=ms,
-        plain_ms=plain, library_ms=lib, bound=bound_ms(n_bytes, 0.0),
-        replaces="pvn3d_tpu/ops/pallas/interp.py:180")
-    log("kernels", f"K3 interp_bwd x4 levels at batch {tb}: equal, "
-        f"{ms:.3f} ms, on the device {dev_ms:.3f} ms (plain {plain:.3f}, "
-        f"updates+index_add_ {lib:.3f}, index_add_ alone {lib_call:.3f}); "
-        f"K1, K2, K3 forward equal their plain versions at batch {tb}")
+    clouds = {
+        "depth": np.stack([depth_cloud(rng, cfg.n_sample_points)
+                           for _ in range(tb)]),
+        "train": synthetic_batch(Config.ycb(), batch_size=tb,
+                                 seed=0)["pointcloud"][..., :3].copy(),
+    }
+    for cloud, pts_np in clouds.items():
+        xyz4 = torch.tensor(pts_np, device=dev)
+        got4 = fps.fps(xyz4, m0)
+        if not torch.equal(got4, fps.fps_plain(xyz4, m0)):
+            raise AssertionError(f"K1 fps at batch 4 ({cloud}): indices "
+                                 f"differ from plain")
+        pts4 = torch.gather(xyz4, 1,
+                            got4.long()[..., None].expand(-1, -1, 3))
+        levels4 = [xyz4] + [pts4[:, :lvl.npoint].contiguous()
+                            for lvl in pcfg.sa_levels]
+        for li, lvl in enumerate(pcfg.sa_levels):
+            src, cen = levels4[li], levels4[li + 1]
+            if not _index_equal(
+                    query.ball_query(lvl.radii, lvl.nsamples, src, cen),
+                    query.ball_query_plain(lvl.radii, lvl.nsamples, src,
+                                           cen)):
+                raise AssertionError(f"K2 query L{li} at batch 4 ({cloud}) "
+                                     f"differs")
+        per_level, err = _backward_levels(rng, levels4, known_c, cloud)
+        rec["interp_bwd" if cloud == "depth" else "interp_bwd_train"] = \
+            _level_record(per_level, err, "bit for bit",
+                          "pvn3d_tpu/ops/pallas/interp.py:180")
+    for cloud, key in (("depth", "interp_bwd"), ("train", "interp_bwd_train")):
+        r = rec[key]
+        log("kernels", f"K3 interp_bwd x4 levels at batch {tb}, {cloud} "
+            f"clouds: equal, {r['ms']:.4f} ms, on the device "
+            f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms (plain "
+            f"{r['plain_ms']:.3f}, updates+index_add_ {r['library_ms']:.4f}, "
+            f"index_add_ alone {r['index_add_ms']:.4f}); longest list "
+            f"{max(lv['longest_list'] for lv in r['levels'])} hits")
+    on_train = rec["interp_bwd_train"]["device_ms"]
+    on_depth = rec["interp_bwd"]["device_ms"]
+    log("kernels", f"K3 interp_bwd on the training batch's clouds / depth "
+        f"clouds, device time: {on_train:.4f} / {on_depth:.4f} = "
+        f"{on_train / on_depth:.2f}x; K1, K2, K3 forward equal their plain "
+        f"versions at batch {tb} on both")
 
     # K4: three launches per frame, H = 21, 21, 168 at K = 512 (clustered
     # votes: a few tight modes plus scatter, ~70% valid).
@@ -463,12 +532,20 @@ def phase_edge_cases(rng) -> None:
     reach min-d^2 0; an all-skipped row in a batch of 3.  K2: more than ns
     hits in one 32-point run; hits straddling indices 31/32; N not a
     multiple of 32; one scale full while the other never fills; empty
-    balls; B = 2 with 3 scales.  K3: fewer than three known points, no
-    channels.  K3 backward: m < 3 (every slot of every unknown point names
-    row 0: a chain of 3n), C = 0, C = 33 (no float4 path), B = 2, every
-    unknown point sharing one nearest neighbour (a chain of n), n not a
-    multiple of 32, a strided bf16 cotangent.  K4: K past one
-    shared-memory tile, an all-invalid hypothesis."""
+    balls; B = 2 with 3 scales.  K3: m in {1, 2, 3}; m = 77, not a
+    multiple of 32; n = 12289, not a multiple of the rows a block takes;
+    C = 0 and C = 1024; C = 35 and C = 36 with features 4 bytes off a
+    16-byte boundary (the scalar instance); exact distance ties split
+    across the lanes of the search.  K3 backward (each also run twice):
+    m < 3 (every slot of every unknown point names row 0: a list of 3n),
+    C = 0, C = 33 (no float4 path), B = 2, every unknown point sharing one
+    nearest neighbour (a list of n), n not a multiple of 32, m = 77 at
+    C = 1024, one row taking all 3n = 36864 entries across 36 tiles (and at
+    C = 33), m = 2000 at n = 50 (rows nothing points at), m = 20000
+    (counters in global memory), B = 4 with a different list shape per
+    batch row, a misaligned cotangent with long lists, a strided bf16
+    cotangent through autograd.  K4: K past one shared-memory tile, an
+    all-invalid hypothesis."""
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
     dev = torch.device("cuda")
 
@@ -523,37 +600,117 @@ def phase_edge_cases(rng) -> None:
                             query.ball_query_plain(radii, ns, xyz, cen)):
             raise AssertionError(f"edge query {name}")
     cases += len(query_cases)
-    for n, m, c in ((500, 2, 7), (300, 1500, 0), (1000, 3, 33)):
-        u, k = cloud(2, n, 3), cloud(2, m, 3)
-        f = torch.randn(2, m, c, device=dev)
+    def misaligned(*shape):
+        """A contiguous float32 tensor whose data starts 4 bytes past a
+        16-byte boundary (the kernels' scalar instances)."""
+        n_el = int(np.prod(shape))
+        return torch.randn(n_el + 1, device=dev)[1:].view(*shape)
+
+    def tie_cloud(b, n, m):
+        """Integer-grid points: exact distance ties everywhere, and known
+        points duplicated at indices that fall to other lanes of the
+        search (j, j + 1, j + 5, j + 33) and to the same lane (j + 32)."""
+        known = torch.tensor(rng.randint(-2, 3, (b, m, 3)).astype(
+            np.float32), device=dev)
+        for src, dst in ((0, 1), (2, 7), (3, 36), (4, 37), (0, 32)):
+            known[:, dst] = known[:, src]
+        unknown = torch.tensor(rng.randint(-4, 5, (b, n, 3)).astype(
+            np.float32) * 0.5, device=dev)
+        return unknown, known
+    tie_u, tie_k = tie_cloud(2, 700, 100)
+    fwd_cases = {
+        "m=2": (cloud(2, 500, 3), cloud(2, 2, 3), torch.randn(
+            2, 2, 7, device=dev)),
+        "C=0": (cloud(2, 300, 3), cloud(2, 1500, 3), torch.randn(
+            2, 1500, 0, device=dev)),
+        "m=3, C=33": (cloud(2, 1000, 3), cloud(2, 3, 3), torch.randn(
+            2, 3, 33, device=dev)),
+        "m=1": (cloud(2, 300, 3), cloud(2, 1, 3), torch.randn(
+            2, 1, 16, device=dev)),
+        "m=77 (not a multiple of 32)": (cloud(2, 640, 3), cloud(2, 77, 3),
+                                        torch.randn(2, 77, 64, device=dev)),
+        "n=12289 (not a multiple of rows per block)": (
+            cloud(1, 12289, 3), cloud(1, 2048, 3),
+            torch.randn(1, 2048, 256, device=dev)),
+        "n=511, C=1024": (cloud(1, 511, 3), cloud(1, 128, 3), torch.randn(
+            1, 128, 1024, device=dev)),
+        "C=36, misaligned features": (cloud(2, 900, 3), cloud(2, 200, 3),
+                                      misaligned(2, 200, 36)),
+        "C=35, misaligned features": (cloud(1, 700, 3), cloud(1, 90, 3),
+                                      misaligned(1, 90, 35)),
+        "exact distance ties split across lanes": (
+            tie_u, tie_k, torch.randn(2, 100, 8, device=dev)),
+    }
+    for name, (u, k, f) in fwd_cases.items():
         got = interp.three_interpolate_fused(u, k, f)
         want = interp.three_interpolate_plain(u, k, f)
         if not torch.equal(got[2], want[2]) or _err(got[:2], want[:2]) > 1e-5:
-            raise AssertionError(f"edge interp n={n} m={m} C={c}")
+            raise AssertionError(f"edge interp {name}")
         cases += 1
+    got = interp.three_interpolate_fused(tie_u, tie_k, torch.randn(
+        2, 100, 8, device=dev))
+    if not bool((got[1][..., 0] == got[1][..., 1]).any()):
+        raise AssertionError("edge interp: the tie cloud has no tie")
+    # K3 backward.  (b, n, m, C, kind): "cloud" takes idx and dist from the
+    # forward on a random cloud, "shared" puts every unknown point nearest
+    # to row 0 (a list of n), "one" points every entry at row m - 1 (a list
+    # of 3n), "rows" gives each batch row its own list shape.
     bwd_cases = {
-        "m=1, chain 3n": (2, 333, 1, 16, False),
-        "m=2": (2, 500, 2, 7, False),
-        "C=0": (2, 300, 40, 0, False),
-        "C=33, n=1000": (2, 1000, 3, 33, False),
-        "one shared neighbour, n=1001": (2, 1001, 77, 64, True),
-        "n=45 (under two runs), C=4": (1, 45, 9, 4, False),
+        "m=1, list of 3n": (2, 333, 1, 16, "cloud"),
+        "m=2": (2, 500, 2, 7, "cloud"),
+        "C=0": (2, 300, 40, 0, "cloud"),
+        "C=33, n=1000": (2, 1000, 3, 33, "cloud"),
+        "one shared neighbour, n=1001": (2, 1001, 77, 64, "shared"),
+        "n=45 (under two runs), C=4": (1, 45, 9, 4, "cloud"),
+        "m=77 (not a multiple of 32), C=1024": (2, 1500, 77, 1024, "cloud"),
+        "one row takes all 3n = 36864 entries (36 tiles)": (
+            1, 12288, 50, 256, "one"),
+        "one row takes all 3n, C=33": (2, 4096, 40, 33, "one"),
+        "m=2000, n=50: rows nothing points at": (1, 50, 2000, 256, "cloud"),
+        "m=20000 (counters in global memory)": (2, 3000, 20000, 8, "cloud"),
+        "B=4, a list shape per batch row": (4, 4096, 64, 256, "rows"),
     }
-    for name, (b, n, m, c, shared) in bwd_cases.items():
+    for name, (b, n, m, c, kind) in bwd_cases.items():
         k = cloud(b, m, 3)
         u = cloud(b, n, 3)
-        if shared:
+        if kind == "shared":
             u = k[:, :1] + u * 1e-3       # every point nearest to row 0
         f = torch.randn(b, m, c, device=dev)
         _, dist, idx = interp.three_interpolate_fused(u, k, f)
+        if kind == "one":
+            idx = torch.full_like(idx, m - 1)
+        elif kind == "rows":
+            # Row 0 random, row 1 one list of 3n, row 2 equal blocks of
+            # consecutive points, row 3 geometric (a few long lists).
+            idx = torch.stack([
+                torch.randint(0, m, (n, 3), device=dev),
+                torch.full((n, 3), 5, device=dev),
+                (torch.arange(n, device=dev) * m // n)[:, None].expand(n, 3),
+                torch.tensor(np.minimum(rng.geometric(0.05, (n, 3)) - 1,
+                                        m - 1), device=dev),
+            ]).int().contiguous()
         g = torch.randn(b, n, c, device=dev)
         got = interp.three_interpolate_backward(g, idx, dist, m)
         if not torch.equal(got, interp.three_interpolate_backward_plain(
                 g, idx, dist, m)):
             raise AssertionError(f"edge interp_bwd {name}")
-        if shared and int((idx[..., 0] == 0).sum()) != b * n:
-            raise AssertionError(f"edge interp_bwd {name}: not one chain")
+        if not torch.equal(got, interp.three_interpolate_backward(
+                g, idx, dist, m)):
+            raise AssertionError(f"edge interp_bwd {name}: two runs differ")
+        if kind == "shared" and int((idx[..., 0] == 0).sum()) != b * n:
+            raise AssertionError(f"edge interp_bwd {name}: not one list")
         cases += 1
+    # A misaligned cotangent with long lists (the scalar instance of both
+    # roles of the sum).
+    idx = torch.full((1, 2000, 3), 3, dtype=torch.int32, device=dev)
+    idx[:, ::7] = 1
+    dist = torch.rand(1, 2000, 3, device=dev)
+    g = misaligned(1, 2000, 64)
+    got = interp.three_interpolate_backward(g, idx, dist, 10)
+    if not torch.equal(got, interp.three_interpolate_backward_plain(
+            g, idx, dist, 10)):
+        raise AssertionError("edge interp_bwd misaligned cotangent")
+    cases += 1
     # Through autograd, with the cotangent autograd hands over: bf16 and
     # strided (a transposed view), made float32 contiguous by the wrapper.
     k, u = cloud(2, 50, 3), cloud(2, 700, 3)
@@ -965,6 +1122,15 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})
+        if "levels" in r:
+            # K3: the sums' parts, one record per level (fp3 .. fp0).
+            line[-1]["device_ms"] = r["device_ms"]
+            line[-1]["levels"] = r["levels"]
+        if k.name == "interp_bwd":
+            t = rec["interp_bwd_train"]
+            line[-1].update(index_add_ms=r["index_add_ms"],
+                            device_ms_train=t["device_ms"], ms_train=t["ms"],
+                            levels_train=t["levels"])
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,23 +6,26 @@ Replaces ``pvn3d_tpu/ops/pallas/interp.py::three_interpolate_fused``:
 ``_fused_bwd`` backward, joined here by ``ThreeInterpolateFused`` (a
 ``torch.autograd.Function``).
 
-Forward.  Bound on the card: the n*m direct-form distance tests of the
-search (fp0: 25M) and, at the finest level, the n*C float32 output
-(12.6 MB).  The kernel keeps a running top-3 per unknown point over
-shared-memory tiles of the known points, then writes the blend with
-threads along the channel axis so reads and writes are coalesced (source
-note in ``interp.cu``).  The TPU blend was a bf16 MXU matmul; this one is
-float32.
+Forward.  Bound on the card: bytes (the n*C float32 output, fp0 12.6 MB;
+the n*m direct-form distance tests, fp0 25M, are a few microseconds).  A
+warp per unknown row (1, 2 or 4 rows per warp, ``forward_grid``, so every
+level fills the card): lane l scans the known points j = l (mod 32) with a
+running top-3, a ``__shfl_xor_sync`` butterfly merges the 32 lists under
+the total (d^2, index) order, and the same warp writes the blend with
+lanes along the channels in float4 (source note in ``interp.cu``).  The
+TPU blend was a bf16 MXU matmul; this one is float32.
 
 Backward.  ``g_features[b, idx[b,i,k], :] += w[b,i,k] * g_out[b,i,:]``, with
 ``w`` recomputed from the saved distances in the forward's own order
 ``(r0 + r1) + r2``; the coordinates get no gradient.  Bound: bytes (g_out
 read once, g_features written once).  The JAX package promises a
-deterministic scatter-add; the kernel is a gather by destination (one warp
-per known row scans the flattened ``idx`` in index order and sums its hits
-in ``(i, k)`` order, source note in ``interp_bwd.cu``), so it uses no
-atomics, two runs agree bit for bit, and it equals
-``three_interpolate_backward_plain``, which sums in the same order.
+deterministic scatter-add; the kernel builds inverted lists by a stable
+counting sort of the flattened ``idx`` (tiles of 1024 entries ranked in
+order, a scan, a fill) and sums each destination's list in ``(i, k)``
+order with no atomics (source note in ``interp_bwd.cu``), so two runs agree
+bit for bit and it equals ``three_interpolate_backward_plain``, which sums
+in the same order.  Its scratch (lists, ranks, per-tile counts) is
+allocated here and passed in.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; it never falls back.
@@ -41,15 +44,44 @@ KERNEL = CudaKernel(
     "interp", "interp.cu", "three_interp_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
 KERNEL_BWD = CudaKernel(
     "interp_bwd", "interp_bwd.cu", "three_interp_bwd_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+# Forward launch: warps per block, and the blocks a level should reach
+# before rows are packed more than one to a warp (4 per SM of an H100's
+# 132, so every level at batch 1 launches at least 132).
+_FWD_WARPS = 2
+_FWD_MIN_BLOCKS = 4 * 132
+# Backward: flattened entries per rank tile (kTile in interp_bwd.cu, which
+# checks the tile count it is given).
+BWD_TILE = 1024
 # d^2 of an empty neighbour slot when m < 3 (interp.py:83-87 of the JAX
 # package; the reference's initialised running-min slots).
 _EMPTY = 1e30
+
+
+def forward_grid(b: int, n: int) -> Tuple[int, int, int]:
+    """The forward kernel's launch for B = ``b``, n = ``n`` unknown rows:
+    (rows per warp, warps per block, blocks).  One row per warp unless the
+    level has rows to spare; then 2 or 4, so each warp's known-point loads
+    serve several rows."""
+    for rows in (4, 2, 1):
+        groups = -(-n // rows)
+        blocks = -(-groups // _FWD_WARPS) * b
+        if blocks >= _FWD_MIN_BLOCKS or rows == 1:
+            return rows, _FWD_WARPS, blocks
+
+
+def backward_scratch_words(b: int, n: int, m: int) -> int:
+    """int32 words of the backward kernel's scratch: the (i, w) lists (two
+    words an entry), the ranks, two (B, tiles, m) count tables, the list
+    starts and the list of long lists (see ``interp_bwd.cu``)."""
+    tiles = -(-3 * n // BWD_TILE)
+    return 3 * b * 3 * n + 2 * b * tiles * m + b * (m + 1) + b * (m + 1)
 
 
 def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor,
@@ -161,8 +193,11 @@ def three_interpolate_backward(g_out: torch.Tensor, idx: torch.Tensor,
     g_out = g_out.float().contiguous()
     idx = idx.contiguous()
     dist = dist.float().contiguous()
+    scratch = torch.empty(backward_scratch_words(b, n, m), dtype=torch.int32,
+                          device=dev)
     KERNEL_BWD.launch(dev, g_out.data_ptr(), idx.data_ptr(), dist.data_ptr(),
-                      b, n, m, c, eps, out.data_ptr())
+                      b, n, m, c, eps, -(-3 * n // BWD_TILE),
+                      scratch.data_ptr(), out.data_ptr())
     return out
 
 
@@ -192,9 +227,10 @@ def _forward(unknown: torch.Tensor, known: torch.Tensor,
     unknown = unknown.float().contiguous()
     known = known.float().contiguous()
     features = features.float().contiguous()
+    rows, warps, _ = forward_grid(b, n)
     KERNEL.launch(dev, unknown.data_ptr(), known.data_ptr(),
-                  features.data_ptr(), b, n, m, c, eps, out.data_ptr(),
-                  dist.data_ptr(), idx.data_ptr())
+                  features.data_ptr(), b, n, m, c, eps, rows, warps,
+                  out.data_ptr(), dist.data_ptr(), idx.data_ptr())
     return out, dist, idx
 
 

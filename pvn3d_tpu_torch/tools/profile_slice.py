@@ -23,6 +23,7 @@ Needs a card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import sys
 import time
@@ -47,8 +48,10 @@ def _time_ms(fn, trials: int = 5) -> float:
 
 
 _TRAIN_BATCH = 4
+# Substrings of the ported kernels' names: K3 backward is five kernels,
+# three_interp_bwd_{rank,cols,rows,fill,sum}.
 _OURS = ("fps_kernel", "ball_query_kernel", "three_interp_kernel",
-         "three_interp_bwd_kernel", "winner_kernel")
+         "three_interp_bwd_", "winner_kernel")
 
 
 def _trace(fn, n: int, unit: str) -> None:
@@ -76,7 +79,7 @@ def _trace(fn, n: int, unit: str) -> None:
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"ported kernels {ours_ms:.2f} ms", flush=True)
     for e in ours:
-        name = next(o for o in reversed(_OURS) if o in e.key)
+        name = re.search(r"\w*(?:%s)\w*" % "|".join(_OURS), e.key).group(0)
         print(f"[trace] ported {name}: "
               f"{e.self_device_time_total / 1e3 / n:.4f} ms/{unit} "
               f"x{e.count / n:g}", flush=True)
