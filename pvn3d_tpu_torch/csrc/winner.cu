@@ -1,32 +1,88 @@
-// K4: MeanShift winner statistics, one thread block per hypothesis.
+// K4: MeanShift winner statistics, one thread-block cluster per hypothesis.
 //
 // Replaces pvn3d_tpu/ops/pallas/winner.py::winner_stats_fused
 // (_winner_kernel).  Semantics (meanshift_pytorch.py:45-51 of the
 // reference): for hypothesis h with points a (K, 3) and validity mask,
 // count for every valid seed i the valid points j with
 // |a_i - a_j|^2 < bw^2 at their ORIGINAL positions; the winner is the first
-// argmax of those counts (an invalid seed counts 0); return the winner, its
-// membership row (valid j within bw of the winner) and its count.
+// argmax of those counts (an invalid seed counts 0, so with every count 0
+// the winner is seed 0); return the winner, its membership row (valid j
+// within bw of the winner) and its count.
 //
-// Bound: operations.  H * K^2 pair tests (the keypoint pass: 168 x 512^2 =
-// 44M, ~10 flops each) against (H, K) bytes in and out.  The TPU kernel
-// held the whole (K, K) tile in VMEM; here nothing K x K is held: a block's
-// threads each own seeds and scan the hypothesis's points from shared
-// memory tiles of kTile points, so any K works (the all-points arm runs
-// K = 12288).  A warp-shuffle argmax (first index on ties) picks the
-// winner, and one more pass writes its membership row.
+// Bound: operations.  sum_h v_h^2 pair tests over the v_h valid points
+// (the keypoint pass: 168 x ~360^2 = 22M at 70% valid, ~10 instructions
+// each) against O(H*K) bytes in and out.  The TPU kernel held each (K, K)
+// tile in VMEM; nothing K x K is held here.
+//
+// Design: a cluster of kCluster CTAs per hypothesis, one launch.
+//   1. Every CTA compacts the valid points of a tile of kStagePoints row
+//      indices into shared memory (SoA x, y, z and the original index), in
+//      index order: each warp loads two 32-point runs, a ballot and popc
+//      give each valid lane its place after the warps before it.  The scan
+//      below has no mask test and runs over v points, not K.
+//   2. CTA r takes the r-th of kCluster equal shares of the tile's valid
+//      seeds (a contiguous run of the compacted list), so the shares are
+//      balanced whatever the mask: the pose stage's masks are prefixes of
+//      the row, where shares of the row's indices leave most CTAs idle.
+//   3. Each thread holds kSeeds seeds in registers, so every shared-memory
+//      load of a point serves kSeeds pair tests; the L = kThreads / blocks
+//      lanes of a seed block split the compacted list (lane l takes
+//      j = l, l + L, ...) and add their partial counts into shared memory
+//      with integer atomics (exact in any order).  Invalid seeds are never
+//      scanned.  A row longer than kStagePoints is tiled: seeds and points
+//      come from each tile in turn (rows of the serving path fit one tile,
+//      which is staged once).
+//   4. Each CTA reduces its seeds to one 64-bit key, count in the high
+//      word and 0xffffffff - index in the low word, so the largest key is
+//      the largest count with the lowest index.  After a cluster barrier
+//      every warp reads the kCluster keys through distributed shared memory
+//      and takes their maximum itself: no DSMEM or 64-bit shared atomics
+//      (nvcc lowers a 64-bit shared atomicMax to a CTA-local CAS loop), no
+//      global ticket.
+//   5. Each CTA writes its share of the row's labels from the winner's
+//      coordinates against the original points (4 labels a store where the
+//      row is aligned), between the arrive and the wait of a last cluster
+//      barrier, so no CTA leaves while another may still read its key.
+// An all-invalid hypothesis (v = 0: every CTA counts it from the same mask,
+// so the branch is uniform) writes winner 0, count 0 and a zero row and
+// leaves before either barrier.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics: no FMA
 // contraction, so bandwidth membership equals the plain version's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <climits>
+
+#include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+#ifndef WINNER_THREADS
+#define WINNER_THREADS 256
+#endif
+#ifndef WINNER_SEEDS
+#define WINNER_SEEDS 2
+#endif
+#ifndef WINNER_SLICE_BY_INDEX
+#define WINNER_SLICE_BY_INDEX 0
+#endif
+
+constexpr int kCluster = 8;  // the largest portable cluster
+constexpr int kThreads = WINNER_THREADS;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 1024;
+constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
+// Row indices a tile stages (x, y, z, index: 16 bytes a point).
+constexpr int kStagePoints = 2048;
+// 32-point runs a warp loads per staging round.
+constexpr int kRunsPerWarp = 2;
+constexpr int kRoundPoints = kThreads * kRunsPerWarp;
+constexpr size_t kMaxSmem = kStagePoints * 16;
+// Returned when no cluster of kCluster CTAs fits on the card.
+constexpr int kErrNoCluster = -1;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -37,120 +93,362 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// (c, i) <- the better of (c, i) and (c2, i2): larger count, lower index.
-__device__ __forceinline__ void take_better(int& c, int& i, int c2, int i2) {
-  if (c2 > c || (c2 == c && i2 < i)) {
-    c = c2;
-    i = i2;
+__device__ __forceinline__ unsigned long long pack(int count, int index) {
+  return (static_cast<unsigned long long>(count) << 32) |
+         (0xffffffffu - static_cast<unsigned>(index));
+}
+
+__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// Max of a key over the warp, in every lane: the high word's max, then the
+// largest low word among the lanes that hold it (two redux.sync).
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+  const unsigned hi = static_cast<unsigned>(v >> 32);
+  const unsigned top = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, hi == top ? static_cast<unsigned>(v) : 0u);
+  return (static_cast<unsigned long long>(top) << 32) | lo;
+}
+
+struct Stage {
+  float* x;
+  float* y;
+  float* z;
+  int* idx;
+};
+
+// Compacts the valid points among row indices [base, base + lim) into the
+// stage in index order and returns their number.  Every thread of the
+// block calls it; it begins and ends with a block barrier.
+__device__ __forceinline__ int stage_tile(const float* __restrict__ a,
+                          const unsigned char* __restrict__ am, int base,
+                          int lim, const Stage& s, int (*s_wcnt)[kWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  __syncthreads();  // the previous tile's readers are done
+  int n = 0;
+  for (int r0 = 0, round = 0; r0 < lim; r0 += kRoundPoints, ++round) {
+    // Coordinates and mask are loaded together (one round trip); the
+    // ballot words say which lanes keep theirs.
+    float px[kRunsPerWarp], py[kRunsPerWarp], pz[kRunsPerWarp];
+    unsigned bal[kRunsPerWarp];
+    int cnt = 0;
+#pragma unroll
+    for (int q = 0; q < kRunsPerWarp; ++q) {
+      const int t = r0 + (warp * kRunsPerWarp + q) * 32 + lane;
+      const bool in = t < lim;
+      const int j = base + t;
+      px[q] = in ? a[3 * j] : 0.f;
+      py[q] = in ? a[3 * j + 1] : 0.f;
+      pz[q] = in ? a[3 * j + 2] : 0.f;
+      bal[q] = __ballot_sync(0xffffffffu, in && am[j] != 0);
+      cnt += __popc(bal[q]);
+    }
+    // Double-buffered by round: round i + 2 writes after every thread has
+    // passed round i + 1's barrier, so after its round-i reads.
+    int* wc = s_wcnt[round & 1];
+    if (lane == 0) wc[warp] = cnt;
+    __syncthreads();
+    int off = n;
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = wc[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+#pragma unroll
+    for (int q = 0; q < kRunsPerWarp; ++q) {
+      if ((bal[q] >> lane) & 1u) {
+        const int pos = off + __popc(bal[q] & below);
+        s.x[pos] = px[q];
+        s.y[pos] = py[q];
+        s.z[pos] = pz[q];
+        s.idx[pos] = base + r0 + (warp * kRunsPerWarp + q) * 32 + lane;
+      }
+      off += __popc(bal[q]);
+    }
+    n += total;
+  }
+  __syncthreads();
+  return n;
+}
+
+// First position in s.idx[0, n) (increasing) holding an index >= key.
+__device__ __forceinline__ int lower_bound(const int* idx, int n, int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (idx[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Labels of row indices [j0, j1) of one hypothesis: valid points within bw
+// of the winner (none when `any` is false).  Four labels a 32-bit store
+// where the row and its points are aligned to whole groups of four.
+__device__ void write_labels(const float* __restrict__ a,
+                             const unsigned char* __restrict__ am,
+                             unsigned char* __restrict__ row, int j0, int j1,
+                             bool any, float wx, float wy, float wz,
+                             float bw2, bool vec) {
+  if (vec) {
+    // j0 and j1 are multiples of 4 here.
+    for (int j = j0 + 4 * static_cast<int>(threadIdx.x); j < j1;
+         j += 4 * kThreads) {
+      unsigned word = 0u;
+      if (any) {
+        const uchar4 m = *reinterpret_cast<const uchar4*>(am + j);
+        const float4* p = reinterpret_cast<const float4*>(a + 3 * j);
+        const float4 p0 = p[0], p1 = p[1], p2 = p[2];
+        word = ((m.x != 0 && sqdist(wx, wy, wz, p0.x, p0.y, p0.z) < bw2)
+                    ? 1u : 0u) |
+               ((m.y != 0 && sqdist(wx, wy, wz, p0.w, p1.x, p1.y) < bw2)
+                    ? 1u << 8 : 0u) |
+               ((m.z != 0 && sqdist(wx, wy, wz, p1.z, p1.w, p2.x) < bw2)
+                    ? 1u << 16 : 0u) |
+               ((m.w != 0 && sqdist(wx, wy, wz, p2.y, p2.z, p2.w) < bw2)
+                    ? 1u << 24 : 0u);
+      }
+      *reinterpret_cast<unsigned*>(row + j) = word;
+    }
+    return;
+  }
+  for (int j = j0 + static_cast<int>(threadIdx.x); j < j1; j += kThreads) {
+    row[j] = (any && am[j] != 0 &&
+              sqdist(wx, wy, wz, a[3 * j], a[3 * j + 1], a[3 * j + 2]) < bw2)
+                 ? 1 : 0;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
     winner_kernel(const float* __restrict__ pts,
-                  const unsigned char* __restrict__ mask, int k, float bw2,
-                  int* __restrict__ win, unsigned char* __restrict__ labels,
+                  const unsigned char* __restrict__ mask, int k, int cap,
+                  float bw2, int* __restrict__ win,
+                  unsigned char* __restrict__ labels,
                   int* __restrict__ counts) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
-  __shared__ unsigned char sm[kTile];
-  __shared__ int s_cnt[kWarps], s_idx[kWarps];
-  __shared__ int s_win, s_count;
-  const int h = blockIdx.x;
+  extern __shared__ float s_dyn[];  // cap points: x, y, z, index
+  __shared__ int s_wcnt[2][kWarps];
+  __shared__ int s_cnt[kThreads * kSeeds];   // a pass's seed counts
+  __shared__ int s_sidx[kThreads * kSeeds];  // and their row indices
+  __shared__ unsigned long long s_wkey[kWarps];
+  __shared__ unsigned long long s_key;  // this CTA's best, read by the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.x / kCluster;
   const float* a = pts + static_cast<size_t>(h) * k * 3;
   const unsigned char* am = mask + static_cast<size_t>(h) * k;
-  const int tid = threadIdx.x;
-
-  int best_c = -1, best_i = INT_MAX;
-  for (int seed0 = 0; seed0 < k; seed0 += kThreads) {
-    const int i = seed0 + tid;
-    const bool seed_valid = i < k && am[i] != 0;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (i < k) {
-      xi = a[3 * i];
-      yi = a[3 * i + 1];
-      zi = a[3 * i + 2];
-    }
-    int cnt = 0;
-    for (int base = 0; base < k; base += kTile) {
-      const int lim = min(kTile, k - base);
-      __syncthreads();
-      for (int t = tid; t < lim; t += kThreads) {
-        sx[t] = a[3 * (base + t)];
-        sy[t] = a[3 * (base + t) + 1];
-        sz[t] = a[3 * (base + t) + 2];
-        sm[t] = am[base + t];
-      }
-      __syncthreads();
-      if (!seed_valid) continue;
-      for (int j = 0; j < lim; ++j) {
-        cnt += (sm[j] != 0 &&
-                sqdist(xi, yi, zi, sx[j], sy[j], sz[j]) < bw2) ? 1 : 0;
-      }
-    }
-    if (i < k) take_better(best_c, best_i, cnt, i);
-  }
-
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int c2 = __shfl_down_sync(0xffffffffu, best_c, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, best_i, off);
-    take_better(best_c, best_i, c2, i2);
-  }
-  if (lane == 0) {
-    s_cnt[warp] = best_c;
-    s_idx[warp] = best_i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best_c = lane < kWarps ? s_cnt[lane] : -1;
-    best_i = lane < kWarps ? s_idx[lane] : INT_MAX;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int c2 = __shfl_down_sync(0xffffffffu, best_c, off);
-      const int i2 = __shfl_down_sync(0xffffffffu, best_i, off);
-      take_better(best_c, best_i, c2, i2);
-    }
-    if (lane == 0) {
-      s_win = best_i == INT_MAX ? 0 : best_i;
-      s_count = best_c < 0 ? 0 : best_c;
-    }
-  }
-  __syncthreads();
-
-  const int w = s_win;
-  const bool w_valid = w < k && am[w] != 0;
-  float wx = 0.f, wy = 0.f, wz = 0.f;
-  if (w < k) {
-    wx = a[3 * w];
-    wy = a[3 * w + 1];
-    wz = a[3 * w + 2];
-  }
   unsigned char* row = labels + static_cast<size_t>(h) * k;
-  for (int j = tid; j < k; j += kThreads) {
-    row[j] = (w_valid && am[j] != 0 &&
-              sqdist(wx, wy, wz, a[3 * j], a[3 * j + 1], a[3 * j + 2]) < bw2)
-                 ? 1
-                 : 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const Stage st{s_dyn, s_dyn + cap, s_dyn + 2 * cap,
+                 reinterpret_cast<int*>(s_dyn + 3 * cap)};
+  const int tiles = (k + cap - 1) / cap;
+
+  int staged = -1;  // the tile in the stage, and its valid points
+  int n_staged = 0;
+  auto ensure = [&](int t) {
+    if (staged != t) {
+      n_staged = stage_tile(a, am, t * cap, min(cap, k - t * cap), st, s_wcnt);
+      staged = t;
+    }
+  };
+
+  int v = 0;
+  unsigned long long best = 0ull;
+  for (int ta = 0; ta < tiles; ++ta) {
+    ensure(ta);
+    const int n_a = n_staged;
+    v += n_a;
+#if WINNER_SLICE_BY_INDEX
+    const int share = (k + kCluster - 1) / kCluster;
+    const int c0 = lower_bound(st.idx, n_a, rank * share);
+    const int c1 = lower_bound(st.idx, n_a, (rank + 1) * share);
+#else
+    const int c0 = n_a * rank / kCluster;
+    const int c1 = n_a * (rank + 1) / kCluster;
+#endif
+    const int blocks = (c1 - c0 + kSeeds - 1) / kSeeds;  // CTA-uniform
+    if (blocks == 0) continue;
+    const int lanes = blocks >= kThreads ? 1 : kThreads / blocks;
+    const int groups = kThreads / lanes;
+    const int g = tid / lanes;
+    const int l = tid - g * lanes;
+    for (int b0 = 0; b0 < blocks; b0 += groups) {
+      ensure(ta);
+      const int first = c0 + b0 * kSeeds;
+      const int n_pass = min(groups * kSeeds, c1 - first);
+      for (int t = tid; t < n_pass; t += kThreads) {
+        s_cnt[t] = 0;
+        s_sidx[t] = st.idx[first + t];
+      }
+      const bool active = g < groups && b0 + g < blocks;
+      float sx[kSeeds], sy[kSeeds], sz[kSeeds];
+      int cnt[kSeeds];
+#pragma unroll
+      for (int q = 0; q < kSeeds; ++q) {
+        // A block's slots past the share repeat its first seed; their
+        // counts are dropped.
+        const int c = g * kSeeds + q < n_pass ? first + g * kSeeds + q
+                                              : first + g * kSeeds;
+        sx[q] = active ? st.x[c] : 0.f;
+        sy[q] = active ? st.y[c] : 0.f;
+        sz[q] = active ? st.z[c] : 0.f;
+        cnt[q] = 0;
+      }
+      __syncthreads();  // counts zeroed before any atomic
+      for (int tb = 0; tb < tiles; ++tb) {
+        ensure(tb);
+        if (!active) continue;
+        const int n = n_staged;
+#pragma unroll 4
+        for (int j = l; j < n; j += lanes) {
+          const float x = st.x[j], y = st.y[j], z = st.z[j];
+#pragma unroll
+          for (int q = 0; q < kSeeds; ++q) {
+            cnt[q] += sqdist(sx[q], sy[q], sz[q], x, y, z) < bw2 ? 1 : 0;
+          }
+        }
+      }
+      if (active) {
+#pragma unroll
+        for (int q = 0; q < kSeeds; ++q) {
+          const int slot = g * kSeeds + q;
+          if (slot < n_pass && cnt[q] != 0) atomicAdd(&s_cnt[slot], cnt[q]);
+        }
+      }
+      __syncthreads();
+      for (int t = tid; t < n_pass; t += kThreads) {
+        best = umax64(best, pack(s_cnt[t], s_sidx[t]));
+      }
+      __syncthreads();  // the next pass rewrites s_cnt and s_sidx
+    }
   }
+
+  // This CTA's share of the row's labels: whole groups of four where the
+  // row and its points are aligned to them.
+  const bool vec = (k & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(labels) & 3) == 0;
+  const int share = vec ? 4 * ((k + 4 * kCluster - 1) / (4 * kCluster))
+                        : (k + kCluster - 1) / kCluster;
+  const int j0 = min(k, rank * share);
+  const int j1 = min(k, j0 + share);
+  if (v == 0) {
+    // Every CTA counted the same mask: all leave here, none at a barrier.
+    write_labels(a, am, row, j0, j1, false, 0.f, 0.f, 0.f, bw2, vec);
+    if (rank == 0 && tid == 0) {
+      win[h] = 0;
+      counts[h] = 0;
+    }
+    return;
+  }
+
+  best = warp_max(best);
+  if (lane == 0) s_wkey[warp] = best;
+  __syncthreads();
   if (tid == 0) {
-    win[h] = w;
-    counts[h] = s_count;
+    unsigned long long m = 0ull;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = umax64(m, s_wkey[w]);
+    s_key = m;
   }
+  cluster.sync();
+  unsigned long long key =
+      lane < kCluster
+          ? *cluster.map_shared_rank(&s_key, static_cast<unsigned>(lane))
+          : 0ull;
+  key = warp_max(key);
+  // Done with the other CTAs' keys; the wait below keeps this CTA's key
+  // alive until every CTA has read it.
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  const int count = static_cast<int>(key >> 32);
+  // Every count 0 (a bandwidth of 0): the first argmax is seed 0.
+  const int w = count == 0
+                    ? 0
+                    : static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+  const bool w_valid = am[w] != 0;
+  write_labels(a, am, row, j0, j1, w_valid, a[3 * w], a[3 * w + 1],
+               a[3 * w + 2], bw2, vec);
+  if (rank == 0 && tid == 0) {
+    win[h] = w;
+    counts[h] = count;
+  }
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+cudaLaunchConfig_t launch_config(int h, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(h * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Allows the kernel its largest stage and checks that a cluster of
+// kCluster CTAs with it can be scheduled on the current device, once per
+// device (a function attribute holds per device).
+int prepare() {
+  static std::once_flag once[kMaxDevices];
+  static int status[kMaxDevices];
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[device], [device] {
+    cudaError_t e = cudaFuncSetAttribute(
+        winner_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config(1, kMaxSmem, nullptr, &attr);
+    int clusters = 0;
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveClusters(&clusters, winner_kernel, &cfg);
+    }
+    status[device] = e != cudaSuccess ? static_cast<int>(e)
+                     : clusters == 0  ? kErrNoCluster
+                                      : 0;
+  });
+  return status[device];
 }
 
 }  // namespace
 
 // pts (h, k, 3) float32, mask (h, k) bool bytes; win (h,) int32,
-// labels (h, k) bool bytes, counts (h,) int32.
+// labels (h, k) bool bytes, counts (h,) int32.  One cluster per hypothesis.
 extern "C" int winner_launch(const float* pts, const unsigned char* mask,
                              int h, int k, float bw2, int* win,
                              unsigned char* labels, int* counts,
                              cudaStream_t stream) {
-  winner_kernel<<<h, kThreads, 0, stream>>>(pts, mask, k, bw2, win, labels,
-                                            counts);
-  return static_cast<int>(cudaGetLastError());
+  const int ready = prepare();
+  if (ready != 0) return ready;
+  const int cap = k < 1 ? 1 : (k < kStagePoints ? k : kStagePoints);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(h, static_cast<size_t>(cap) * 16, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, winner_kernel, pts, mask,
+                                             k, cap, bw2, win, labels, counts);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" const char* kernel_error_string(int code) {
+  if (code == kErrNoCluster) {
+    return "no cluster of 8 CTAs with a 2048-point stage (32 KB of shared "
+           "memory each) can be scheduled on this card";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
