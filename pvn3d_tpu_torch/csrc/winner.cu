@@ -60,29 +60,36 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef WINNER_THREADS
-#define WINNER_THREADS 256
+#ifndef WINNER_T_MIN
+#define WINNER_T_MIN 128
+#endif
+#ifndef WINNER_T_MAX
+#define WINNER_T_MAX 512
 #endif
 #ifndef WINNER_SEEDS
 #define WINNER_SEEDS 2
 #endif
-#ifndef WINNER_SLICE_BY_INDEX
-#define WINNER_SLICE_BY_INDEX 0
-#endif
 
 constexpr int kCluster = 8;  // the largest portable cluster
-constexpr int kThreads = WINNER_THREADS;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
 // Row indices a tile stages (x, y, z, index: 16 bytes a point).
 constexpr int kStagePoints = 2048;
 // 32-point runs a warp loads per staging round.
 constexpr int kRunsPerWarp = 2;
-constexpr int kRoundPoints = kThreads * kRunsPerWarp;
-constexpr size_t kMaxSmem = kStagePoints * 16;
 // Returned when no cluster of kCluster CTAs fits on the card.
 constexpr int kErrNoCluster = -1;
 constexpr int kMaxDevices = 64;
+
+// Dynamic shared memory of a CTA: the stage, then a pass's seed counts and
+// their row indices (two ints a slot).
+constexpr size_t smem_bytes(int cap, int threads) {
+  return static_cast<size_t>(cap) * 16 +
+         static_cast<size_t>(threads) * kSeeds * 8;
+}
+
+// Threads of every instance an SM holds at once: 12 CTAs of 128, 6 of
+// 256, 3 of 512, each thread within 65536 / 1536 = 42 registers.
+constexpr int kResident = 1536;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -123,15 +130,19 @@ struct Stage {
 // Compacts the valid points among row indices [base, base + lim) into the
 // stage in index order and returns their number.  Every thread of the
 // block calls it; it begins and ends with a block barrier.
+template <int kThreads>
 __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
-                          const unsigned char* __restrict__ am, int base,
-                          int lim, const Stage& s, int (*s_wcnt)[kWarps]) {
+                                          const unsigned char* __restrict__ am,
+                                          int base, int lim, const Stage& s,
+                                          int (*s_wcnt)[kThreads / 32]) {
+  constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   __syncthreads();  // the previous tile's readers are done
   int n = 0;
-  for (int r0 = 0, round = 0; r0 < lim; r0 += kRoundPoints, ++round) {
+  for (int r0 = 0, round = 0; r0 < lim;
+       r0 += kThreads * kRunsPerWarp, ++round) {
     // Coordinates and mask are loaded together (one round trip); the
     // ballot words say which lanes keep theirs.
     float px[kRunsPerWarp], py[kRunsPerWarp], pz[kRunsPerWarp];
@@ -178,7 +189,7 @@ __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
   return n;
 }
 
-// First position in s.idx[0, n) (increasing) holding an index >= key.
+// First position in idx[0, n) (increasing) holding an index >= key.
 __device__ __forceinline__ int lower_bound(const int* idx, int n, int key) {
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -188,53 +199,69 @@ __device__ __forceinline__ int lower_bound(const int* idx, int n, int key) {
   return lo;
 }
 
-// Labels of row indices [j0, j1) of one hypothesis: valid points within bw
-// of the winner (none when `any` is false).  Four labels a 32-bit store
-// where the row and its points are aligned to whole groups of four.
-__device__ void write_labels(const float* __restrict__ a,
-                             const unsigned char* __restrict__ am,
-                             unsigned char* __restrict__ row, int j0, int j1,
-                             bool any, float wx, float wy, float wz,
-                             float bw2, bool vec) {
+// The inputs of one store of labels: four points and their mask bytes
+// (vector path) or one (scalar path).
+struct LabelIn {
+  float4 p0, p1, p2;
+  unsigned m;
+};
+
+__device__ __forceinline__ LabelIn load_label_in(
+    const float* __restrict__ a, const unsigned char* __restrict__ am, int j,
+    bool vec) {
+  LabelIn in;
   if (vec) {
-    // j0 and j1 are multiples of 4 here.
-    for (int j = j0 + 4 * static_cast<int>(threadIdx.x); j < j1;
-         j += 4 * kThreads) {
-      unsigned word = 0u;
-      if (any) {
-        const uchar4 m = *reinterpret_cast<const uchar4*>(am + j);
-        const float4* p = reinterpret_cast<const float4*>(a + 3 * j);
-        const float4 p0 = p[0], p1 = p[1], p2 = p[2];
-        word = ((m.x != 0 && sqdist(wx, wy, wz, p0.x, p0.y, p0.z) < bw2)
-                    ? 1u : 0u) |
-               ((m.y != 0 && sqdist(wx, wy, wz, p0.w, p1.x, p1.y) < bw2)
-                    ? 1u << 8 : 0u) |
-               ((m.z != 0 && sqdist(wx, wy, wz, p1.z, p1.w, p2.x) < bw2)
-                    ? 1u << 16 : 0u) |
-               ((m.w != 0 && sqdist(wx, wy, wz, p2.y, p2.z, p2.w) < bw2)
-                    ? 1u << 24 : 0u);
-      }
-      *reinterpret_cast<unsigned*>(row + j) = word;
-    }
-    return;
+    const float4* p = reinterpret_cast<const float4*>(a + 3 * j);
+    in.p0 = p[0];
+    in.p1 = p[1];
+    in.p2 = p[2];
+    in.m = *reinterpret_cast<const unsigned*>(am + j);
+  } else {
+    in.p0 = make_float4(a[3 * j], a[3 * j + 1], a[3 * j + 2], 0.f);
+    in.p1 = in.p2 = make_float4(0.f, 0.f, 0.f, 0.f);
+    in.m = am[j];
   }
-  for (int j = j0 + static_cast<int>(threadIdx.x); j < j1; j += kThreads) {
-    row[j] = (any && am[j] != 0 &&
-              sqdist(wx, wy, wz, a[3 * j], a[3 * j + 1], a[3 * j + 2]) < bw2)
-                 ? 1 : 0;
+  return in;
+}
+
+// Labels of the points of `in` (one byte each): valid and within bw of the
+// winner.
+__device__ __forceinline__ unsigned label_bytes(const LabelIn& in, float wx,
+                                                float wy, float wz, float bw2,
+                                                bool vec) {
+  const auto hit = [&](unsigned shift, float x, float y, float z) {
+    return ((in.m >> shift) & 0xffu) != 0 && sqdist(wx, wy, wz, x, y, z) < bw2
+               ? 1u << shift
+               : 0u;
+  };
+  if (!vec) return hit(0, in.p0.x, in.p0.y, in.p0.z);
+  return hit(0, in.p0.x, in.p0.y, in.p0.z) |
+         hit(8, in.p0.w, in.p1.x, in.p1.y) |
+         hit(16, in.p1.z, in.p1.w, in.p2.x) |
+         hit(24, in.p2.y, in.p2.z, in.p2.w);
+}
+
+__device__ __forceinline__ void store_labels(unsigned char* row, int j,
+                                             unsigned bytes, bool vec) {
+  if (vec) {
+    *reinterpret_cast<unsigned*>(row + j) = bytes;
+  } else {
+    row[j] = static_cast<unsigned char>(bytes);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kResident / kThreads)
     winner_kernel(const float* __restrict__ pts,
                   const unsigned char* __restrict__ mask, int k, int cap,
                   float bw2, int* __restrict__ win,
                   unsigned char* __restrict__ labels,
                   int* __restrict__ counts) {
-  extern __shared__ float s_dyn[];  // cap points: x, y, z, index
+  constexpr int kWarps = kThreads / 32;
+  // The stage (cap points: x, y, z, index), then a pass's seed counts and
+  // their row indices.
+  extern __shared__ float s_dyn[];
   __shared__ int s_wcnt[2][kWarps];
-  __shared__ int s_cnt[kThreads * kSeeds];   // a pass's seed counts
-  __shared__ int s_sidx[kThreads * kSeeds];  // and their row indices
   __shared__ unsigned long long s_wkey[kWarps];
   __shared__ unsigned long long s_key;  // this CTA's best, read by the cluster
   cg::cluster_group cluster = cg::this_cluster();
@@ -248,13 +275,28 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const Stage st{s_dyn, s_dyn + cap, s_dyn + 2 * cap,
                  reinterpret_cast<int*>(s_dyn + 3 * cap)};
+  int* s_cnt = st.idx + cap;
+  int* s_sidx = s_cnt + kThreads * kSeeds;
   const int tiles = (k + cap - 1) / cap;
+
+  // This CTA's share of the row's labels, whole groups of four where the
+  // row and its points are aligned to them.
+  const bool vec = (k & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(labels) & 3) == 0;
+  const int step = vec ? 4 : 1;
+  const int share = step * ((k + step * kCluster - 1) / (step * kCluster));
+  const int j0 = min(k, rank * share);
+  const int j1 = min(k, j0 + share);
+  const int jt = j0 + step * tid;  // this thread's first store
 
   int staged = -1;  // the tile in the stage, and its valid points
   int n_staged = 0;
   auto ensure = [&](int t) {
     if (staged != t) {
-      n_staged = stage_tile(a, am, t * cap, min(cap, k - t * cap), st, s_wcnt);
+      n_staged = stage_tile<kThreads>(a, am, t * cap, min(cap, k - t * cap),
+                                      st, s_wcnt);
       staged = t;
     }
   };
@@ -265,14 +307,8 @@ __global__ void __launch_bounds__(kThreads)
     ensure(ta);
     const int n_a = n_staged;
     v += n_a;
-#if WINNER_SLICE_BY_INDEX
-    const int share = (k + kCluster - 1) / kCluster;
-    const int c0 = lower_bound(st.idx, n_a, rank * share);
-    const int c1 = lower_bound(st.idx, n_a, (rank + 1) * share);
-#else
     const int c0 = n_a * rank / kCluster;
     const int c1 = n_a * (rank + 1) / kCluster;
-#endif
     const int blocks = (c1 - c0 + kSeeds - 1) / kSeeds;  // CTA-uniform
     if (blocks == 0) continue;
     const int lanes = blocks >= kThreads ? 1 : kThreads / blocks;
@@ -281,11 +317,11 @@ __global__ void __launch_bounds__(kThreads)
     const int l = tid - g * lanes;
     for (int b0 = 0; b0 < blocks; b0 += groups) {
       ensure(ta);
-      const int first = c0 + b0 * kSeeds;
-      const int n_pass = min(groups * kSeeds, c1 - first);
+      const int first_seed = c0 + b0 * kSeeds;
+      const int n_pass = min(groups * kSeeds, c1 - first_seed);
       for (int t = tid; t < n_pass; t += kThreads) {
         s_cnt[t] = 0;
-        s_sidx[t] = st.idx[first + t];
+        s_sidx[t] = st.idx[first_seed + t];
       }
       const bool active = g < groups && b0 + g < blocks;
       float sx[kSeeds], sy[kSeeds], sz[kSeeds];
@@ -294,8 +330,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int q = 0; q < kSeeds; ++q) {
         // A block's slots past the share repeat its first seed; their
         // counts are dropped.
-        const int c = g * kSeeds + q < n_pass ? first + g * kSeeds + q
-                                              : first + g * kSeeds;
+        const int c = first_seed + g * kSeeds + (g * kSeeds + q < n_pass ? q : 0);
         sx[q] = active ? st.x[c] : 0.f;
         sy[q] = active ? st.y[c] : 0.f;
         sz[q] = active ? st.z[c] : 0.f;
@@ -330,19 +365,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // This CTA's share of the row's labels: whole groups of four where the
-  // row and its points are aligned to them.
-  const bool vec = (k & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(labels) & 3) == 0;
-  const int share = vec ? 4 * ((k + 4 * kCluster - 1) / (4 * kCluster))
-                        : (k + kCluster - 1) / kCluster;
-  const int j0 = min(k, rank * share);
-  const int j1 = min(k, j0 + share);
   if (v == 0) {
     // Every CTA counted the same mask: all leave here, none at a barrier.
-    write_labels(a, am, row, j0, j1, false, 0.f, 0.f, 0.f, bw2, vec);
+    for (int j = jt; j < j1; j += step * kThreads) store_labels(row, j, 0u, vec);
     if (rank == 0 && tid == 0) {
       win[h] = 0;
       counts[h] = 0;
@@ -350,6 +375,10 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
+  // The inputs of this thread's first store of labels, loaded while the
+  // cluster waits for its slowest CTA.
+  LabelIn first = {};
+  if (jt < j1) first = load_label_in(a, am, jt, vec);
   best = warp_max(best);
   if (lane == 0) s_wkey[warp] = best;
   __syncthreads();
@@ -373,9 +402,26 @@ __global__ void __launch_bounds__(kThreads)
   const int w = count == 0
                     ? 0
                     : static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
-  const bool w_valid = am[w] != 0;
-  write_labels(a, am, row, j0, j1, w_valid, a[3 * w], a[3 * w + 1],
-               a[3 * w + 2], bw2, vec);
+  // The winner's coordinates from the stage when it holds them (always for
+  // a row of one tile), else from the row.
+  const int pos = lower_bound(st.idx, n_staged, w);
+  bool w_valid = true;
+  float wx, wy, wz;
+  if (pos < n_staged && st.idx[pos] == w) {
+    wx = st.x[pos];
+    wy = st.y[pos];
+    wz = st.z[pos];
+  } else {
+    w_valid = am[w] != 0;
+    wx = a[3 * w];
+    wy = a[3 * w + 1];
+    wz = a[3 * w + 2];
+  }
+  for (int j = jt; j < j1; j += step * kThreads) {
+    const LabelIn in = j == jt ? first : load_label_in(a, am, j, vec);
+    store_labels(row, j, w_valid ? label_bytes(in, wx, wy, wz, bw2, vec) : 0u,
+                 vec);
+  }
   if (rank == 0 && tid == 0) {
     win[h] = w;
     counts[h] = count;
@@ -383,6 +429,7 @@ __global__ void __launch_bounds__(kThreads)
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+template <int kThreads>
 cudaLaunchConfig_t launch_config(int h, size_t smem, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -399,56 +446,104 @@ cudaLaunchConfig_t launch_config(int h, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-// Allows the kernel its largest stage and checks that a cluster of
-// kCluster CTAs with it can be scheduled on the current device, once per
-// device (a function attribute holds per device).
-int prepare() {
+// Allows an instance its largest stage and checks that a cluster of
+// kCluster CTAs with it can be scheduled on the current device.
+template <int kThreads>
+cudaError_t check_instance(int* clusters) {
+  auto kernel = winner_kernel<kThreads>;
+  const size_t smem = smem_bytes(kStagePoints, kThreads);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kThreads>(1, smem, nullptr, &attr);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  }
+  return e;
+}
+
+struct DeviceSetup {
+  int status;
+  long long threads;  // threads the card holds at once, kResident an SM
+};
+
+// Once per device (a function attribute holds per device): every
+// instance's shared memory and cluster check, and the card's size.
+const DeviceSetup& prepare(int device) {
   static std::once_flag once[kMaxDevices];
-  static int status[kMaxDevices];
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  static DeviceSetup setup[kMaxDevices];
   std::call_once(once[device], [device] {
-    cudaError_t e = cudaFuncSetAttribute(
-        winner_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(1, kMaxSmem, nullptr, &attr);
-    int clusters = 0;
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveClusters(&clusters, winner_kernel, &cfg);
+    int sms = 0;
+    cudaError_t e =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    int fits = 1;
+    for (int t = 0; t < 3 && e == cudaSuccess; ++t) {
+      int clusters = 0;
+      e = t == 0   ? check_instance<128>(&clusters)
+          : t == 1 ? check_instance<256>(&clusters)
+                   : check_instance<512>(&clusters);
+      fits = fits && clusters > 0;
     }
-    status[device] = e != cudaSuccess ? static_cast<int>(e)
-                     : clusters == 0  ? kErrNoCluster
-                                      : 0;
+    setup[device].status = e != cudaSuccess ? static_cast<int>(e)
+                           : !fits          ? kErrNoCluster
+                                            : 0;
+    setup[device].threads = static_cast<long long>(sms) * kResident;
   });
-  return status[device];
+  return setup[device];
+}
+
+template <int kThreads>
+int launch(const float* pts, const unsigned char* mask, int h, int k,
+           float bw2, int* win, unsigned char* labels, int* counts,
+           cudaStream_t stream) {
+  const int cap = k < 1 ? 1 : (k < kStagePoints ? k : kStagePoints);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kThreads>(h, smem_bytes(cap, kThreads), stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, winner_kernel<kThreads>, pts, mask, k, cap, bw2, win, labels,
+      counts);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
 // pts (h, k, 3) float32, mask (h, k) bool bytes; win (h,) int32,
-// labels (h, k) bool bytes, counts (h,) int32.  One cluster per hypothesis.
+// labels (h, k) bool bytes, counts (h,) int32.  One cluster per hypothesis,
+// with CTAs of the most threads (128, 256 or 512) for which the h clusters
+// still fit on the card at once: 512 for the pose stage's 21 hypotheses,
+// 128 for its 168.
 extern "C" int winner_launch(const float* pts, const unsigned char* mask,
                              int h, int k, float bw2, int* win,
                              unsigned char* labels, int* counts,
                              cudaStream_t stream) {
-  const int ready = prepare();
-  if (ready != 0) return ready;
-  const int cap = k < 1 ? 1 : (k < kStagePoints ? k : kStagePoints);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(h, static_cast<size_t>(cap) * 16, stream, &attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, winner_kernel, pts, mask,
-                                             k, cap, bw2, win, labels, counts);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const DeviceSetup& setup = prepare(device);
+  if (setup.status != 0) return setup.status;
+  int t = WINNER_T_MAX;
+  while (t > WINNER_T_MIN &&
+         static_cast<long long>(h) * kCluster * t > setup.threads) {
+    t >>= 1;
+  }
+  switch (t) {
+    case 128:
+      return launch<128>(pts, mask, h, k, bw2, win, labels, counts, stream);
+    case 256:
+      return launch<256>(pts, mask, h, k, bw2, win, labels, counts, stream);
+    default:
+      return launch<512>(pts, mask, h, k, bw2, win, labels, counts, stream);
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {
   if (code == kErrNoCluster) {
-    return "no cluster of 8 CTAs with a 2048-point stage (32 KB of shared "
-           "memory each) can be scheduled on this card";
+    return "no cluster of 8 CTAs with a 2048-point stage can be scheduled "
+           "on this card";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -3,8 +3,8 @@ timed against each other on the pose stage's three passes.
 
     python3 pvn3d_tpu_torch/tools/k4_variants.py
 
-Builds ``csrc/winner.cu`` once per variant (threads per CTA, seeds a
-thread holds in registers, seed shares by valid points or by row index),
+Builds ``csrc/winner.cu`` once per variant (the range of threads per CTA
+the launch picks from, seeds a thread holds in registers),
 checks each bit for bit against the plain version on the passes'
 inputs and on edge shapes, then times every variant on the inputs of
 ``k4_passes`` (synthetic votes and the pose stage's own), in turns (the
@@ -18,12 +18,12 @@ import os
 import sys
 
 VARIANTS = {
-    "T256 S1": {"WINNER_THREADS": 256, "WINNER_SEEDS": 1},
-    "T256 S2": {"WINNER_THREADS": 256, "WINNER_SEEDS": 2},
-    "T256 S4": {"WINNER_THREADS": 256, "WINNER_SEEDS": 4},
-    "T128 S2": {"WINNER_THREADS": 128, "WINNER_SEEDS": 2},
-    "T256 S2 index shares": {"WINNER_THREADS": 256, "WINNER_SEEDS": 2,
-                             "WINNER_SLICE_BY_INDEX": 1},
+    "T128-512 S2": {},
+    "T128-512 S1": {"WINNER_SEEDS": 1},
+    "T128-512 S4": {"WINNER_SEEDS": 4},
+    "T128 S2": {"WINNER_T_MIN": 128, "WINNER_T_MAX": 128},
+    "T256 S2": {"WINNER_T_MIN": 256, "WINNER_T_MAX": 256},
+    "T512 S2": {"WINNER_T_MIN": 512, "WINNER_T_MAX": 512},
 }
 
 
