@@ -25,11 +25,17 @@ that fails):
                depth-camera clouds and on the training batch's own clouds
                (``synthetic_batch``, whose clusters give lists of ~1800
                hits); K1, K2 and K3 forward are checked once more at
-               batch 4 on both.
+               batch 4 on both.  K4 is held bit for bit (twice) and
+               timed per pass (H = 21, 21, 168 at K = 512: grid, valid
+               points, events, device, bound, plain, and cdist + lt +
+               sum + argmax as the library yardstick) on synthetic votes
+               (every hypothesis 70% valid) and on the three passes' own
+               inputs, captured from the pose stage on labelled votes.
 4. edge      — the same comparison at shapes off the main paths, among
                them the edge cases of K1's cluster split, K2's 32-point
                runs, K3's lane split and tie order, and K3 backward's
-               tiles, long lists and scalar instances.
+               tiles, long lists and scalar instances, and K4's
+               cluster shares, ties, tiles and empty hypotheses.
 5. slice     — the serving path at full width (``Config.ycb()``:
                480x640, 12288 points, 22 classes) with seeded random
                weights: three requests through ``make_inference_step``
@@ -61,8 +67,8 @@ that fails):
                2e-3 * max|g|.
 8. a JSON line per kernel (launches on the serving slice and the training
    steps, error, times, bound; K3 forward and backward also per level,
-   the backward on both clouds), the ``nvidia-smi`` line again, then the
-   result line.
+   the backward on both clouds; K4 also per pass on both inputs), the
+   ``nvidia-smi`` line again, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
@@ -283,6 +289,109 @@ def _backward_levels(rng, levels4, known_c, cloud):
     return per_level, err
 
 
+_PASSES = ("centers", "centers (refined)", "keypoints")
+
+
+def _pose_stage_winner_inputs(seed: int = 1):
+    """The three winner inputs of the full-width pose stage on the card on
+    labelled votes (the classes of a ``synthetic_batch`` frame present),
+    captured by wrapping ``winner_stats`` where ``mean_shift_fit`` calls
+    it, in this script only.  Returns [(points, mask)] for the passes."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.inference import meanshift
+    from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    cfg = Config.ycb()
+    fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii())
+    seen = []
+    real = meanshift.winner_stats
+
+    def recording(points, mask, bandwidth):
+        seen.append((points.clone(), mask.clone()))
+        return real(points, mask, bandwidth)
+    meanshift.winner_stats = recording
+    try:
+        with torch.inference_mode():
+            fn(*(v.cuda() for v in labelled_votes(cfg, seed)))
+    finally:
+        meanshift.winner_stats = real
+    if len(seen) != len(_PASSES):
+        raise AssertionError(f"K4: the pose stage ran {len(seen)} passes")
+    return seen
+
+
+def _winner_passes(rng):
+    """K4's three passes on synthetic votes and on the pose stage's own
+    inputs: each held bit for bit against its plain version, twice, and
+    timed by events and on the device beside the plain version and a
+    library composition (cdist + lt + masks + sum + argmax + gather, timed
+    only: its distances are not the direct form).  Returns (per-pass
+    records, max error)."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.ops.kernels import winner
+    dev = torch.device("cuda")
+    cl = Config.ycb().cluster
+    k, bw = cl.max_points_per_class, cl.bandwidth
+    inputs = []
+    for name, h in zip(_PASSES, (21, 21, 168)):
+        modes = rng.randn(h, 3, 3).astype(np.float32) * 0.1
+        pick = rng.randint(0, 3, (h, k))
+        votes = (modes[np.arange(h)[:, None], pick]
+                 + rng.randn(h, k, 3).astype(np.float32) * 0.03)
+        inputs.append(("synthetic", name, torch.tensor(votes, device=dev),
+                       torch.tensor(rng.rand(h, k) < 0.7, device=dev)))
+    for name, (p, m) in zip(_PASSES, _pose_stage_winner_inputs()):
+        inputs.append(("pose", name, p, m))
+    per_pass = []
+    err = 0.0
+    for kind, name, pts, msk in inputs:
+        h = pts.shape[0]
+
+        def kernel():
+            return winner.winner_stats(pts, msk, bw)
+        got = kernel()
+        want = winner.winner_stats_plain(pts, msk, bw)
+        if not _index_equal(got, want):
+            raise AssertionError(f"K4 winner {kind} {name}: kernel differs "
+                                 f"from plain")
+        if not _index_equal(got, kernel()):
+            raise AssertionError(f"K4 winner {kind} {name}: two runs differ")
+        err = max(err, _err(got, want))
+
+        def library():
+            inb = ((torch.cdist(pts, pts) < bw) & msk[:, None, :]
+                   & msk[:, :, None])
+            num = inb.sum(-1, dtype=torch.int32)
+            w = num.argmax(-1)
+            rows = torch.arange(h, device=dev)
+            return w, inb[rows, w], num[rows, w]
+        # Only valid points count toward a seed or join the winner's row:
+        # v^2 pair tests for the counts plus v for the row, per hypothesis.
+        v = msk.sum(1).double()
+        flops = float((v * v + v).sum()) * (D2_FLOPS + 1)
+        n_bytes = h * k * 14 + h * 8
+        p = {"input": kind, "pass": name, "H": h, "K": k, "clusters": h,
+             "ctas": h * winner.CLUSTER, "threads": winner.cta_threads(h),
+             "valid": int(v.sum()),
+             "hypotheses_with_points": int((v > 0).sum()),
+             "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+             "plain_ms": time_ms(lambda: winner.winner_stats_plain(
+                 pts, msk, bw), reps=1),
+             "library_ms": time_ms(library), "n_bytes": n_bytes,
+             "flops": flops}
+        p["bound_ms"], p["bound_by"] = bound_ms(n_bytes, flops)
+        per_pass.append(p)
+        log("kernels", f"K4 winner {name} H={h} ({kind}): grid {h} clusters "
+            f"x {winner.CLUSTER} CTAs of {p['threads']} threads, "
+            f"{p['valid']} valid points in {p['hypotheses_with_points']} "
+            f"hypotheses; equal bit for bit, twice; {p['ms']:.4f} ms, on the "
+            f"device {p['device_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+            f"({p['bound_by']}); plain {p['plain_ms']:.3f}, "
+            f"cdist+lt+sum+argmax {p['library_ms']:.4f}")
+    return per_pass, err
+
+
 def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
@@ -487,40 +596,29 @@ def phase_kernels(rng):
         f"{on_train / on_depth:.2f}x; K1, K2, K3 forward equal their plain "
         f"versions at batch {tb} on both")
 
-    # K4: three launches per frame, H = 21, 21, 168 at K = 512 (clustered
-    # votes: a few tight modes plus scatter, ~70% valid).
-    k = Config.ycb().cluster.max_points_per_class
-    bw = Config.ycb().cluster.bandwidth
-    ms = plain = 0.0
-    n_bytes = flops = 0.0
-    err = 0.0
-    for h in (21, 21, 168):
-        modes = rng.randn(h, 3, 3).astype(np.float32) * 0.1
-        pick = rng.randint(0, 3, (h, k))
-        votes = (modes[np.arange(h)[:, None], pick]
-                 + rng.randn(h, k, 3).astype(np.float32) * 0.03)
-        pts_t = torch.tensor(votes, device=dev)
-        msk = torch.tensor(rng.rand(h, k) < 0.7, device=dev)
-        got = winner.winner_stats(pts_t, msk, bw)
-        want = winner.winner_stats_plain(pts_t, msk, bw)
-        if not _index_equal(got, want):
-            raise AssertionError(f"K4 winner H={h}: kernel differs")
-        err = max(err, _err(got, want))
-        ms += time_ms(lambda: winner.winner_stats(pts_t, msk, bw))
-        plain += time_ms(lambda: winner.winner_stats_plain(pts_t, msk, bw),
-                         reps=1)
-        # Only valid points count toward a seed or join the winner's row:
-        # v^2 pair tests for the counts plus v for the row, per hypothesis.
-        v = msk.sum(1).double()
-        flops += float((v * v + v).sum()) * (D2_FLOPS + 1)
-        n_bytes += h * k * 12 + h * k * 2 + h * 8
-    rec["winner"] = dict(shapes=["H=21,21,168 K=512 bw=0.08"],
-                         max_abs_err=err, tol="exact", ms=ms,
-                         plain_ms=plain, library_ms=None,
-                         bound=bound_ms(n_bytes, flops),
-                         replaces="pvn3d_tpu/ops/pallas/winner.py:70")
-    log("kernels", f"K4 winner x3 passes: equal, {ms:.3f} ms "
-        f"(plain {plain:.3f})")
+    # K4: three launches per frame, H = 21, 21, 168 at K = 512, on two
+    # inputs: synthetic votes (every hypothesis 70% valid: the most work a
+    # pass can get) and the pose stage's own inputs on labelled votes (only
+    # the classes present have valid points).
+    per_pass, err = _winner_passes(rng)
+    synthetic = [p for p in per_pass if p["input"] == "synthetic"]
+    rec["winner"] = dict(
+        shapes=["H=21,21,168 K=512 bw=0.08"], max_abs_err=err,
+        tol="bit for bit", ms=sum(p["ms"] for p in synthetic),
+        device_ms=sum(p["device_ms"] for p in synthetic),
+        plain_ms=sum(p["plain_ms"] for p in synthetic),
+        library_ms=sum(p["library_ms"] for p in synthetic),
+        bound=bound_ms(sum(p["n_bytes"] for p in synthetic),
+                       sum(p["flops"] for p in synthetic)),
+        replaces="pvn3d_tpu/ops/pallas/winner.py:70", passes=per_pass)
+    for kind in ("synthetic", "pose"):
+        ps = [p for p in per_pass if p["input"] == kind]
+        log("kernels", f"K4 winner x3 passes, {kind} inputs: equal, "
+            f"{sum(p['ms'] for p in ps):.4f} ms, on the device "
+            f"{sum(p['device_ms'] for p in ps):.4f} ms, bound "
+            f"{sum(p['bound_ms'] for p in ps):.4f} ms (plain "
+            f"{sum(p['plain_ms'] for p in ps):.3f}, cdist+lt+sum+argmax "
+            f"{sum(p['library_ms'] for p in ps):.4f})")
     return rec
 
 
@@ -544,8 +642,14 @@ def phase_edge_cases(rng) -> None:
     C = 33), m = 2000 at n = 50 (rows nothing points at), m = 20000
     (counters in global memory), B = 4 with a different list shape per
     batch row, a misaligned cotangent with long lists, a strided bf16
-    cotangent through autograd.  K4: K past one shared-memory tile, an
-    all-invalid hypothesis."""
+    cotangent through autograd.  K4 (each also run twice; the inputs of
+    ``tests/test_torch_winner.py``): H = 21 at K = 512 with 70% valid,
+    count ties straddling the CTAs' shares of the seeds, valid points only
+    in the last eighth of the row, an all-invalid hypothesis, K = 1 and
+    K = 7 (CTAs with no seed), K = 1500, K = 2500 (past one 2048-point
+    stage, a row valid only in the second tile), bandwidth 0 with seed 0
+    invalid, duplicated points on a grid at the bandwidth; and K = 4500
+    (three tiles), K = 1001 (scalar label stores)."""
     from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
     dev = torch.device("cuda")
 
@@ -600,6 +704,7 @@ def phase_edge_cases(rng) -> None:
                             query.ball_query_plain(radii, ns, xyz, cen)):
             raise AssertionError(f"edge query {name}")
     cases += len(query_cases)
+
     def misaligned(*shape):
         """A contiguous float32 tensor whose data starts 4 bytes past a
         16-byte boundary (the kernels' scalar instances)."""
@@ -722,16 +827,83 @@ def phase_edge_cases(rng) -> None:
             g, idx, dist, 50)):
         raise AssertionError("edge interp_bwd through autograd")
     cases += 1
-    for h, k in ((4, 1500), (3, 7)):
-        pts = cloud(h, k, 3)
-        msk = torch.rand(h, k, device=dev) < 0.6
-        msk[0] = False
-        if not _index_equal(winner.winner_stats(pts, msk, 0.08),
-                            winner.winner_stats_plain(pts, msk, 0.08)):
-            raise AssertionError(f"edge winner H={h} K={k}")
+    for name, (pts, msk, bw) in _winner_cases().items():
+        pts, msk = torch.tensor(pts, device=dev), torch.tensor(msk, device=dev)
+        got = winner.winner_stats(pts, msk, bw)
+        if not _index_equal(got, winner.winner_stats_plain(pts, msk, bw)):
+            raise AssertionError(f"edge winner {name}")
+        if not _index_equal(got, winner.winner_stats(pts, msk, bw)):
+            raise AssertionError(f"edge winner {name}: two runs differ")
         cases += 1
     log("edge", f"{cases} off-path shapes: every kernel equals its plain "
         f"version")
+
+
+def _winner_votes(rng, h, k, valid=0.7):
+    modes = rng.randn(h, 3, 3).astype(np.float32) * 0.1
+    pick = rng.randint(0, 3, (h, k))
+    pts = (modes[np.arange(h)[:, None], pick]
+           + rng.randn(h, k, 3).astype(np.float32) * 0.03)
+    return pts.astype(np.float32), rng.rand(h, k) < valid
+
+
+def _winner_cases():
+    """K4's edge cases, the inputs of ``tests/test_torch_winner.py``:
+    {name: (points (H, K, 3), mask (H, K), bandwidth)} as numpy arrays."""
+    cases = {}
+    for name in ("H=21 K=512 70% valid", "count ties straddling CTA shares",
+                 "valid points only in the last slice",
+                 "an all-invalid hypothesis", "K=1", "K=7", "K=1500",
+                 "K=2500, past the stage", "bandwidth 0",
+                 "duplicated points"):
+        rng = np.random.RandomState(len(name))
+        bw = 0.08
+        if name == "H=21 K=512 70% valid":
+            pts, msk = _winner_votes(rng, 21, 512)
+        elif name == "count ties straddling CTA shares":
+            # One point repeated at indices in the shares of CTAs 0, 1, 3
+            # and 7 (row 0) or of two CTAs (row 1, every third invalid).
+            pts = rng.randn(2, 512, 3).astype(np.float32) * 10.0
+            for row, idx in enumerate(((63, 64, 200, 450),
+                                       (61, 66, 301, 500))):
+                pts[row, list(idx)] = pts[row, idx[0]]
+            msk = np.ones((2, 512), bool)
+            msk[1, ::3] = False
+            msk[1, [61, 66, 301, 500]] = True
+        elif name == "valid points only in the last slice":
+            pts, _ = _winner_votes(rng, 4, 512)
+            msk = np.zeros((4, 512), bool)
+            msk[:, 448:] = rng.rand(4, 64) < 0.8
+        elif name == "an all-invalid hypothesis":
+            pts, msk = _winner_votes(rng, 3, 512)
+            msk[1] = False
+        elif name == "K=1":
+            pts, msk = _winner_votes(rng, 4, 1, valid=0.5)
+            msk[0], msk[1] = True, False
+        elif name == "K=7":
+            pts, msk = _winner_votes(rng, 5, 7, valid=0.6)
+            msk[2] = False
+        elif name == "K=1500":
+            pts, msk = _winner_votes(rng, 3, 1500)
+        elif name == "K=2500, past the stage":
+            pts, msk = _winner_votes(rng, 3, 2500)
+            msk[1, :2048] = False
+        elif name == "bandwidth 0":
+            pts, msk = _winner_votes(rng, 3, 512)
+            msk[:, 0] = False
+            bw = 0.0
+        else:   # duplicated points (d^2 = 0) on a grid at the bandwidth
+            grid = rng.randint(-3, 4, (4, 128, 3)).astype(np.float32) * 0.04
+            pts = np.concatenate([grid] * 4, axis=1)
+            msk = rng.rand(4, 512) < 0.7
+        cases[name] = (pts.astype(np.float32), msk, bw)
+    # Beyond the test file: three tiles with a partial last one, and a row
+    # whose labels take the scalar stores (K not a multiple of 4).
+    rng = np.random.RandomState(99)
+    cases["K=4500, three tiles"] = _winner_votes(rng, 2, 4500) + (0.08,)
+    cases["K=1001, scalar label stores"] = _winner_votes(rng, 9, 1001) + (
+        0.08,)
+    return cases
 
 
 def phase_slice(seed: int = 0):
@@ -1126,6 +1298,8 @@ def main() -> int:
             # K3: the sums' parts, one record per level (fp3 .. fp0).
             line[-1]["device_ms"] = r["device_ms"]
             line[-1]["levels"] = r["levels"]
+        if k.name == "winner":
+            line[-1].update(device_ms=r["device_ms"], passes=r["passes"])
         if k.name == "interp_bwd":
             t = rec["interp_bwd_train"]
             line[-1].update(index_add_ms=r["index_add_ms"],

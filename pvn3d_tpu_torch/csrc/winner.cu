@@ -508,28 +508,36 @@ int launch(const float* pts, const unsigned char* mask, int h, int k,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-}  // namespace
-
-// pts (h, k, 3) float32, mask (h, k) bool bytes; win (h,) int32,
-// labels (h, k) bool bytes, counts (h,) int32.  One cluster per hypothesis,
-// with CTAs of the most threads (128, 256 or 512) for which the h clusters
-// still fit on the card at once: 512 for the pose stage's 21 hypotheses,
-// 128 for its 168.
-extern "C" int winner_launch(const float* pts, const unsigned char* mask,
-                             int h, int k, float bw2, int* win,
-                             unsigned char* labels, int* counts,
-                             cudaStream_t stream) {
+// The threads per CTA of a launch for h hypotheses on the current device
+// (into *threads): the most (128, 256 or 512) for which the h clusters fit
+// on the card at once, 512 for the pose stage's 21 hypotheses and 128 for
+// its 168.  Returns the device setup's status.
+int cta_threads(int h, int* threads) {
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   const DeviceSetup& setup = prepare(device);
-  if (setup.status != 0) return setup.status;
   int t = WINNER_T_MAX;
   while (t > WINNER_T_MIN &&
          static_cast<long long>(h) * kCluster * t > setup.threads) {
     t >>= 1;
   }
+  *threads = t;
+  return setup.status;
+}
+
+}  // namespace
+
+// pts (h, k, 3) float32, mask (h, k) bool bytes; win (h,) int32,
+// labels (h, k) bool bytes, counts (h,) int32.  One cluster per hypothesis.
+extern "C" int winner_launch(const float* pts, const unsigned char* mask,
+                             int h, int k, float bw2, int* win,
+                             unsigned char* labels, int* counts,
+                             cudaStream_t stream) {
+  int t = 0;
+  const int ready = cta_threads(h, &t);
+  if (ready != 0) return ready;
   switch (t) {
     case 128:
       return launch<128>(pts, mask, h, k, bw2, win, labels, counts, stream);
@@ -538,6 +546,13 @@ extern "C" int winner_launch(const float* pts, const unsigned char* mask,
     default:
       return launch<512>(pts, mask, h, k, bw2, win, labels, counts, stream);
   }
+}
+
+// The threads per CTA winner_launch takes for h hypotheses; 0 when the
+// device's setup failed (winner_launch then returns the error).
+extern "C" int winner_cta_threads(int h) {
+  int t = 0;
+  return cta_threads(h, &t) == 0 ? t : 0;
 }
 
 extern "C" const char* kernel_error_string(int code) {

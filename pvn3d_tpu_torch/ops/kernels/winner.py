@@ -2,11 +2,17 @@
 version.
 
 Replaces ``pvn3d_tpu/ops/pallas/winner.py::winner_stats_fused``
-(``_winner_kernel``).  Bound on the card: operations, H*K^2 pair tests
-(the keypoint pass: 168 x 512^2) against O(H*K) bytes.  The TPU kernel held
-each (K, K) tile in VMEM; this one holds nothing K x K: each block owns a
-hypothesis, its threads own seeds and scan the points from shared-memory
-tiles, so any K works (source note in ``winner.cu``).
+(``_winner_kernel``).  Bound on the card: operations, sum_h v_h^2 pair
+tests over each hypothesis's v_h valid points (the keypoint pass: 168
+hypotheses of up to 512) against O(H*K) bytes.  The TPU kernel held each
+(K, K) tile in VMEM; this one holds nothing K x K.  One launch runs a
+cluster of ``CLUSTER`` CTAs per hypothesis: every CTA compacts the valid
+points into shared memory in index order, takes an equal share of the
+valid seeds (two a thread, the lanes of a seed splitting the points), and
+the cluster takes the largest packed (count, first index) key through
+distributed shared memory; each CTA then writes its share of the winner's
+row.  Rows longer than one shared-memory stage are tiled, so any K works
+(source note in ``winner.cu``).
 
 ``winner_stats`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back.
@@ -26,6 +32,7 @@ KERNEL = CudaKernel(
     "winner", "winner.cu", "winner_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+CLUSTER = 8    # CTAs per hypothesis (kCluster in winner.cu)
 
 
 def _bandwidth2(bandwidth: float) -> float:
@@ -56,6 +63,20 @@ def winner_stats_plain(points: torch.Tensor, mask: torch.Tensor,
         labels.append(in_bw[rows, win])
         counts.append(num_in[rows, win])
     return torch.cat(wins), torch.cat(labels), torch.cat(counts)
+
+
+def cta_threads(h: int) -> int:
+    """Threads per CTA of a launch for ``h`` hypotheses on the current CUDA
+    device, as the kernel picks them: the most of 512, 256, 128 for which
+    the ``h`` clusters fit on the card at once."""
+    KERNEL.load()
+    fn = KERNEL._lib.winner_cta_threads
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    threads = fn(h)
+    if threads == 0:
+        raise RuntimeError("winner kernel: the device's setup failed")
+    return threads
 
 
 def winner_stats(points: torch.Tensor, mask: torch.Tensor, bandwidth: float

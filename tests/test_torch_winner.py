@@ -7,12 +7,13 @@ These tests hold the algorithm, not the CUDA: the kernel in
 ``chip_smoke.py`` holds it against its plain version bit for bit on these
 cases and at the serving shapes.
 
-The model, per hypothesis (a cluster of 8 CTAs):
+The model, per hypothesis (a cluster of 8 CTAs of T threads, T the most of
+512, 256, 128 for which the H clusters fit on an H100 at once):
   - the row is cut into tiles of 2048 indices; each tile's valid points are
     compacted in index order by rounds of 2 x 32-point runs per warp, each
     valid lane placed after the warps before it (ballot + popc);
   - CTA r takes the r-th of 8 equal shares of each tile's compacted seeds,
-    in blocks of 2 seeds a thread; the lanes = 256 // blocks lanes of a
+    in blocks of 2 seeds a thread; the lanes = T // blocks lanes of a
     block split the compacted points (lane l takes j = l, l + lanes, ...)
     over every tile, and their partial counts are summed (integer atomics);
   - each seed's key is count << 32 | (0xffffffff - index); the CTA keeps
@@ -34,11 +35,20 @@ torch.set_num_threads(1)
 from pvn3d_tpu_torch.ops.kernels import winner  # noqa: E402
 
 _CLUSTER = 8
-_THREADS = 256
-_WARPS = _THREADS // 32
 _SEEDS = 2
 _RUNS = 2
 _STAGE = 2048
+_SMS = 132           # an H100's SMs
+_RESIDENT = 1536     # threads of every CTA size an SM holds at once
+
+
+def threads_per_cta(h):
+    """The launch's choice: the most threads (512, 256, 128) for which the
+    h clusters fit on the card at once."""
+    t = 512
+    while t > 128 and h * _CLUSTER * t > _SMS * _RESIDENT:
+        t //= 2
+    return t
 
 
 def _sqdist(a, b):
@@ -52,14 +62,16 @@ def _bw2(bandwidth):
     return np.float32(float(bandwidth) * float(bandwidth))
 
 
-def stage_tile(mask_row, base, lim):
-    """The staging rounds: the row indices of the valid points among
-    [base, base + lim), at the places the ballots give them."""
+def stage_tile(mask_row, base, lim, threads=128):
+    """The staging rounds of a CTA of ``threads``: the row indices of the
+    valid points among [base, base + lim), at the places the ballots give
+    them."""
     out = np.full(lim, -1, np.int64)
     n = 0
-    for r0 in range(0, lim, _THREADS * _RUNS):
+    warps = threads // 32
+    for r0 in range(0, lim, threads * _RUNS):
         bal, cnt = [], []
-        for w in range(_WARPS):
+        for w in range(warps):
             words = []
             for q in range(_RUNS):
                 t = r0 + (w * _RUNS + q) * 32 + np.arange(32)
@@ -68,7 +80,7 @@ def stage_tile(mask_row, base, lim):
                 words.append(ok)
             bal.append(words)
             cnt.append(sum(int(b.sum()) for b in words))
-        for w in range(_WARPS):
+        for w in range(warps):
             off = n + sum(cnt[:w])
             for q in range(_RUNS):
                 b = bal[w][q]
@@ -99,6 +111,7 @@ def model_winner(points, mask, bandwidth):
     (win (H,) int32, labels (H, K) bool, counts (H,) int32)."""
     h, k, _ = points.shape
     bw2 = _bw2(bandwidth)
+    threads = threads_per_cta(h)
     cap = max(1, min(k, _STAGE))
     tiles = -(-k // cap)
     win = np.zeros(h, np.int32)
@@ -106,7 +119,7 @@ def model_winner(points, mask, bandwidth):
     counts = np.zeros(h, np.int32)
     for hh in range(h):
         a, am = points[hh], mask[hh]
-        staged = [stage_tile(am, t * cap, min(cap, k - t * cap))
+        staged = [stage_tile(am, t * cap, min(cap, k - t * cap), threads)
                   for t in range(tiles)]
         if sum(len(s) for s in staged) == 0:
             continue                  # winner 0, count 0, a zero row
@@ -119,8 +132,8 @@ def model_winner(points, mask, bandwidth):
                 blocks = -(-(c1 - c0) // _SEEDS)
                 if blocks == 0:
                     continue
-                lanes = 1 if blocks >= _THREADS else _THREADS // blocks
-                groups = _THREADS // lanes
+                lanes = 1 if blocks >= threads else threads // blocks
+                groups = threads // lanes
                 for b0 in range(0, blocks, groups):
                     first = c0 + b0 * _SEEDS
                     seeds = sidx[first:first + min(groups * _SEEDS,
@@ -209,9 +222,19 @@ def test_staging_compacts_in_index_order(k):
     rng = np.random.RandomState(k)
     mask = rng.rand(k) < 0.6
     cap = min(k, _STAGE)
-    got = np.concatenate([stage_tile(mask, t * cap, min(cap, k - t * cap))
-                          for t in range(-(-k // cap))])
-    np.testing.assert_array_equal(got, np.flatnonzero(mask))
+    for threads in (128, 256, 512):
+        got = np.concatenate([
+            stage_tile(mask, t * cap, min(cap, k - t * cap), threads)
+            for t in range(-(-k // cap))])
+        np.testing.assert_array_equal(got, np.flatnonzero(mask))
+
+
+def test_cta_size_fills_the_card():
+    """The pose stage's passes: 21 hypotheses take CTAs of 512 threads
+    (168 CTAs), 168 take CTAs of 128 (1344 CTAs, all resident at once)."""
+    assert threads_per_cta(21) == 512 and threads_per_cta(168) == 128
+    assert threads_per_cta(1) == 512 and threads_per_cta(10 ** 4) == 128
+    assert 168 * _CLUSTER * 128 <= _SMS * _RESIDENT
 
 
 @pytest.mark.parametrize("k", [1, 7, 12, 100, 512, 1500, 2500])
