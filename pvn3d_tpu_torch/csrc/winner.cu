@@ -69,6 +69,12 @@ namespace {
 #ifndef WINNER_SEEDS
 #define WINNER_SEEDS 2
 #endif
+#ifndef WINNER_REG_CAP
+#define WINNER_REG_CAP 1
+#endif
+#ifndef WINNER_STOP
+#define WINNER_STOP 0
+#endif
 
 constexpr int kCluster = 8;  // the largest portable cluster
 constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
@@ -120,20 +126,13 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return (static_cast<unsigned long long>(top) << 32) | lo;
 }
 
-struct Stage {
-  float* x;
-  float* y;
-  float* z;
-  int* idx;
-};
-
 // Compacts the valid points among row indices [base, base + lim) into the
 // stage in index order and returns their number.  Every thread of the
 // block calls it; it begins and ends with a block barrier.
 template <int kThreads>
 __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
                                           const unsigned char* __restrict__ am,
-                                          int base, int lim, const Stage& s,
+                                          int base, int lim, float4* s,
                                           int (*s_wcnt)[kThreads / 32]) {
   constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31;
@@ -176,10 +175,9 @@ __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
     for (int q = 0; q < kRunsPerWarp; ++q) {
       if ((bal[q] >> lane) & 1u) {
         const int pos = off + __popc(bal[q] & below);
-        s.x[pos] = px[q];
-        s.y[pos] = py[q];
-        s.z[pos] = pz[q];
-        s.idx[pos] = base + r0 + (warp * kRunsPerWarp + q) * 32 + lane;
+        s[pos] = make_float4(
+            px[q], py[q], pz[q],
+            __int_as_float(base + r0 + (warp * kRunsPerWarp + q) * 32 + lane));
       }
       off += __popc(bal[q]);
     }
@@ -189,14 +187,26 @@ __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
   return n;
 }
 
-// First position in idx[0, n) (increasing) holding an index >= key.
-__device__ __forceinline__ int lower_bound(const int* idx, int n, int key) {
+// The row index a staged point carries in its fourth word.
+__device__ __forceinline__ int index_of(const float4& p) {
+  return __float_as_int(p.w);
+}
+
+// First position in s[0, n) (increasing indices) holding an index >= key.
+__device__ __forceinline__ int lower_bound(const float4* s, int n, int key) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (idx[mid] < key) lo = mid + 1; else hi = mid;
+    if (index_of(s[mid]) < key) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// cnt += (d2 < bw2), as a compare and a predicated add.
+__device__ __forceinline__ void count_if_less(int& cnt, float d2, float bw2) {
+  asm("{\n .reg .pred p;\n setp.lt.f32 p, %1, %2;\n @p add.s32 %0, %0, 1;\n}"
+      : "+r"(cnt)
+      : "f"(d2), "f"(bw2));
 }
 
 // The inputs of one store of labels: four points and their mask bytes
@@ -251,16 +261,16 @@ __device__ __forceinline__ void store_labels(unsigned char* row, int j,
 }
 
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads, kResident / kThreads)
+__global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThreads : 1)
     winner_kernel(const float* __restrict__ pts,
                   const unsigned char* __restrict__ mask, int k, int cap,
                   float bw2, int* __restrict__ win,
                   unsigned char* __restrict__ labels,
                   int* __restrict__ counts) {
   constexpr int kWarps = kThreads / 32;
-  // The stage (cap points: x, y, z, index), then a pass's seed counts and
-  // their row indices.
-  extern __shared__ float s_dyn[];
+  // The stage (cap points: x, y, z and the row index's bits), then a
+  // pass's seed counts and their row indices.
+  extern __shared__ float4 s_dyn[];
   __shared__ int s_wcnt[2][kWarps];
   __shared__ unsigned long long s_wkey[kWarps];
   __shared__ unsigned long long s_key;  // this CTA's best, read by the cluster
@@ -273,9 +283,11 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const Stage st{s_dyn, s_dyn + cap, s_dyn + 2 * cap,
-                 reinterpret_cast<int*>(s_dyn + 3 * cap)};
-  int* s_cnt = st.idx + cap;
+#if WINNER_STOP == 1
+  if (blockIdx.x < 1u << 30) return;
+#endif
+  float4* st = s_dyn;
+  int* s_cnt = reinterpret_cast<int*>(s_dyn + cap);
   int* s_sidx = s_cnt + kThreads * kSeeds;
   const int tiles = (k + cap - 1) / cap;
 
@@ -305,6 +317,9 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
   unsigned long long best = 0ull;
   for (int ta = 0; ta < tiles; ++ta) {
     ensure(ta);
+#if WINNER_STOP == 2
+    if (n_staged >= 0) return;
+#endif
     const int n_a = n_staged;
     v += n_a;
     const int c0 = n_a * rank / kCluster;
@@ -321,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
       const int n_pass = min(groups * kSeeds, c1 - first_seed);
       for (int t = tid; t < n_pass; t += kThreads) {
         s_cnt[t] = 0;
-        s_sidx[t] = st.idx[first_seed + t];
+        s_sidx[t] = index_of(st[first_seed + t]);
       }
       const bool active = g < groups && b0 + g < blocks;
       float sx[kSeeds], sy[kSeeds], sz[kSeeds];
@@ -331,9 +346,10 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
         // A block's slots past the share repeat its first seed; their
         // counts are dropped.
         const int c = first_seed + g * kSeeds + (g * kSeeds + q < n_pass ? q : 0);
-        sx[q] = active ? st.x[c] : 0.f;
-        sy[q] = active ? st.y[c] : 0.f;
-        sz[q] = active ? st.z[c] : 0.f;
+        const float4 p = active ? st[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+        sx[q] = p.x;
+        sy[q] = p.y;
+        sz[q] = p.z;
         cnt[q] = 0;
       }
       __syncthreads();  // counts zeroed before any atomic
@@ -343,10 +359,11 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
         const int n = n_staged;
 #pragma unroll 4
         for (int j = l; j < n; j += lanes) {
-          const float x = st.x[j], y = st.y[j], z = st.z[j];
+          const float4 p = st[j];
 #pragma unroll
           for (int q = 0; q < kSeeds; ++q) {
-            cnt[q] += sqdist(sx[q], sy[q], sz[q], x, y, z) < bw2 ? 1 : 0;
+            count_if_less(cnt[q], sqdist(sx[q], sy[q], sz[q], p.x, p.y, p.z),
+                          bw2);
           }
         }
       }
@@ -365,6 +382,9 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
     }
   }
 
+#if WINNER_STOP == 3
+  if (best != 1ull) return;
+#endif
   if (v == 0) {
     // Every CTA counted the same mask: all leave here, none at a barrier.
     for (int j = jt; j < j1; j += step * kThreads) store_labels(row, j, 0u, vec);
@@ -397,6 +417,12 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
   // Done with the other CTAs' keys; the wait below keeps this CTA's key
   // alive until every CTA has read it.
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+#if WINNER_STOP == 4
+  if (key != 1ull) {
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+    if (first.m != 7u) return;
+  }
+#endif
   const int count = static_cast<int>(key >> 32);
   // Every count 0 (a bandwidth of 0): the first argmax is seed 0.
   const int w = count == 0
@@ -404,13 +430,13 @@ __global__ void __launch_bounds__(kThreads, kResident / kThreads)
                     : static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
   // The winner's coordinates from the stage when it holds them (always for
   // a row of one tile), else from the row.
-  const int pos = lower_bound(st.idx, n_staged, w);
+  const int pos = lower_bound(st, n_staged, w);
   bool w_valid = true;
   float wx, wy, wz;
-  if (pos < n_staged && st.idx[pos] == w) {
-    wx = st.x[pos];
-    wy = st.y[pos];
-    wz = st.z[pos];
+  if (pos < n_staged && index_of(st[pos]) == w) {
+    wx = st[pos].x;
+    wy = st[pos].y;
+    wz = st[pos].z;
   } else {
     w_valid = am[w] != 0;
     wx = a[3 * w];

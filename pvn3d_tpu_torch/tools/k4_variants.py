@@ -19,12 +19,16 @@ import sys
 
 VARIANTS = {
     "T128-512 S2": {},
-    "T128-512 S1": {"WINNER_SEEDS": 1},
     "T128-512 S4": {"WINNER_SEEDS": 4},
-    "T128 S2": {"WINNER_T_MIN": 128, "WINNER_T_MAX": 128},
+    "T128-512 S2 no reg cap": {"WINNER_REG_CAP": 0},
     "T256 S2": {"WINNER_T_MIN": 256, "WINNER_T_MAX": 256},
-    "T512 S2": {"WINNER_T_MIN": 512, "WINNER_T_MAX": 512},
+    "T256 S2 no reg cap": {"WINNER_T_MIN": 256, "WINNER_T_MAX": 256,
+                           "WINNER_REG_CAP": 0},
+    "T128 S2": {"WINNER_T_MIN": 128, "WINNER_T_MAX": 128},
 }
+# Variants cut short after a phase, timed only: the launch alone, + the
+# stage, + the counts, + the cluster's key exchange.
+STOPS = {f"T128-512 S2 stop {n}": {"WINNER_STOP": n} for n in (1, 2, 3, 4)}
 
 
 def main() -> int:
@@ -40,7 +44,7 @@ def main() -> int:
     os.makedirs(vdir, exist_ok=True)
     src = os.path.join(common.CSRC_DIR, "winner.cu")
     kernels = {}
-    for i, (tag, defs) in enumerate(VARIANTS.items()):
+    for i, (tag, defs) in enumerate({**VARIANTS, **STOPS}.items()):
         path = os.path.join(vdir, f"winner_v{i}.cu")
         with open(path, "w") as f:
             for name, val in defs.items():
@@ -68,6 +72,8 @@ def main() -> int:
     pts, msk = inputs[0][1][0][1:]
     edge.append(("bandwidth 0", pts, msk, 0.0))
     for tag, kernel in kernels.items():
+        if tag in STOPS:
+            continue
         winner.KERNEL = kernel
         for kind, passes in inputs:
             for name, pts, msk in passes:
