@@ -64,7 +64,7 @@ namespace {
 #define WINNER_T_MIN 128
 #endif
 #ifndef WINNER_T_MAX
-#define WINNER_T_MAX 512
+#define WINNER_T_MAX 256
 #endif
 #ifndef WINNER_SEEDS
 #define WINNER_SEEDS 2
@@ -80,18 +80,17 @@ constexpr int kCluster = 8;  // the largest portable cluster
 constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
 // Row indices a tile stages (x, y, z, index: 16 bytes a point).
 constexpr int kStagePoints = 2048;
-// 32-point runs a warp loads per staging round.
-constexpr int kRunsPerWarp = 2;
+// 32-point runs a warp loads per staging round: a round covers 512 points
+// (a serving row) whatever the CTA's size.
+constexpr int runs_per_warp(int threads) {
+  return threads >= 256 ? 2 : 512 / threads;
+}
 // Returned when no cluster of kCluster CTAs fits on the card.
 constexpr int kErrNoCluster = -1;
 constexpr int kMaxDevices = 64;
 
-// Dynamic shared memory of a CTA: the stage, then a pass's seed counts and
-// their row indices (two ints a slot).
-constexpr size_t smem_bytes(int cap, int threads) {
-  return static_cast<size_t>(cap) * 16 +
-         static_cast<size_t>(threads) * kSeeds * 8;
-}
+// Dynamic shared memory of a CTA: the stage, 16 bytes a point.
+constexpr size_t smem_bytes(int cap) { return static_cast<size_t>(cap) * 16; }
 
 // Threads of every instance an SM holds at once: 12 CTAs of 128, 6 of
 // 256, 3 of 512, each thread within 65536 / 1536 = 42 registers.
@@ -135,6 +134,7 @@ __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
                                           int base, int lim, float4* s,
                                           int (*s_wcnt)[kThreads / 32]) {
   constexpr int kWarps = kThreads / 32;
+  constexpr int kRunsPerWarp = runs_per_warp(kThreads);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -268,8 +268,7 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
                   unsigned char* __restrict__ labels,
                   int* __restrict__ counts) {
   constexpr int kWarps = kThreads / 32;
-  // The stage (cap points: x, y, z and the row index's bits), then a
-  // pass's seed counts and their row indices.
+  // The stage: cap points, x, y, z and the row index's bits.
   extern __shared__ float4 s_dyn[];
   __shared__ int s_wcnt[2][kWarps];
   __shared__ unsigned long long s_wkey[kWarps];
@@ -287,8 +286,6 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   if (blockIdx.x < 1u << 30) return;
 #endif
   float4* st = s_dyn;
-  int* s_cnt = reinterpret_cast<int*>(s_dyn + cap);
-  int* s_sidx = s_cnt + kThreads * kSeeds;
   const int tiles = (k + cap - 1) / cap;
 
   // This CTA's share of the row's labels, whole groups of four where the
@@ -326,59 +323,66 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
     const int c1 = n_a * (rank + 1) / kCluster;
     const int blocks = (c1 - c0 + kSeeds - 1) / kSeeds;  // CTA-uniform
     if (blocks == 0) continue;
-    const int lanes = blocks >= kThreads ? 1 : kThreads / blocks;
+    // Lanes a seed block: a power of two within a warp, so a block's
+    // partial counts are summed by shuffles.
+    int lanes = 1;
+    while (lanes < 32 && 2 * lanes * blocks <= kThreads) lanes *= 2;
     const int groups = kThreads / lanes;
     const int g = tid / lanes;
-    const int l = tid - g * lanes;
+    const int l = tid & (lanes - 1);
     for (int b0 = 0; b0 < blocks; b0 += groups) {
       ensure(ta);
-      const int first_seed = c0 + b0 * kSeeds;
-      const int n_pass = min(groups * kSeeds, c1 - first_seed);
-      for (int t = tid; t < n_pass; t += kThreads) {
-        s_cnt[t] = 0;
-        s_sidx[t] = index_of(st[first_seed + t]);
-      }
-      const bool active = g < groups && b0 + g < blocks;
+      const int first_seed = c0 + (b0 + g) * kSeeds;
+      const bool active = b0 + g < blocks;
       float sx[kSeeds], sy[kSeeds], sz[kSeeds];
-      int cnt[kSeeds];
+      int sidx[kSeeds], cnt[kSeeds];
 #pragma unroll
       for (int q = 0; q < kSeeds; ++q) {
-        // A block's slots past the share repeat its first seed; their
-        // counts are dropped.
-        const int c = first_seed + g * kSeeds + (g * kSeeds + q < n_pass ? q : 0);
-        const float4 p = active ? st[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+        // Slots past the share hold no seed (index -1): counted, dropped.
+        const bool real = active && first_seed + q < c1;
+        const float4 p = real ? st[first_seed + q]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
         sx[q] = p.x;
         sy[q] = p.y;
         sz[q] = p.z;
+        sidx[q] = real ? index_of(p) : -1;
         cnt[q] = 0;
       }
-      __syncthreads();  // counts zeroed before any atomic
       for (int tb = 0; tb < tiles; ++tb) {
         ensure(tb);
         if (!active) continue;
-        const int n = n_staged;
-#pragma unroll 4
-        for (int j = l; j < n; j += lanes) {
-          const float4 p = st[j];
+        // Lane l takes points l, l + lanes, ...: `trips` of them.
+        const int trips = l < n_staged ? (n_staged - 1 - l) / lanes + 1 : 0;
+        const float4* p = st + l;
+        int i = 0;
+        for (; i + 4 <= trips; i += 4, p += 4 * lanes) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 pt = p[u * lanes];
+#pragma unroll
+            for (int q = 0; q < kSeeds; ++q) {
+              count_if_less(cnt[q],
+                            sqdist(sx[q], sy[q], sz[q], pt.x, pt.y, pt.z),
+                            bw2);
+            }
+          }
+        }
+        for (; i < trips; ++i, p += lanes) {
+          const float4 pt = *p;
 #pragma unroll
           for (int q = 0; q < kSeeds; ++q) {
-            count_if_less(cnt[q], sqdist(sx[q], sy[q], sz[q], p.x, p.y, p.z),
-                          bw2);
+            count_if_less(cnt[q],
+                          sqdist(sx[q], sy[q], sz[q], pt.x, pt.y, pt.z), bw2);
           }
         }
       }
-      if (active) {
 #pragma unroll
-        for (int q = 0; q < kSeeds; ++q) {
-          const int slot = g * kSeeds + q;
-          if (slot < n_pass && cnt[q] != 0) atomicAdd(&s_cnt[slot], cnt[q]);
+      for (int q = 0; q < kSeeds; ++q) {
+        for (int off = lanes >> 1; off > 0; off >>= 1) {
+          cnt[q] += __shfl_xor_sync(0xffffffffu, cnt[q], off);
         }
+        if (sidx[q] >= 0) best = umax64(best, pack(cnt[q], sidx[q]));
       }
-      __syncthreads();
-      for (int t = tid; t < n_pass; t += kThreads) {
-        best = umax64(best, pack(s_cnt[t], s_sidx[t]));
-      }
-      __syncthreads();  // the next pass rewrites s_cnt and s_sidx
     }
   }
 
@@ -477,7 +481,7 @@ cudaLaunchConfig_t launch_config(int h, size_t smem, cudaStream_t stream,
 template <int kThreads>
 cudaError_t check_instance(int* clusters) {
   auto kernel = winner_kernel<kThreads>;
-  const size_t smem = smem_bytes(kStagePoints, kThreads);
+  const size_t smem = smem_bytes(kStagePoints);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -527,7 +531,7 @@ int launch(const float* pts, const unsigned char* mask, int h, int k,
   const int cap = k < 1 ? 1 : (k < kStagePoints ? k : kStagePoints);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<kThreads>(h, smem_bytes(cap, kThreads), stream, &attr);
+      launch_config<kThreads>(h, smem_bytes(cap), stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, winner_kernel<kThreads>, pts, mask, k, cap, bw2, win, labels,
       counts);

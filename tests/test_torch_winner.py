@@ -8,14 +8,15 @@ These tests hold the algorithm, not the CUDA: the kernel in
 cases and at the serving shapes.
 
 The model, per hypothesis (a cluster of 8 CTAs of T threads, T the most of
-512, 256, 128 for which the H clusters fit on an H100 at once):
+256 and 128 for which the H clusters fit on an H100 at once):
   - the row is cut into tiles of 2048 indices; each tile's valid points are
     compacted in index order by rounds of 2 x 32-point runs per warp, each
     valid lane placed after the warps before it (ballot + popc);
   - CTA r takes the r-th of 8 equal shares of each tile's compacted seeds,
-    in blocks of 2 seeds a thread; the lanes = T // blocks lanes of a
-    block split the compacted points (lane l takes j = l, l + lanes, ...)
-    over every tile, and their partial counts are summed (integer atomics);
+    in blocks of 2 seeds a thread; the lanes of a block (a power of two,
+    at most 32 and at most T // blocks) split the compacted points (lane l
+    takes j = l, l + lanes, ...) over every tile, and a shuffle butterfly
+    sums their partial counts;
   - each seed's key is count << 32 | (0xffffffff - index); the CTA keeps
     its largest, and the cluster takes the largest of the 8;
   - count 0 means winner 0; no valid point means winner 0, count 0 and a
@@ -36,16 +37,15 @@ from pvn3d_tpu_torch.ops.kernels import winner  # noqa: E402
 
 _CLUSTER = 8
 _SEEDS = 2
-_RUNS = 2
 _STAGE = 2048
 _SMS = 132           # an H100's SMs
 _RESIDENT = 1536     # threads of every CTA size an SM holds at once
 
 
 def threads_per_cta(h):
-    """The launch's choice: the most threads (512, 256, 128) for which the
-    h clusters fit on the card at once."""
-    t = 512
+    """The launch's choice: the most threads (256, 128) for which the h
+    clusters fit on the card at once."""
+    t = 256
     while t > 128 and h * _CLUSTER * t > _SMS * _RESIDENT:
         t //= 2
     return t
@@ -63,18 +63,20 @@ def _bw2(bandwidth):
 
 
 def stage_tile(mask_row, base, lim, threads=128):
-    """The staging rounds of a CTA of ``threads``: the row indices of the
+    """The staging rounds of a CTA of ``threads`` (each warp loads enough
+    32-point runs for a round to cover 512 points): the row indices of the
     valid points among [base, base + lim), at the places the ballots give
     them."""
     out = np.full(lim, -1, np.int64)
     n = 0
     warps = threads // 32
-    for r0 in range(0, lim, threads * _RUNS):
+    runs = max(2, 512 // threads)
+    for r0 in range(0, lim, threads * runs):
         bal, cnt = [], []
         for w in range(warps):
             words = []
-            for q in range(_RUNS):
-                t = r0 + (w * _RUNS + q) * 32 + np.arange(32)
+            for q in range(runs):
+                t = r0 + (w * runs + q) * 32 + np.arange(32)
                 ok = t < lim
                 ok[ok] = mask_row[base + t[ok]]
                 words.append(ok)
@@ -82,12 +84,12 @@ def stage_tile(mask_row, base, lim, threads=128):
             cnt.append(sum(int(b.sum()) for b in words))
         for w in range(warps):
             off = n + sum(cnt[:w])
-            for q in range(_RUNS):
+            for q in range(runs):
                 b = bal[w][q]
                 lanes = np.flatnonzero(b)
                 # popc(ballot & lanes below)
                 pos = off + np.cumsum(b)[lanes] - 1
-                out[pos] = base + r0 + (w * _RUNS + q) * 32 + lanes
+                out[pos] = base + r0 + (w * runs + q) * 32 + lanes
                 off += int(b.sum())
         n += sum(cnt)
     return out[:n]
@@ -132,7 +134,9 @@ def model_winner(points, mask, bandwidth):
                 blocks = -(-(c1 - c0) // _SEEDS)
                 if blocks == 0:
                     continue
-                lanes = 1 if blocks >= threads else threads // blocks
+                lanes = 1
+                while lanes < 32 and 2 * lanes * blocks <= threads:
+                    lanes *= 2
                 groups = threads // lanes
                 for b0 in range(0, blocks, groups):
                     first = c0 + b0 * _SEEDS
@@ -141,8 +145,15 @@ def model_winner(points, mask, bandwidth):
                     s_cnt = np.zeros(len(seeds), np.int64)
                     for pidx in staged:
                         inb = _sqdist(a[seeds], a[pidx]) < bw2
-                        for lane in range(lanes):
-                            s_cnt += inb[:, lane::lanes].sum(1)
+                        part = np.stack([inb[:, lane::lanes].sum(1)
+                                         for lane in range(lanes)], 1)
+                        # The butterfly: lane l adds lane l ^ off's sum.
+                        off = lanes // 2
+                        while off:
+                            part = part + part[:, np.arange(lanes) ^ off]
+                            off //= 2
+                        assert (part == part[:, :1]).all()
+                        s_cnt += part[:, 0]
                     for c, i in zip(s_cnt, seeds):
                         best = max(best, _pack(c, i))
             keys.append(best)
@@ -222,7 +233,7 @@ def test_staging_compacts_in_index_order(k):
     rng = np.random.RandomState(k)
     mask = rng.rand(k) < 0.6
     cap = min(k, _STAGE)
-    for threads in (128, 256, 512):
+    for threads in (128, 256):
         got = np.concatenate([
             stage_tile(mask, t * cap, min(cap, k - t * cap), threads)
             for t in range(-(-k // cap))])
@@ -230,10 +241,10 @@ def test_staging_compacts_in_index_order(k):
 
 
 def test_cta_size_fills_the_card():
-    """The pose stage's passes: 21 hypotheses take CTAs of 512 threads
+    """The pose stage's passes: 21 hypotheses take CTAs of 256 threads
     (168 CTAs), 168 take CTAs of 128 (1344 CTAs, all resident at once)."""
-    assert threads_per_cta(21) == 512 and threads_per_cta(168) == 128
-    assert threads_per_cta(1) == 512 and threads_per_cta(10 ** 4) == 128
+    assert threads_per_cta(21) == 256 and threads_per_cta(168) == 128
+    assert threads_per_cta(1) == 256 and threads_per_cta(10 ** 4) == 128
     assert 168 * _CLUSTER * 128 <= _SMS * _RESIDENT
 
 
