@@ -82,7 +82,7 @@ constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
 constexpr int kStagePoints = 2048;
 // 32-point runs a warp loads per staging round: a round covers 512 points
 // (a serving row) whatever the CTA's size.
-constexpr int runs_per_warp(int threads) {
+__host__ __device__ constexpr int runs_per_warp(int threads) {
   return threads >= 256 ? 2 : 512 / threads;
 }
 // Returned when no cluster of kCluster CTAs fits on the card.
