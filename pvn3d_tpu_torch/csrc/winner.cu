@@ -64,7 +64,7 @@ namespace {
 #define WINNER_T_MIN 128
 #endif
 #ifndef WINNER_T_MAX
-#define WINNER_T_MAX 256
+#define WINNER_T_MAX 512
 #endif
 #ifndef WINNER_SEEDS
 #define WINNER_SEEDS 2
@@ -271,8 +271,8 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   // The stage: cap points, x, y, z and the row index's bits.
   extern __shared__ float4 s_dyn[];
   __shared__ int s_wcnt[2][kWarps];
+  // Each warp's best key, read by every warp of the cluster.
   __shared__ unsigned long long s_wkey[kWarps];
-  __shared__ unsigned long long s_key;  // this CTA's best, read by the cluster
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int h = blockIdx.x / kCluster;
@@ -405,21 +405,17 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   if (jt < j1) first = load_label_in(a, am, jt, vec);
   best = warp_max(best);
   if (lane == 0) s_wkey[warp] = best;
-  __syncthreads();
-  if (tid == 0) {
-    unsigned long long m = 0ull;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = umax64(m, s_wkey[w]);
-    s_key = m;
-  }
   cluster.sync();
-  unsigned long long key =
-      lane < kCluster
-          ? *cluster.map_shared_rank(&s_key, static_cast<unsigned>(lane))
-          : 0ull;
+  // The cluster's kCluster * kWarps keys, read by every warp.
+  unsigned long long key = 0ull;
+#pragma unroll
+  for (int q = lane; q < kCluster * kWarps; q += 32) {
+    key = umax64(key, cluster.map_shared_rank(
+                          s_wkey, static_cast<unsigned>(q / kWarps))[q % kWarps]);
+  }
   key = warp_max(key);
-  // Done with the other CTAs' keys; the wait below keeps this CTA's key
-  // alive until every CTA has read it.
+  // Done with the other CTAs' keys; the wait below keeps this CTA's keys
+  // alive until every CTA has read them.
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
 #if WINNER_STOP == 4
   if (key != 1ull) {

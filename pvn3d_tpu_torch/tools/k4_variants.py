@@ -18,16 +18,15 @@ import os
 import sys
 
 VARIANTS = {
-    "T128-256 S2": {},
-    "T128-256 S2 no reg cap": {"WINNER_REG_CAP": 0},
-    "T128-256 S1": {"WINNER_SEEDS": 1},
-    "T128-256 S4": {"WINNER_SEEDS": 4},
-    "T128 S2": {"WINNER_T_MIN": 128, "WINNER_T_MAX": 128},
-    "T256 S2": {"WINNER_T_MIN": 256, "WINNER_T_MAX": 256},
+    "T128-512 S2": {},
+    "T128-512 S2 no reg cap": {"WINNER_REG_CAP": 0},
+    "T128-512 S1": {"WINNER_SEEDS": 1},
+    "T128-256 S2": {"WINNER_T_MAX": 256},
+    "T128-256 S2 no reg cap": {"WINNER_T_MAX": 256, "WINNER_REG_CAP": 0},
 }
 # Variants cut short after a phase, timed only: the launch alone, + the
 # stage, + the counts, + the cluster's key exchange.
-STOPS = {f"T128-256 S2 stop {n}": {"WINNER_STOP": n} for n in (1, 2, 3, 4)}
+STOPS = {f"T128-512 S2 stop {n}": {"WINNER_STOP": n} for n in (1, 2, 3, 4)}
 
 
 def main() -> int:
