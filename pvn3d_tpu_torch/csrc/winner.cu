@@ -14,38 +14,48 @@
 // each) against O(H*K) bytes in and out.  The TPU kernel held each (K, K)
 // tile in VMEM; nothing K x K is held here.
 //
-// Design: a cluster of kCluster CTAs per hypothesis, one launch.
+// Design: one launch, a cluster of kCluster CTAs per hypothesis.
 //   1. Every CTA compacts the valid points of a tile of kStagePoints row
-//      indices into shared memory (SoA x, y, z and the original index), in
-//      index order: each warp loads two 32-point runs, a ballot and popc
-//      give each valid lane its place after the warps before it.  The scan
-//      below has no mask test and runs over v points, not K.
+//      indices into shared memory in index order, one float4 a point
+//      (x, y, z and the row index's bits): each warp loads 32-point runs
+//      of coordinates and mask together, and a ballot and popc give each
+//      valid lane its place after the warps before it.  The scan below
+//      has no mask test and runs over v points, not K.
 //   2. CTA r takes the r-th of kCluster equal shares of the tile's valid
 //      seeds (a contiguous run of the compacted list), so the shares are
 //      balanced whatever the mask: the pose stage's masks are prefixes of
-//      the row, where shares of the row's indices leave most CTAs idle.
+//      the row, where shares of the row's indices leave CTAs idle.
 //   3. Each thread holds kSeeds seeds in registers, so every shared-memory
-//      load of a point serves kSeeds pair tests; the L = kThreads / blocks
-//      lanes of a seed block split the compacted list (lane l takes
-//      j = l, l + L, ...) and add their partial counts into shared memory
-//      with integer atomics (exact in any order).  Invalid seeds are never
-//      scanned.  A row longer than kStagePoints is tiled: seeds and points
-//      come from each tile in turn (rows of the serving path fit one tile,
-//      which is staged once).
-//   4. Each CTA reduces its seeds to one 64-bit key, count in the high
+//      load of a point serves kSeeds pair tests; the lanes of a seed block
+//      (a power of two within a warp) split the compacted list, lane l
+//      taking j = l, l + lanes, ..., and a shuffle butterfly sums their
+//      counts: no block barrier and no atomic in a pass.  Invalid seeds
+//      are never scanned.  A row longer than kStagePoints is tiled: seeds
+//      and points come from each tile in turn (a serving row fits one
+//      tile, which is staged once).
+//   4. Each warp reduces its seeds to one 64-bit key, count in the high
 //      word and 0xffffffff - index in the low word, so the largest key is
 //      the largest count with the lowest index.  After a cluster barrier
-//      every warp reads the kCluster keys through distributed shared memory
-//      and takes their maximum itself: no DSMEM or 64-bit shared atomics
-//      (nvcc lowers a 64-bit shared atomicMax to a CTA-local CAS loop), no
-//      global ticket.
+//      every warp reads the cluster's keys through distributed shared
+//      memory and takes their maximum itself: no DSMEM or 64-bit shared
+//      atomics (nvcc lowers a 64-bit shared atomicMax to a CTA-local CAS
+//      loop), no global ticket.
 //   5. Each CTA writes its share of the row's labels from the winner's
-//      coordinates against the original points (4 labels a store where the
-//      row is aligned), between the arrive and the wait of a last cluster
-//      barrier, so no CTA leaves while another may still read its key.
+//      coordinates (from the stage) against the original points, whose
+//      first group it loaded while the cluster waited (4 labels a store
+//      where the row is aligned), between the arrive and the wait of a
+//      last cluster barrier, so no CTA leaves while another may still read
+//      its keys.
 // An all-invalid hypothesis (v = 0: every CTA counts it from the same mask,
 // so the branch is uniform) writes winner 0, count 0 and a zero row and
-// leaves before either barrier.
+// leaves before either barrier.  A CTA has 256 threads when all H clusters
+// of such CTAs are resident on the card at once (the pose stage's 21
+// hypotheses), else 128 (its 168).
+//
+// Measured alternatives (PERF.md, section 6): 1 or 4 seeds a thread, CTAs
+// of 512 threads, registers capped for more resident CTAs, seed shares by
+// row index, and partial counts summed by shared-memory atomics were each
+// slower on an H100.
 //
 // d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics: no FMA
 // contraction, so bandwidth membership equals the plain version's.
@@ -60,30 +70,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef WINNER_T_MIN
-#define WINNER_T_MIN 128
-#endif
-#ifndef WINNER_T_MAX
-#define WINNER_T_MAX 512
-#endif
-#ifndef WINNER_SEEDS
-#define WINNER_SEEDS 2
-#endif
-#ifndef WINNER_REG_CAP
-#define WINNER_REG_CAP 1
-#endif
-#ifndef WINNER_STOP
-#define WINNER_STOP 0
-#endif
-
 constexpr int kCluster = 8;  // the largest portable cluster
-constexpr int kSeeds = WINNER_SEEDS;  // seeds a thread holds in registers
+constexpr int kSeeds = 2;    // seeds a thread holds in registers
 // Row indices a tile stages (x, y, z, index: 16 bytes a point).
 constexpr int kStagePoints = 2048;
 // 32-point runs a warp loads per staging round: a round covers 512 points
-// (a serving row) whatever the CTA's size.
+// (a serving row) in a CTA of 128 or 256 threads.
 __host__ __device__ constexpr int runs_per_warp(int threads) {
-  return threads >= 256 ? 2 : 512 / threads;
+  return 512 / threads;
 }
 // Returned when no cluster of kCluster CTAs fits on the card.
 constexpr int kErrNoCluster = -1;
@@ -91,10 +85,6 @@ constexpr int kMaxDevices = 64;
 
 // Dynamic shared memory of a CTA: the stage, 16 bytes a point.
 constexpr size_t smem_bytes(int cap) { return static_cast<size_t>(cap) * 16; }
-
-// Threads of every instance an SM holds at once: 12 CTAs of 128, 6 of
-// 256, 3 of 512, each thread within 65536 / 1536 = 42 registers.
-constexpr int kResident = 1536;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -135,6 +125,7 @@ __device__ __forceinline__ int stage_tile(const float* __restrict__ a,
                                           int (*s_wcnt)[kThreads / 32]) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kRunsPerWarp = runs_per_warp(kThreads);
+  static_assert(kThreads * kRunsPerWarp == 512, "a round covers 512 points");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -261,7 +252,7 @@ __device__ __forceinline__ void store_labels(unsigned char* row, int j,
 }
 
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThreads : 1)
+__global__ void __launch_bounds__(kThreads)
     winner_kernel(const float* __restrict__ pts,
                   const unsigned char* __restrict__ mask, int k, int cap,
                   float bw2, int* __restrict__ win,
@@ -282,9 +273,6 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-#if WINNER_STOP == 1
-  if (blockIdx.x < 1u << 30) return;
-#endif
   float4* st = s_dyn;
   const int tiles = (k + cap - 1) / cap;
 
@@ -314,9 +302,6 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   unsigned long long best = 0ull;
   for (int ta = 0; ta < tiles; ++ta) {
     ensure(ta);
-#if WINNER_STOP == 2
-    if (n_staged >= 0) return;
-#endif
     const int n_a = n_staged;
     v += n_a;
     const int c0 = n_a * rank / kCluster;
@@ -386,9 +371,6 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
     }
   }
 
-#if WINNER_STOP == 3
-  if (best != 1ull) return;
-#endif
   if (v == 0) {
     // Every CTA counted the same mask: all leave here, none at a barrier.
     for (int j = jt; j < j1; j += step * kThreads) store_labels(row, j, 0u, vec);
@@ -417,12 +399,6 @@ __global__ void __launch_bounds__(kThreads, WINNER_REG_CAP ? kResident / kThread
   // Done with the other CTAs' keys; the wait below keeps this CTA's keys
   // alive until every CTA has read them.
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-#if WINNER_STOP == 4
-  if (key != 1ull) {
-    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-    if (first.m != 7u) return;
-  }
-#endif
   const int count = static_cast<int>(key >> 32);
   // Every count 0 (a bandwidth of 0): the first argmax is seed 0.
   const int w = count == 0
@@ -472,8 +448,8 @@ cudaLaunchConfig_t launch_config(int h, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-// Allows an instance its largest stage and checks that a cluster of
-// kCluster CTAs with it can be scheduled on the current device.
+// Allows an instance its largest stage and counts the clusters of kCluster
+// CTAs with it that are resident on the current device at once.
 template <int kThreads>
 cudaError_t check_instance(int* clusters) {
   auto kernel = winner_kernel<kThreads>;
@@ -490,32 +466,24 @@ cudaError_t check_instance(int* clusters) {
   return e;
 }
 
+// Once per device (a function attribute holds per device): both
+// instances' shared memory and cluster checks, and how many clusters of
+// each are resident on the card at once.
 struct DeviceSetup {
   int status;
-  long long threads;  // threads the card holds at once, kResident an SM
+  int clusters[2];  // CTAs of 128, 256 threads
 };
 
-// Once per device (a function attribute holds per device): every
-// instance's shared memory and cluster check, and the card's size.
 const DeviceSetup& prepare(int device) {
   static std::once_flag once[kMaxDevices];
   static DeviceSetup setup[kMaxDevices];
   std::call_once(once[device], [device] {
-    int sms = 0;
-    cudaError_t e =
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    int fits = 1;
-    for (int t = 0; t < 3 && e == cudaSuccess; ++t) {
-      int clusters = 0;
-      e = t == 0   ? check_instance<128>(&clusters)
-          : t == 1 ? check_instance<256>(&clusters)
-                   : check_instance<512>(&clusters);
-      fits = fits && clusters > 0;
-    }
-    setup[device].status = e != cudaSuccess ? static_cast<int>(e)
-                           : !fits          ? kErrNoCluster
-                                            : 0;
-    setup[device].threads = static_cast<long long>(sms) * kResident;
+    DeviceSetup& d = setup[device];
+    cudaError_t e = check_instance<128>(&d.clusters[0]);
+    if (e == cudaSuccess) e = check_instance<256>(&d.clusters[1]);
+    d.status = e != cudaSuccess                           ? static_cast<int>(e)
+               : d.clusters[0] == 0 || d.clusters[1] == 0 ? kErrNoCluster
+                                                          : 0;
   });
   return setup[device];
 }
@@ -535,21 +503,16 @@ int launch(const float* pts, const unsigned char* mask, int h, int k,
 }
 
 // The threads per CTA of a launch for h hypotheses on the current device
-// (into *threads): the most (128, 256 or 512) for which the h clusters fit
-// on the card at once, 512 for the pose stage's 21 hypotheses and 128 for
-// its 168.  Returns the device setup's status.
+// (into *threads): 256 when all h clusters of such CTAs are resident at
+// once (the pose stage's 21 hypotheses), else 128 (its 168), whose smaller
+// CTAs hold more clusters at once.  Returns the device setup's status.
 int cta_threads(int h, int* threads) {
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   const DeviceSetup& setup = prepare(device);
-  int t = WINNER_T_MAX;
-  while (t > WINNER_T_MIN &&
-         static_cast<long long>(h) * kCluster * t > setup.threads) {
-    t >>= 1;
-  }
-  *threads = t;
+  *threads = h <= setup.clusters[1] ? 256 : 128;
   return setup.status;
 }
 
@@ -561,24 +524,19 @@ extern "C" int winner_launch(const float* pts, const unsigned char* mask,
                              int h, int k, float bw2, int* win,
                              unsigned char* labels, int* counts,
                              cudaStream_t stream) {
-  int t = 0;
-  const int ready = cta_threads(h, &t);
+  int threads = 0;
+  const int ready = cta_threads(h, &threads);
   if (ready != 0) return ready;
-  switch (t) {
-    case 128:
-      return launch<128>(pts, mask, h, k, bw2, win, labels, counts, stream);
-    case 256:
-      return launch<256>(pts, mask, h, k, bw2, win, labels, counts, stream);
-    default:
-      return launch<512>(pts, mask, h, k, bw2, win, labels, counts, stream);
-  }
+  return threads == 256
+             ? launch<256>(pts, mask, h, k, bw2, win, labels, counts, stream)
+             : launch<128>(pts, mask, h, k, bw2, win, labels, counts, stream);
 }
 
 // The threads per CTA winner_launch takes for h hypotheses; 0 when the
 // device's setup failed (winner_launch then returns the error).
 extern "C" int winner_cta_threads(int h) {
-  int t = 0;
-  return cta_threads(h, &t) == 0 ? t : 0;
+  int threads = 0;
+  return cta_threads(h, &threads) == 0 ? threads : 0;
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -67,8 +67,8 @@ def winner_stats_plain(points: torch.Tensor, mask: torch.Tensor,
 
 def cta_threads(h: int) -> int:
     """Threads per CTA of a launch for ``h`` hypotheses on the current CUDA
-    device, as the kernel picks them: the most of 512, 256, 128 for which
-    the ``h`` clusters fit on the card at once."""
+    device, as the kernel picks them: 256 when all ``h`` clusters of such
+    CTAs are resident on the card at once, else 128."""
     KERNEL.load()
     fn = KERNEL._lib.winner_cta_threads
     fn.argtypes = [ctypes.c_int]

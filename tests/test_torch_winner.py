@@ -7,8 +7,8 @@ These tests hold the algorithm, not the CUDA: the kernel in
 ``chip_smoke.py`` holds it against its plain version bit for bit on these
 cases and at the serving shapes.
 
-The model, per hypothesis (a cluster of 8 CTAs of T threads, T the most of
-256 and 128 for which the H clusters fit on an H100 at once):
+The model, per hypothesis (a cluster of 8 CTAs of T threads: 256 when all H
+clusters of such CTAs are resident on the card at once, else 128):
   - the row is cut into tiles of 2048 indices; each tile's valid points are
     compacted in index order by rounds of 2 x 32-point runs per warp, each
     valid lane placed after the warps before it (ballot + popc);
@@ -38,17 +38,15 @@ from pvn3d_tpu_torch.ops.kernels import winner  # noqa: E402
 _CLUSTER = 8
 _SEEDS = 2
 _STAGE = 2048
-_SMS = 132           # an H100's SMs
-_RESIDENT = 1536     # threads of every CTA size an SM holds at once
+# Clusters of 256-thread CTAs resident on the card at once: the kernel asks
+# the card (cudaOccupancyMaxActiveClusters); a stand-in here, between the
+# pose stage's 21 and 168 hypotheses (the results do not depend on it).
+_RESIDENT_CLUSTERS = 32
 
 
 def threads_per_cta(h):
-    """The launch's choice: the most threads (256, 128) for which the h
-    clusters fit on the card at once."""
-    t = 256
-    while t > 128 and h * _CLUSTER * t > _SMS * _RESIDENT:
-        t //= 2
-    return t
+    """The launch's choice of threads per CTA for h hypotheses."""
+    return 256 if h <= _RESIDENT_CLUSTERS else 128
 
 
 def _sqdist(a, b):
@@ -240,12 +238,20 @@ def test_staging_compacts_in_index_order(k):
         np.testing.assert_array_equal(got, np.flatnonzero(mask))
 
 
-def test_cta_size_fills_the_card():
-    """The pose stage's passes: 21 hypotheses take CTAs of 256 threads
-    (168 CTAs), 168 take CTAs of 128 (1344 CTAs, all resident at once)."""
-    assert threads_per_cta(21) == 256 and threads_per_cta(168) == 128
-    assert threads_per_cta(1) == 256 and threads_per_cta(10 ** 4) == 128
-    assert 168 * _CLUSTER * 128 <= _SMS * _RESIDENT
+@pytest.mark.parametrize("threads", [128, 256])
+def test_lanes_split_every_share(threads):
+    """For every share size a CTA can get, the seed blocks of a pass and
+    their lanes fit the CTA, lanes are a power of two within a warp, and
+    the passes cover every block."""
+    for seeds in range(1, 2 * 2048 // _CLUSTER + 2):
+        blocks = -(-seeds // _SEEDS)
+        lanes = 1
+        while lanes < 32 and 2 * lanes * blocks <= threads:
+            lanes *= 2
+        groups = threads // lanes
+        assert lanes & (lanes - 1) == 0 and 32 % lanes == 0
+        assert min(blocks, groups) * lanes <= threads
+        assert len(range(0, blocks, groups)) * groups >= blocks
 
 
 @pytest.mark.parametrize("k", [1, 7, 12, 100, 512, 1500, 2500])
