@@ -289,60 +289,23 @@ def _backward_levels(rng, levels4, known_c, cloud):
     return per_level, err
 
 
-_PASSES = ("centers", "centers (refined)", "keypoints")
-
-
-def _pose_stage_winner_inputs(seed: int = 1):
-    """The three winner inputs of the full-width pose stage on the card on
-    labelled votes (the classes of a ``synthetic_batch`` frame present),
-    captured by wrapping ``winner_stats`` where ``mean_shift_fit`` calls
-    it, in this script only.  Returns [(points, mask)] for the passes."""
-    from pvn3d_tpu_torch.config import Config
-    from pvn3d_tpu_torch.inference import meanshift
-    from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
-    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
-                                              stacked_mesh_kps)
-    cfg = Config.ycb()
-    fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii())
-    seen = []
-    real = meanshift.winner_stats
-
-    def recording(points, mask, bandwidth):
-        seen.append((points.clone(), mask.clone()))
-        return real(points, mask, bandwidth)
-    meanshift.winner_stats = recording
-    try:
-        with torch.inference_mode():
-            fn(*(v.cuda() for v in labelled_votes(cfg, seed)))
-    finally:
-        meanshift.winner_stats = real
-    if len(seen) != len(_PASSES):
-        raise AssertionError(f"K4: the pose stage ran {len(seen)} passes")
-    return seen
-
-
-def _winner_passes(rng):
-    """K4's three passes on synthetic votes and on the pose stage's own
-    inputs: each held bit for bit against its plain version, twice, and
-    timed by events and on the device beside the plain version and a
-    library composition (cdist + lt + masks + sum + argmax + gather, timed
-    only: its distances are not the direct form).  Returns (per-pass
-    records, max error)."""
+def _winner_passes():
+    """K4's three passes on synthetic votes (every hypothesis 70% valid)
+    and on the pose stage's own inputs on labelled votes, as
+    ``tools/k4_passes.py`` makes them: each held bit for bit against its
+    plain version, twice, and timed by events and on the device beside the
+    plain version and a library composition (cdist + lt + masks + sum +
+    argmax + gather, timed only: its distances are not the direct form).
+    Returns (per-pass records, max error)."""
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.ops.kernels import winner
+    from pvn3d_tpu_torch.tools.k4_passes import (pose_stage_passes,
+                                                 synthetic_passes)
     dev = torch.device("cuda")
     cl = Config.ycb().cluster
     k, bw = cl.max_points_per_class, cl.bandwidth
-    inputs = []
-    for name, h in zip(_PASSES, (21, 21, 168)):
-        modes = rng.randn(h, 3, 3).astype(np.float32) * 0.1
-        pick = rng.randint(0, 3, (h, k))
-        votes = (modes[np.arange(h)[:, None], pick]
-                 + rng.randn(h, k, 3).astype(np.float32) * 0.03)
-        inputs.append(("synthetic", name, torch.tensor(votes, device=dev),
-                       torch.tensor(rng.rand(h, k) < 0.7, device=dev)))
-    for name, (p, m) in zip(_PASSES, _pose_stage_winner_inputs()):
-        inputs.append(("pose", name, p, m))
+    inputs = ([("synthetic",) + p for p in synthetic_passes(dev)]
+              + [("pose",) + p for p in pose_stage_passes(dev)])
     per_pass = []
     err = 0.0
     for kind, name, pts, msk in inputs:
@@ -600,7 +563,7 @@ def phase_kernels(rng):
     # inputs: synthetic votes (every hypothesis 70% valid: the most work a
     # pass can get) and the pose stage's own inputs on labelled votes (only
     # the classes present have valid points).
-    per_pass, err = _winner_passes(rng)
+    per_pass, err = _winner_passes()
     synthetic = [p for p in per_pass if p["input"] == "synthetic"]
     rec["winner"] = dict(
         shapes=["H=21,21,168 K=512 bw=0.08"], max_abs_err=err,
@@ -704,7 +667,6 @@ def phase_edge_cases(rng) -> None:
                             query.ball_query_plain(radii, ns, xyz, cen)):
             raise AssertionError(f"edge query {name}")
     cases += len(query_cases)
-
     def misaligned(*shape):
         """A contiguous float32 tensor whose data starts 4 bytes past a
         16-byte boundary (the kernels' scalar instances)."""
@@ -979,26 +941,6 @@ def phase_slice(seed: int = 0):
     return launches, lat
 
 
-def labelled_votes(cfg, seed: int):
-    """Votes a trained network would give on a ``synthetic_batch`` frame:
-    its labels as the seg map and its target offsets (plus 5 mm noise) as
-    the predicted offsets, so several classes are present with clustered
-    votes.  Returns (pcld (1, N, 3), seg (1, N), ctr_of (1, 1, N, 3),
-    kp_of (1, n_kps, N, 3)) as CPU tensors."""
-    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
-    batch = synthetic_batch(cfg, batch_size=1, seed=seed)
-    rng = np.random.RandomState(seed)
-    pcld = batch["pointcloud"][..., :3]
-    # pred = pcld - offset must land on the target: offset = -target.
-    ctr_of = -np.transpose(batch["ctr_targ_ofst"], (0, 2, 1, 3))
-    kp_of = -np.transpose(batch["kp_targ_ofst"], (0, 2, 1, 3))
-    ctr_of = ctr_of + rng.normal(0, 0.005, ctr_of.shape)
-    kp_of = kp_of + rng.normal(0, 0.005, kp_of.shape)
-    return (torch.tensor(pcld), torch.tensor(batch["labels"]),
-            torch.tensor(ctr_of, dtype=torch.float32),
-            torch.tensor(kp_of, dtype=torch.float32))
-
-
 def phase_train(smi: str, seed: int = 0):
     """The training path on the card.  Returns the launch counts of its
     three counted steps."""
@@ -1221,6 +1163,7 @@ def phase_reference(seed: int = 1):
     from pvn3d_tpu_torch.config import Config, small_model_config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+    from pvn3d_tpu_torch.tools.k4_passes import labelled_votes
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model

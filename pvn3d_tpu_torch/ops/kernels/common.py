@@ -90,6 +90,12 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def symbol(self, name: str):
+        """Another C function of this kernel's library, built and loaded
+        first; the caller sets its argtypes and restype."""
+        self.load()
+        return getattr(self._lib, name)
+
     def launch(self, device: torch.device, *args) -> None:
         """Launch on the current stream of ``device``; raise on any error
         the launch reports."""

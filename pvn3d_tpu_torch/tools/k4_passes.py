@@ -30,10 +30,13 @@ import os
 import statistics
 import sys
 
+import numpy as np
+import torch
+
 PASSES = ("centers", "centers (refined)", "keypoints")
 
 
-def synthetic_passes(np, torch, dev, seed: int = 0):
+def synthetic_passes(dev, seed: int = 0):
     """[(pass, points (H, 512, 3), mask (H, 512))] for H = 21, 21, 168:
     clustered votes, 70% valid."""
     rng = np.random.RandomState(seed)
@@ -48,7 +51,7 @@ def synthetic_passes(np, torch, dev, seed: int = 0):
     return out
 
 
-def labelled_votes(np, torch, cfg, seed: int):
+def labelled_votes(cfg, seed: int):
     """Votes a trained network would give on a ``synthetic_batch`` frame:
     (pcld (1, N, 3), seg (1, N), ctr_of (1, 1, N, 3), kp_of (1, n_kps, N,
     3)) as CPU tensors."""
@@ -65,7 +68,7 @@ def labelled_votes(np, torch, cfg, seed: int):
             torch.tensor(kp_of, dtype=torch.float32))
 
 
-def pose_stage_passes(np, torch, dev, seed: int = 1):
+def pose_stage_passes(dev, seed: int = 1):
     """[(pass, points, mask)]: the three winner inputs of the pose stage
     on labelled votes, captured by wrapping ``winner_stats`` where
     ``mean_shift_fit`` calls it."""
@@ -86,7 +89,7 @@ def pose_stage_passes(np, torch, dev, seed: int = 1):
     meanshift.winner_stats = recording
     try:
         with torch.inference_mode():
-            fn(*(v.to(dev) for v in labelled_votes(np, torch, cfg, seed)))
+            fn(*(v.to(dev) for v in labelled_votes(cfg, seed)))
     finally:
         meanshift.winner_stats = real
     if len(seen) != len(PASSES):
@@ -94,7 +97,7 @@ def pose_stage_passes(np, torch, dev, seed: int = 1):
     return [(name, p, m) for name, (p, m) in zip(PASSES, seen)]
 
 
-def event_ms(torch, fn, reps: int = 20) -> float:
+def event_ms(fn, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     out = []
@@ -110,7 +113,7 @@ def event_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(out)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10) -> float:
     from torch.autograd import DeviceType
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -130,9 +133,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-
-    import numpy as np
-    import torch
     if not torch.cuda.is_available():
         print("k4_passes: no CUDA device", flush=True)
         return 1
@@ -141,8 +141,8 @@ def main(argv=None) -> int:
         raise RuntimeError(f"imported {winner.__file__}, not from {root}")
     dev = torch.device("cuda")
     bw = 0.08
-    inputs = [("synthetic", synthetic_passes(np, torch, dev)),
-              ("pose", pose_stage_passes(np, torch, dev))]
+    inputs = [("synthetic", synthetic_passes(dev)),
+              ("pose", pose_stage_passes(dev))]
     for kind, passes in inputs:
         for name, pts, msk in passes:
             got = winner.winner_stats(pts, msk, bw)
@@ -157,8 +157,8 @@ def main(argv=None) -> int:
                 "label": args.label, "input": kind, "pass": name,
                 "H": pts.shape[0], "K": pts.shape[1], "valid": int(v.sum()),
                 "hypotheses_with_points": int((v > 0).sum()),
-                "most_valid": int(v.max()), "ms": event_ms(torch, fn),
-                "device_ms": device_ms(torch, fn)}), flush=True)
+                "most_valid": int(v.max()), "ms": event_ms(fn),
+                "device_ms": device_ms(fn)}), flush=True)
     return 0
 
 
