@@ -90,7 +90,7 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def symbol(self, name: str):
+    def library_function(self, name: str):
         """Another C function of this kernel's library, built and loaded
         first; the caller sets its argtypes and restype."""
         self.load()

@@ -69,7 +69,7 @@ def cta_threads(h: int) -> int:
     """Threads per CTA of a launch for ``h`` hypotheses on the current CUDA
     device, as the kernel picks them: 256 when all ``h`` clusters of such
     CTAs are resident on the card at once, else 128."""
-    fn = KERNEL.symbol("winner_cta_threads")
+    fn = KERNEL.library_function("winner_cta_threads")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     threads = fn(h)

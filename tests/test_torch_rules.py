@@ -197,6 +197,26 @@ def test_build_failure_raises(monkeypatch, tmp_path):
         common.build_all([kernel])
 
 
+def test_library_function_loads_the_kernel_library(monkeypatch):
+    """``CudaKernel.library_function`` builds and loads the library first
+    and returns the named C function from it (K4's CTA-size query), and
+    the entry point's name stays a plain attribute beside it."""
+    kernel = common.CudaKernel("winner", "winner.cu", "winner_launch", [])
+
+    class Lib:
+        winner_cta_threads = object()
+    loaded = []
+
+    def load():
+        loaded.append(True)
+        kernel._lib = Lib()
+    monkeypatch.setattr(kernel, "load", load)
+    fn = kernel.library_function("winner_cta_threads")
+    assert loaded == [True] and fn is Lib.winner_cta_threads
+    assert kernel.symbol == "winner_launch"
+    assert winner.KERNEL.symbol == "winner_launch"
+
+
 def test_every_kernel_has_its_source_and_counter():
     assert len(KERNELS) == 5 and len(set(_KERNEL_NAMES)) == 5
     for k in KERNELS:
