@@ -42,11 +42,25 @@ that fails):
                with every launch count set to 0 just before and read just
                after; poses finite, some class present, every kernel
                launched.
-6. reference — the same code on the card (kernels) and on the CPU
+6. raw       — raw RGB-D frames at full width (``synth_sensor_frame``,
+               480x640) through ``make_raw_inference_step``: three
+               requests with every launch count set to 0 just before and
+               read just after (fps 1, query 4, interp 4, winner 3 a
+               request, no backward); poses finite, some class present.
+               The frame build's stages by CUDA events (fill, normals +
+               cloud, sample + gather) and its launches and device time
+               in a profiler trace; the card's frame build against the
+               CPU's on the same frame and priorities (choose identical,
+               xyz and filled depth within 1e-5, rgb exact, normals within
+               1e-4 but for camera-facing flips by rounding); the metrics
+               branch (ADD / ADD-S) on the card against the CPU within
+               1e-5 m; then ``apps.serve.main`` in this process (20
+               frames after 3 of warm-up), its JSON line logged.
+7. reference — the same code on the card (kernels) and on the CPU
                (plain versions): a small frame's forward within 2e-3, and
                the full-width pose stage on labelled votes (several
                classes present) within 1e-4.
-7. train     — the training path at full width (``Config.ycb()``, bf16,
+8. train     — the training path at full width (``Config.ycb()``, bf16,
                batch 4, ``grad_accum`` 1): ``create_train_state`` ->
                ``make_train_step`` -> ``Trainer.fit``, one warm-up step,
                then three steps with every launch count set to 0 just
@@ -65,10 +79,10 @@ that fails):
                ``tests/test_torch_train.py``); and the same backward with
                BN on its running statistics, every leaf within
                2e-3 * max|g|.
-8. a JSON line per kernel (launches on the serving slice and the training
-   steps, error, times, bound; K3 forward and backward also per level,
-   the backward on both clouds; K4 also per pass on both inputs), the
-   ``nvidia-smi`` line again, then the result line.
+9. a JSON line per kernel (launches on the serving slice, the raw
+   requests and the training steps, error, times, bound; K3 forward and
+   backward also per level, the backward on both clouds; K4 also per pass
+   on both inputs), the ``nvidia-smi`` line again, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
@@ -941,6 +955,208 @@ def phase_slice(seed: int = 0):
     return launches, lat
 
 
+def _frame_build_close(got, want, k):
+    """The card's frame build against the CPU's on the same frame and
+    priorities (the tolerances of tests/test_torch_raw.py): choose
+    identical, xyz and the filled depth within 1e-5, rgb exact, and the
+    normals within 1e-4 of the CPU's normals of the card's filled depth
+    but for camera-facing flips decided by rounding (|n.p| < 1e-6, at most
+    0.1% of the points).  Returns the worst errors."""
+    from pvn3d_tpu_torch.ops.preprocess import normals_from_depth_map
+    g = {key: v.cpu() for key, v in got.items()}
+    if not torch.equal(g["choose"], want["choose"]):
+        raise AssertionError("raw: card and CPU chose other pixels")
+    pc, wpc = g["pointcloud"], want["pointcloud"]
+    xyz_err = _err(pc[..., :3], wpc[..., :3])
+    depth_err = _err(g["depth_m"], want["depth_m"])
+    nrm = normals_from_depth_map(g["depth_m"], k.cpu())
+    idx = g["choose"].long()[..., None].expand(-1, -1, 3)
+    nrm = torch.gather(nrm.reshape(nrm.shape[0], -1, 3), 1, idx)
+    off = (pc[..., 6:] - nrm).abs().amax(-1) > 1e-4
+    ndotp = (nrm * pc[..., :3]).sum(-1).abs()
+    flips = int(off.sum())
+    if (xyz_err > 1e-5 or depth_err > 1e-5
+            or not torch.equal(pc[..., 3:6], wpc[..., 3:6])
+            or bool((ndotp[off] >= 1e-6).any())
+            or flips > 1e-3 * off.numel()):
+        raise AssertionError(f"raw: frame build card vs CPU: xyz {xyz_err}, "
+                             f"depth {depth_err}, normal flips {flips}")
+    return xyz_err, depth_err, flips, _err(pc[..., 6:], nrm)
+
+
+def phase_raw(smi: str, seed: int = 0):
+    """Raw RGB-D frames through ``make_raw_inference_step`` on the card at
+    full width: three requests with every launch count set to 0 just
+    before and read just after (fps 1, query 4, interp 4, winner 3 a
+    request, no backward); the frame build's stages by CUDA events and its
+    launches and device time from a profiler trace; the frame build held
+    against the CPU's on the same full-size frame and priorities; the
+    metrics branch on the card against the CPU; then the serving app in
+    this process.  Returns the launch counts of the three requests."""
+    import contextlib
+    import io
+
+    from pvn3d_tpu_torch.apps import serve
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.device_frame import (
+        build_inference_batch_device, draw_priorities, gather_points,
+        select_pixels)
+    from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
+    from pvn3d_tpu_torch.geometry.cloud import depth_to_cloud_map
+    from pvn3d_tpu_torch.inference.evaluator import eval_frame_metrics
+    from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    from pvn3d_tpu_torch.ops.preprocess import (fill_missing,
+                                                normals_from_depth_map)
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    mc = cfg.model
+    h, w, n = mc.image_height, mc.image_width, mc.n_sample_points
+    rng = np.random.RandomState(seed)
+    n_cls, n_mesh = mc.n_classes, 2000
+    mesh_pts = rng.uniform(-0.06, 0.06, (n_cls, n_mesh, 3)).astype(
+        np.float32)
+    mesh_valid = np.ones((n_cls, n_mesh), bool)
+    mesh_valid[:, 1500:] = rng.rand(n_cls, n_mesh - 1500) < 0.5
+    step = make_raw_inference_step(cfg, build_model(mc, seed),
+                                   stacked_mesh_kps(), stacked_class_radii(),
+                                   mesh_pts, mesh_valid)
+
+    def request(i):
+        rgb, depth, k = synth_sensor_frame(h, w, seed=i)
+        return {"rgb": rgb, "depth": depth, "cam_k": k}
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(i)
+    step(request(1000), gen(1000))                           # warm-up
+    torch.cuda.synchronize()
+    for kern in KERNELS:
+        kern.launches = 0
+    lat, outs = [], []
+    for i in range(3):
+        batch = request(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch, gen(i))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    want = {"fps": 3, "query": 12, "interp": 12, "interp_bwd": 0,
+            "winner": 9}
+    if launches != want:
+        raise AssertionError(f"raw: launches {launches} over 3 requests, "
+                             f"expected {want}")
+    for i, out in enumerate(outs):
+        if (out["poses"].shape != (1, n_cls, 3, 4)
+                or out["pointcloud"].shape != (1, n, 9)
+                or out["choose"].shape != (1, n)):
+            raise AssertionError(f"raw request {i}: shapes")
+        if not bool(torch.isfinite(out["poses"]).all()):
+            raise AssertionError(f"raw request {i}: non-finite poses")
+        if not bool(out["present"].any()):
+            raise AssertionError(f"raw request {i}: no class present")
+    log("raw", f"3 raw requests, {h}x{w} RGB-D -> {n} points, {n_cls} "
+        f"classes: latency ms " + ", ".join(f"{t:.2f}" for t in lat)
+        + "; present classes "
+        + ", ".join(str(int(o["present"].sum())) for o in outs)
+        + f"; launches {launches} [{smi}]")
+
+    # The frame build's stages on one full-size frame (CUDA events,
+    # median of 3), its launches and device time in a profiler trace.
+    batch = request(0)
+    rgb = torch.as_tensor(batch["rgb"], device=dev)
+    depth = torch.as_tensor(batch["depth"], device=dev)
+    k = torch.as_tensor(batch["cam_k"], device=dev)
+    pri = draw_priorities((1, h * w), dev, gen(7))
+    depth_m = fill_missing(depth)
+    cloud_map, valid = depth_to_cloud_map(depth_m, k)
+    nrm = normals_from_depth_map(depth_m, k)
+
+    def sample():
+        p = draw_priorities((1, h * w), dev, gen(7))
+        choose = select_pixels(valid.reshape(1, -1), p, n)
+        return gather_points(choose, cloud_map, rgb, nrm)
+
+    def build():
+        return build_inference_batch_device(rgb, depth, k, n, generator=gen(7))
+    stage = {"fill": time_ms(lambda: fill_missing(depth)),
+             "normals + cloud": time_ms(lambda: (
+                 depth_to_cloud_map(depth_m, k),
+                 normals_from_depth_map(depth_m, k))),
+             "sample + gather": time_ms(sample),
+             "whole build": time_ms(build)}
+    from torch.autograd import DeviceType
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        build()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    build_launches = sum(e.count for e in ev)
+    build_dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    log("raw", f"frame build, one {h}x{w} frame, CUDA events ms (median of "
+        "3): " + ", ".join(f"{key} {v:.3f}" for key, v in stage.items())
+        + f"; device {build_dev_ms:.3f} ms in {build_launches} kernel and "
+        f"copy launches (profiler) [{smi}]")
+    # One whole raw request in a trace: wall clock, device busy, launches.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(request(4), gen(4))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log("raw", f"one raw request in a trace: wall {wall:.2f} ms, device busy "
+        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms in "
+        f"{sum(e.count for e in ev)} kernel and copy launches")
+
+    # The card's frame build against the CPU plain path: same frame, same
+    # priorities.
+    got = build_inference_batch_device(rgb, depth, k, n, priorities=pri)
+    cpu = build_inference_batch_device(
+        torch.as_tensor(batch["rgb"]), torch.as_tensor(batch["depth"]),
+        torch.as_tensor(batch["cam_k"]), n, priorities=pri.cpu())
+    xyz_err, depth_err, flips, nrm_err = _frame_build_close(got, cpu, k)
+    log("raw", f"frame build card vs CPU, same frame and priorities: choose "
+        f"identical, xyz max err {xyz_err:.2e}, filled depth {depth_err:.2e},"
+        f" normals {nrm_err:.2e} against the CPU's of the card's depth "
+        f"({flips} flips by rounding)")
+
+    # The metrics branch: a request with GT slots scored on the card, and
+    # the same poses scored on the CPU.
+    batch = request(3)
+    gt = np.tile(np.eye(3, 4, dtype=np.float32), (1, 4, 1, 1))
+    gt[..., 3] = rng.uniform(-0.2, 0.2, (1, 4, 3))
+    gt[..., 2, 3] += 1.0
+    batch.update(cls_ids=np.array([[1, 6, 13, 0]], np.int32), rts=gt)
+    out = step(batch, gen(3))
+    add, adds = eval_frame_metrics(
+        out["poses"].cpu(), torch.as_tensor(batch["cls_ids"]),
+        torch.as_tensor(gt), torch.as_tensor(mesh_pts),
+        torch.as_tensor(mesh_valid))
+    m_err = max(_err(out["add"].cpu(), add), _err(out["adds"].cpu(), adds))
+    if m_err > 1e-5 or not bool(torch.isfinite(out["adds"]).all()):
+        raise AssertionError(f"raw: metrics card vs CPU {m_err}")
+    log("raw", f"metrics branch (22 meshes of {n_mesh} points, 4 GT slots):"
+        f" add {out['add'].cpu().numpy().round(4).tolist()}, adds "
+        f"{out['adds'].cpu().numpy().round(4).tolist()} m; card vs CPU max "
+        f"err {m_err:.2e}")
+
+    # The serving app, in this process, at full width on the card.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = serve.main(["--frames", "20", "--warmup", "3"])
+    lat = rec["latency_ms"]
+    if not (rec["value"] > 0 and 0 < lat["p50"] <= lat["p99"]):
+        raise AssertionError(f"raw: serve {rec}")
+    log("raw", f"serve: {json.dumps(rec)} [{smi}]")
+    return launches
+
+
 def phase_train(smi: str, seed: int = 0):
     """The training path on the card.  Returns the launch counts of its
     three counted steps."""
@@ -1216,6 +1432,7 @@ def main() -> int:
     rec = phase_kernels(rng)
     phase_edge_cases(rng)
     launches, _ = phase_slice()
+    raw_launches = phase_raw(smi)
     phase_reference()
     train_launches = phase_train(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
@@ -1223,16 +1440,20 @@ def main() -> int:
     for k in KERNELS:
         r = rec[k.name]
         bound, by = r["bound"]
-        # Launches: over the serving slice's three requests plus the
-        # training path's three steps, each counted from 0.
-        if launches[k.name] + train_launches[k.name] < 1:
+        # Launches: over the serving slice's three requests, the raw
+        # path's three requests and the training path's three steps, each
+        # counted from 0.
+        total = (launches[k.name] + raw_launches[k.name]
+                 + train_launches[k.name])
+        if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"pvn3d_tpu_torch/csrc/{k.name}.cu",
             "replaces": r["replaces"],
-            "launches": launches[k.name] + train_launches[k.name],
+            "launches": total,
             "launches_serving": launches[k.name],
+            "launches_raw": raw_launches[k.name],
             "launches_training": train_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,

@@ -1,15 +1,16 @@
 """Configuration tree of the PyTorch port: a copy of the JAX package's.
 
 The dataclasses, defaults and ``Config.ycb()`` are field-for-field the JAX
-package's (``tests/test_torch_config.py`` holds ``dataclasses.asdict`` of
-both equal), so one config describes both.  Knobs that only shape the TPU
-program (``fps_mode``, ``query_capacity``, ``resize_method``,
-``fuse_upsample``, ``sparse_cnn_eval``, ``head_split_global``, the
-``*_precompute_first`` restructures) are kept as fields; the port runs
-the dense reference graph with exact point ops, which those restructures
-equal up to summation order.  The values the port cannot honour
-(``fps_groups != 1``, ``query_compute != "f32"``, approximate neighbour
-modes) raise in ``models.pvn3d.check_supported``.
+package's (``tests/test_torch_weights.py::test_config_copy_matches`` holds
+``dataclasses.asdict`` of both equal), so one config describes both.
+Knobs that only shape the TPU program (``fps_mode``, ``query_capacity``,
+``resize_method``, ``fuse_upsample``, ``sparse_cnn_eval``,
+``head_split_global``, the ``*_precompute_first`` restructures) are kept
+as fields; the port runs the dense reference graph with exact point ops,
+which those restructures equal up to summation order.  The values the port cannot honour
+(``fps_groups != 1``, ``query_compute != "f32"``, ``query_mode`` "approx"
+or "pallas", ``interp_mode`` "approx") raise in
+``models.pvn3d.check_supported``.
 """
 from __future__ import annotations
 

@@ -67,3 +67,23 @@ def synthetic_batch(cfg: Config, batch_size: int = 2, n_points: int = 0,
         "labels": labels, "kp_targ_ofst": kp_t, "ctr_targ_ofst": ctr_t,
         "cls_ids": cls_ids, "rts": rts,
     }
+
+
+def synth_sensor_frame(h: int = 480, w: int = 640, seed: int = 0):
+    """A raw RGB-D sensor frame (a copy of the JAX package's
+    ``benchmarks/raw_pipeline_bench.py::synth_sensor_frame``): a slanted
+    plane and a box, 2 mm depth noise, 5% dropout holes, random colours.
+    Returns rgb (1, H, W, 3) 0-255, depth (1, H, W) in metres and the YCB
+    intrinsics (1, 3, 3), all float32 numpy."""
+    rng = np.random.RandomState(seed)
+    d = np.full((h, w), 1.2, np.float32)
+    d += np.linspace(0, 0.3, w)[None, :]
+    d[160:320, 200:440] = 0.8
+    d += 0.002 * rng.randn(h, w).astype(np.float32)
+    holes = rng.rand(h, w) < 0.05
+    d[holes] = 0.0
+    rgb = (rng.rand(h, w, 3) * 255).astype(np.float32)
+    k = np.array([[1066.778, 0, 312.986],
+                  [0, 1067.487, 241.310],
+                  [0, 0, 1]], np.float32)
+    return rgb[None], d[None], k[None]

@@ -41,3 +41,15 @@ def identity_pose(batch_shape=(), device=None) -> torch.Tensor:
     eye = torch.cat([torch.eye(3, device=device),
                      torch.zeros(3, 1, device=device)], dim=1)
     return eye.expand(tuple(batch_shape) + (3, 4))
+
+
+def transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 3, 4) poses to (..., N, 3) points."""
+    r = pose[..., :3, :3]
+    t = pose[..., :3, 3]
+    return torch.matmul(pts, r.transpose(-1, -2)) + t[..., None, :]
+
+
+def compose_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Stack rotation (..., 3, 3) and translation (..., 3) into (..., 3, 4)."""
+    return torch.cat([r, t[..., :, None]], dim=-1)

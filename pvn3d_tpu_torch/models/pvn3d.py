@@ -28,9 +28,18 @@ from pvn3d_tpu_torch.models.pspnet import PSPNetEmbedding
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# Neighbour modes whose JAX arms are not the exact ones the port runs: the
+# approximate top-k ball query, the capacity-limited Pallas ball query
+# (exact only while no residue class holds more than ``query_capacity`` of
+# the first k hits) and the approximate 3-NN.
+_UNPORTED_QUERY_MODES = ("approx", "pallas")
+_UNPORTED_INTERP_MODES = ("approx",)
+
+
 def check_supported(cfg: ModelConfig) -> torch.dtype:
     """The compute dtype of ``cfg``; raise on settings the port does not
-    run (grouped FPS, bf16 distance matrices)."""
+    run (grouped FPS, bf16 distance matrices, neighbour modes other than
+    the exact ones)."""
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
                          f"runs {sorted(_DTYPES)}")
@@ -38,6 +47,14 @@ def check_supported(cfg: ModelConfig) -> torch.dtype:
         raise NotImplementedError("the port runs exact FPS (fps_groups=1)")
     if cfg.pointnet2.query_compute != "f32":
         raise NotImplementedError("the port computes every d^2 in float32")
+    if cfg.pointnet2.query_mode in _UNPORTED_QUERY_MODES:
+        raise NotImplementedError(
+            f"query_mode {cfg.pointnet2.query_mode!r}: the port runs the "
+            f"exact ball query ('auto' or 'exact')")
+    if cfg.pointnet2.interp_mode in _UNPORTED_INTERP_MODES:
+        raise NotImplementedError(
+            f"interp_mode {cfg.pointnet2.interp_mode!r}: the port runs the "
+            f"exact 3-NN ('auto', 'exact' or 'pallas')")
     return _DTYPES[cfg.compute_dtype]
 
 

@@ -1,13 +1,15 @@
-"""YCB keypoint assets of the port: per-class mesh keypoints and radii.
+"""Assets of the port: YCB mesh keypoints and radii, LineMOD diameters.
 
 A copy of the part of the JAX package's ``utils/assets.py`` that the
-serving path reads, over the port's own copy of the asset files
-(``pvn3d_tpu_torch/assets/ycb_object_kps/<class>/{farthest,corners}.txt``).
+serving and scoring paths read, over the port's own copy of the asset
+files (``pvn3d_tpu_torch/assets/ycb_object_kps/<class>/{farthest,
+corners}.txt``, ``assets/lm_config/models_info.yml``).
 """
 from __future__ import annotations
 
 import functools
 import os
+import re
 
 import numpy as np
 
@@ -46,3 +48,16 @@ def stacked_class_radii() -> np.ndarray:
     """(22,) per-class cluster radii, row 0 unused (common.py:80)."""
     return np.concatenate(
         [[1.0], np.asarray(C.YCB_RADII, np.float32)]).astype(np.float32)
+
+
+def lm_diameters() -> dict:
+    """LineMOD object diameters in mm by object id, from models_info.yml
+    (the reference reads it with yaml, common.py:131-133; the file is flat
+    enough to read line by line)."""
+    out = {}
+    with open(os.path.join(C.ASSETS_DIR, "lm_config", "models_info.yml")) as f:
+        for line in f:
+            m = re.match(r"^(\d+):.*?diameter:\s*([0-9.eE+-]+)", line)
+            if m:
+                out[int(m.group(1))] = float(m.group(2))
+    return out

@@ -311,3 +311,23 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
     model = PVN3D(cfg)
     model.load_state_dict(seeded_state_dict(model, seed), strict=True)
     return model
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference PyTorch checkpoint's model state dict, on the CPU.
+
+    Unwraps the reference tar layout (``model_state``,
+    train_ycb_pvn3d.py:102-146) or a ``state_dict`` entry and strips the
+    ``module.`` prefix of a DataParallel save.  The port's ``state_dict``
+    keys are the reference's, so the result loads with
+    ``model.load_state_dict(sd, strict=True)``, which checks every key and
+    shape.  The file is unpickled in full (reference checkpoints hold
+    numpy scalars beside the tensors): load only checkpoints you trust.
+    """
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "model_state" in obj:
+        obj = obj["model_state"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k.replace("module.", "", 1) if k.startswith("module.") else k:
+            torch.as_tensor(v) for k, v in obj.items()}

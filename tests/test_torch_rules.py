@@ -14,7 +14,8 @@ torch.set_num_threads(1)
 
 from pvn3d_tpu_torch import config as port_config  # noqa: E402
 from pvn3d_tpu_torch.inference.pipeline import (  # noqa: E402
-    make_inference_step, make_pose_fn)
+    make_inference_step, make_pose_fn, make_raw_inference_step)
+from pvn3d_tpu_torch.models.pvn3d import check_supported  # noqa: E402
 from pvn3d_tpu_torch.ops.kernels import (KERNELS, common, fps,  # noqa: E402
                                          interp, query, winner)
 from pvn3d_tpu_torch.train.state import create_train_state  # noqa: E402
@@ -87,6 +88,41 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
     assert callable(make_train_step(cfg, device="cpu"))
+
+
+def test_raw_entry_point_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_raw_inference_step(port_config.Config.ycb(), torch.nn.Module(),
+                                np.zeros((22, 9, 3)), np.ones(22))
+
+
+def _with_pointnet2(**kw):
+    import dataclasses
+    m = port_config.small_model_config()
+    return dataclasses.replace(m, pointnet2=dataclasses.replace(
+        m.pointnet2, **kw))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("query_mode", "approx"), ("query_mode", "pallas"),
+    ("interp_mode", "approx")])
+def test_check_supported_rejects_inexact_neighbour_modes(field, value):
+    """The JAX package's approximate and capacity-limited neighbour modes
+    are not ported: a config asking for one raises instead of running the
+    exact kernels silently."""
+    with pytest.raises(NotImplementedError, match=field):
+        check_supported(_with_pointnet2(**{field: value}))
+
+
+@pytest.mark.parametrize("query_mode,interp_mode", [
+    ("auto", "auto"), ("exact", "exact"), ("auto", "pallas")])
+def test_check_supported_accepts_exact_neighbour_modes(query_mode,
+                                                       interp_mode):
+    from pvn3d_tpu_torch.models.pvn3d import PVN3D
+    cfg = _with_pointnet2(query_mode=query_mode, interp_mode=interp_mode)
+    assert check_supported(cfg) == torch.float32
+    assert PVN3D(cfg).cfg.pointnet2.query_mode == query_mode
 
 
 def _inputs():
