@@ -95,11 +95,10 @@ def _load_model(args, cfg: Config, dev: torch.device) -> torch.nn.Module:
     if args.checkpoint_dir:
         from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
         from pvn3d_tpu_torch.train.state import create_train_state
-        state = CheckpointManager(args.checkpoint_dir).restore(
-            create_train_state(cfg, 0, dev))
-        if state is None:
+        manager = CheckpointManager(args.checkpoint_dir)
+        if manager.latest_step() is None:
             raise SystemExit(f"no checkpoint under {args.checkpoint_dir}")
-        return state.model
+        return manager.restore(create_train_state(cfg, 0, dev)).model
     model = build_model(cfg.model, 0)
     if args.torch_ckpt:
         model.load_state_dict(load_torch_state_dict(args.torch_ckpt),

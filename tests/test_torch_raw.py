@@ -1,8 +1,8 @@
 """The port's raw-frame serving path against the JAX package's: the
 procedural sensor frame, the frame build on the device (depth fill,
 normals, the priority subsample, feature assembly) with JAX's own
-priorities, ``make_raw_inference_step`` end to end on carried-across
-weights, the reference checkpoint loader, and the serving app on the CPU.
+priorities, and ``make_raw_inference_step`` end to end on carried-across
+weights.
 
 As in ``tests/test_torch_slice.py``, JAX's winner pass is forced to its
 Pallas kernel in interpret mode, so both sides decide MeanShift winners
@@ -10,7 +10,6 @@ with the same arithmetic.
 """
 import ast
 import dataclasses
-import json
 import os
 
 import numpy as np
@@ -29,8 +28,6 @@ from pvn3d_tpu.ops import preprocess as jax_pre
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from pvn3d_tpu_torch.apps import serve  # noqa: E402
-from pvn3d_tpu_torch.config import Config  # noqa: E402
 from pvn3d_tpu_torch.data.device_frame import (  # noqa: E402
     build_inference_batch_device, draw_priorities)
 from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame  # noqa: E402
@@ -39,7 +36,6 @@ from pvn3d_tpu_torch.inference.pipeline import (  # noqa: E402
 from pvn3d_tpu_torch.models.pvn3d import PVN3D  # noqa: E402
 from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,  # noqa: E402
                                           stacked_mesh_kps)
-from pvn3d_tpu_torch.utils.weights import load_torch_state_dict  # noqa: E402
 from tests.test_torch_preprocess import (assert_normals_close,  # noqa: E402
                                          scene_depth)
 from tests.test_torch_slice import jax_pallas_winner  # noqa: E402,F401
@@ -276,95 +272,3 @@ def test_raw_step_matches_jax(jax_pallas_winner):
         assert got[kk].shape == (1, 3)
         np.testing.assert_allclose(got[kk].numpy(), np.asarray(want[kk]),
                                    atol=1e-5)
-
-
-def test_load_torch_state_dict(tmp_path):
-    """A reference checkpoint (tar layout, DataParallel prefixes) loads
-    into the port's model with strict key and shape checks."""
-    cfg = small_model_cfg()
-    _, _, sd = jax_and_port_weights(cfg, seed=22)
-    path = str(tmp_path / "ref.pth.tar")
-    torch.save({"epoch": 3, "model_state": {f"module.{k}": v
-                                            for k, v in sd.items()}}, path)
-    got = load_torch_state_dict(path)
-    assert sorted(got) == sorted(sd)
-    model = PVN3D(to_port(cfg))
-    model.load_state_dict(got, strict=True)
-    state = model.state_dict()
-    for k, v in sd.items():
-        assert torch.equal(state[k], torch.as_tensor(v)), k
-    bad = dict(got)
-    bad.pop(next(iter(bad)))
-    with pytest.raises(RuntimeError, match="Missing key"):
-        model.load_state_dict(bad, strict=True)
-
-
-def small_config():
-    from pvn3d_tpu_torch.config import small_model_config
-    return Config(model=small_model_config())
-
-
-def test_serve_on_the_cpu_writes_records(tmp_path, capsys):
-    out = str(tmp_path / "poses.jsonl")
-    rec = serve.main(["--device", "cpu", "--frames", "2", "--warmup", "1",
-                      "--out", out], small_config())
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert json.loads(last) == rec
-    assert rec["frames"] == 2 and rec["device"] == "cpu"
-    assert rec["value"] > 0
-    lat = rec["latency_ms"]
-    assert 0 < lat["p50"] <= lat["p90"] <= lat["p99"]
-    with open(out) as f:
-        lines = [json.loads(x) for x in f]
-    assert [x["frame"] for x in lines] == [0, 1]
-    for x in lines:
-        assert len(x["poses"]) == len(x["present"])
-        assert np.isfinite(np.asarray(x["poses"], np.float64)).all()
-
-
-def test_serve_loads_a_reference_checkpoint(tmp_path):
-    from pvn3d_tpu_torch.config import small_model_config
-    from pvn3d_tpu_torch.utils.weights import build_model
-    path = str(tmp_path / "ref.pth.tar")
-    sd = build_model(small_model_config(), 5).state_dict()
-    torch.save({"model_state": {f"module.{k}": v for k, v in sd.items()}},
-               path)
-    rec = serve.main(["--device", "cpu", "--frames", "1", "--warmup", "0",
-                      "--torch_ckpt", path, "--no_fill_depth"],
-                     small_config())
-    assert rec["frames"] == 1
-    with pytest.raises(SystemExit, match="no checkpoint"):
-        serve.main(["--device", "cpu", "--frames", "1",
-                    "--checkpoint_dir", str(tmp_path / "empty")],
-                   small_config())
-
-
-def test_serve_restores_a_training_checkpoint(tmp_path):
-    from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
-    from pvn3d_tpu_torch.train.state import create_train_state
-    cfg = small_config()
-    state = create_train_state(cfg, seed=3, device="cpu")
-    CheckpointManager(str(tmp_path)).save(7, state)
-    out = str(tmp_path / "poses.jsonl")
-    rec = serve.main(["--device", "cpu", "--frames", "1", "--warmup", "0",
-                      "--checkpoint_dir", str(tmp_path), "--out", out,
-                      "--no_fill_depth"], cfg)
-    assert rec["frames"] == 1
-    with open(out) as f:
-        assert json.loads(f.readline())["frame"] == 0
-
-
-def test_serve_on_cuda_raises_without_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--frames", "1"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--device", "cuda", "--frames", "1"])
-
-
-def test_frame_generators_are_per_frame():
-    dev = torch.device("cpu")
-    a = torch.rand(4, generator=serve.frame_generator(0, dev))
-    b = torch.rand(4, generator=serve.frame_generator(0, dev))
-    c = torch.rand(4, generator=serve.frame_generator(1, dev))
-    assert torch.equal(a, b) and not torch.equal(a, c)
