@@ -56,11 +56,30 @@ that fails):
                branch (ADD / ADD-S) on the card against the CPU within
                1e-5 m; then ``apps.serve.main`` in this process (20
                frames after 3 of warm-up), its JSON line logged.
-7. reference — the same code on the card (kernels) and on the CPU
+7. icp       — ICP after a raw request at full width (seeded random
+               weights, 22 meshes of 2000 points): the raw step's filled
+               depth through ``make_icp_step`` in full-resolution mode,
+               then the same frame in sampled mode, each timed (events,
+               median of 3) and traced (device time, kernel and copy
+               launches, host reads), with its iterations and the classes
+               that passed the gate; the request and the two ICP calls
+               counted from 0 (fps 1, query 4, interp 4, winner 3 + 2);
+               the 1-NN propagation alone; K4 at the prefilter's shape
+               (H = 21, K = 2000, bandwidth 0.06) held bit for bit against
+               its plain version on its own inputs (captured by wrapping
+               ``winner_stats``) and timed beside a cdist composition;
+               ``icp_refine`` on the card against the CPU on the captured
+               scene (largest pose difference, printed) and on 21
+               well-posed problems (within 1e-3), the propagation against
+               the CPU on every 16th pixel (every mismatch at a near-tie),
+               and the host reads of one SVD and one det alone;
+               then ``tools/synthetic_e2e.py`` for 20 steps at batch 4
+               with ``--icp``, its JSON record complete and finite.
+8. reference — the same code on the card (kernels) and on the CPU
                (plain versions): a small frame's forward within 2e-3, and
                the full-width pose stage on labelled votes (several
                classes present) within 1e-4.
-8. train     — the training path at full width (``Config.ycb()``, bf16,
+9. train     — the training path at full width (``Config.ycb()``, bf16,
                batch 4, ``grad_accum`` 1): ``create_train_state`` ->
                ``make_train_step`` -> ``Trainer.fit``, one warm-up step,
                then three steps with every launch count set to 0 just
@@ -79,16 +98,18 @@ that fails):
                ``tests/test_torch_train.py``); and the same backward with
                BN on its running statistics, every leaf within
                2e-3 * max|g|.
-9. a JSON line per kernel (launches on the serving slice, the raw
-   requests and the training steps, error, times, bound; K3 forward and
-   backward also per level, the backward on both clouds; K4 also per pass
-   on both inputs), the ``nvidia-smi`` line again, then the result line.
+10. a JSON line per kernel (launches on the serving slice, the raw
+   requests, the ICP request and the training steps, error, times, bound;
+   K3 forward and backward also per level, the backward on both clouds;
+   K4 also per pass on both inputs and at the ICP shape), the
+   ``nvidia-smi`` line again, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -984,6 +1005,17 @@ def _frame_build_close(got, want, k):
     return xyz_err, depth_err, flips, _err(pc[..., 6:], nrm)
 
 
+def raw_meshes(rng, n_cls: int, n_mesh: int = 2000):
+    """Meshes of the YCB size for the raw and ICP phases: ``n_cls`` point
+    sets of ``n_mesh`` points in a 12 cm cube, the first 1500 valid and
+    the rest half valid."""
+    mesh_pts = rng.uniform(-0.06, 0.06, (n_cls, n_mesh, 3)).astype(
+        np.float32)
+    mesh_valid = np.ones((n_cls, n_mesh), bool)
+    mesh_valid[:, 1500:] = rng.rand(n_cls, n_mesh - 1500) < 0.5
+    return mesh_pts, mesh_valid
+
+
 def phase_raw(smi: str, seed: int = 0):
     """Raw RGB-D frames through ``make_raw_inference_step`` on the card at
     full width: three requests with every launch count set to 0 just
@@ -1016,11 +1048,9 @@ def phase_raw(smi: str, seed: int = 0):
     mc = cfg.model
     h, w, n = mc.image_height, mc.image_width, mc.n_sample_points
     rng = np.random.RandomState(seed)
-    n_cls, n_mesh = mc.n_classes, 2000
-    mesh_pts = rng.uniform(-0.06, 0.06, (n_cls, n_mesh, 3)).astype(
-        np.float32)
-    mesh_valid = np.ones((n_cls, n_mesh), bool)
-    mesh_valid[:, 1500:] = rng.rand(n_cls, n_mesh - 1500) < 0.5
+    n_cls = mc.n_classes
+    mesh_pts, mesh_valid = raw_meshes(rng, n_cls)
+    n_mesh = mesh_pts.shape[1]
     step = make_raw_inference_step(cfg, build_model(mc, seed),
                                    stacked_mesh_kps(), stacked_class_radii(),
                                    mesh_pts, mesh_valid)
@@ -1155,6 +1185,345 @@ def phase_raw(smi: str, seed: int = 0):
         raise AssertionError(f"raw: serve {rec}")
     log("raw", f"serve: {json.dumps(rec)} [{smi}]")
     return launches
+
+
+@contextlib.contextmanager
+def _capture(module, name: str, calls: list):
+    """Record (args, kwargs, result) of every call of ``module.name`` while
+    the block runs, then put the function back."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _trace(fn):
+    """One call of ``fn`` in a profiler trace (CPU and CUDA): its device
+    busy time in ms, kernel launches, copy and memset launches, host reads
+    of a device scalar and stream/device synchronisations."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in dev
+                 if e.key.startswith(("Memcpy", "Memset")))
+    cpu = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU}
+    return {"device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "kernels": sum(e.count for e in dev) - copies, "copies": copies,
+            "host_reads": cpu.get("aten::_local_scalar_dense", 0),
+            "syncs": sum(n for k, n in cpu.items() if "Synchronize" in k)}
+
+
+def _near_ties(pts, samples, sample_labels, got, want):
+    """Of the pixels whose labels ``got`` and ``want`` differ, the share
+    whose nearest samples with those two labels lie within float32
+    rounding of each other in float64 d^2 (8 ulps of |p|^2 + |s|^2)."""
+    bad = np.flatnonzero(got != want)
+    if bad.size == 0:
+        return 0, 1.0
+    p = pts[bad].astype(np.float64)
+    s = samples.astype(np.float64)
+    d2 = ((p[:, None, :] - s[None]) ** 2).sum(-1)
+    near = 0
+    for row, i in enumerate(bad):
+        a = d2[row][sample_labels == got[i]].min()
+        b = d2[row][sample_labels == want[i]].min()
+        ulp = 8 * np.finfo(np.float32).eps * (
+            (p[row] ** 2).sum() + (s[d2[row].argmin()] ** 2).sum())
+        near += abs(a - b) <= ulp
+    return bad.size, near / bad.size
+
+
+def _well_posed_icp(icp, mesh_pts, mesh_valid, seed: int):
+    """``icp_refine`` on the card and on the CPU over one problem per
+    foreground mesh: the mesh seen from a random pose ~1 m away with 2 mm
+    noise, started ~3 degrees and 1 cm off.  Returns the largest pose
+    difference card vs CPU, the largest difference from the GT, and both
+    iteration counts."""
+    from pvn3d_tpu_torch.data.synthetic_world import SyntheticWorld
+    rng = np.random.RandomState(seed + 2)
+    world = SyntheticWorld(n_classes=2)
+    mesh, valid = mesh_pts[1:], mesh_valid[1:]
+    gt = np.stack([world.random_pose(rng) for _ in range(len(mesh))])
+    scene = (np.einsum("bij,bnj->bni", gt[..., :3], mesh)
+             + gt[:, None, :, 3] + rng.normal(0, 0.002, mesh.shape))
+    init = gt.copy()
+    for i in range(len(gt)):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        a = 0.05
+        r = np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * (k @ k)
+        init[i, :, :3] = gt[i, :, :3] @ r
+        init[i, :, 3] += rng.uniform(-0.01, 0.01, 3)
+    args = [np.asarray(x, dtype) for x, dtype in (
+        (mesh, np.float32), (valid, bool), (scene, np.float32),
+        (valid, bool), (init, np.float32))]
+    out = {}
+    for d in ("cuda", "cpu"):
+        out[d] = icp.icp_refine(*(torch.as_tensor(a, device=d)
+                                  for a in args), tolerance=1e-6)
+    diff = float((out["cuda"][0].cpu() - out["cpu"][0]).abs().max())
+    from_gt = float((out["cpu"][0] - torch.as_tensor(gt)).abs().max())
+    return diff, from_gt, (int(out["cuda"][2][0]), int(out["cpu"][2][0]))
+
+
+def phase_icp(smi: str, seed: int = 0):
+    """ICP after a raw request at full width: full-resolution ICP on the
+    raw step's filled depth, then sampled ICP on the same frame, each
+    timed (events, median of 3) and traced (device time, kernel and copy
+    launches, host reads), with its iterations and the classes that passed
+    the gate, and the 1-NN propagation alone; K4 held bit for bit against
+    its plain version on the prefilter's own inputs (captured by wrapping
+    ``winner_stats``) and timed at that shape; ``icp_refine`` (on the
+    captured scene and on well-posed problems) and the propagation on the
+    card against the CPU; one SVD's and one det's host reads; then the
+    accuracy tool for 20 steps with ``--icp``.  Returns (launches of one raw request with
+    both ICP modes, counted from 0; K4's record at the ICP shape)."""
+    import gc
+    import io
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
+    from pvn3d_tpu_torch.inference import icp
+    from pvn3d_tpu_torch.inference import pipeline
+    from pvn3d_tpu_torch.ops.kernels import KERNELS, winner
+    from pvn3d_tpu_torch.tools import synthetic_e2e
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    mc = cfg.model
+    h, w = mc.image_height, mc.image_width
+    n_cls = mc.n_classes
+    mesh_pts, mesh_valid = raw_meshes(np.random.RandomState(seed), n_cls)
+    raw = pipeline.make_raw_inference_step(
+        cfg, build_model(mc, seed), stacked_mesh_kps(),
+        stacked_class_radii(), device=dev)
+    icp_step = pipeline.make_icp_step(cfg, mesh_pts, mesh_valid)
+    rgb, depth, k = synth_sensor_frame(h, w, seed=1)
+    batch = {"rgb": rgb, "depth": depth, "cam_k": k}
+
+    def request():
+        return raw(batch, torch.Generator(device=dev).manual_seed(1))
+
+    def args_of(out, mode):
+        base = (out["pointcloud"][..., :3], out["seg"], out["poses"])
+        return base + ((out["depth_m"], k) if mode == "fullres" else ())
+    out = request()                                        # warm-up
+    for mode in ("fullres", "sampled"):
+        icp_step(*args_of(out, mode))
+    torch.cuda.synchronize()
+
+    # The counted run: one raw request, then ICP in both modes, each
+    # counted from 0.
+    for kern in KERNELS:
+        kern.launches = 0
+    out = request()
+    torch.cuda.synchronize()
+    req_launches = {kern.name: kern.launches for kern in KERNELS}
+    for kern in KERNELS:
+        kern.launches = 0
+    wins = []
+    with _capture(icp, "winner_stats", wins):
+        refined = {"fullres": icp_step(*args_of(out, "fullres"))}
+    refined["sampled"] = icp_step(*args_of(out, "sampled"))
+    torch.cuda.synchronize()
+    icp_launches = {kern.name: kern.launches for kern in KERNELS}
+    launches = {n: req_launches[n] + icp_launches[n] for n in req_launches}
+    want = {"fps": 1, "query": 4, "interp": 4, "interp_bwd": 0,
+            "winner": 3}
+    want_icp = {"fps": 0, "query": 0, "interp": 0, "interp_bwd": 0,
+                "winner": 2}
+    if req_launches != want or icp_launches != want_icp:
+        raise AssertionError(f"icp: launches {req_launches} for the "
+                             f"request and {icp_launches} for ICP, expected "
+                             f"{want} and {want_icp}")
+    for m, r in refined.items():
+        if (r.shape != (1, n_cls, 3, 4) or not bool(torch.isfinite(r).all())
+                or not torch.equal(r[:, 0], out["poses"][:, 0])):
+            raise AssertionError(f"icp {m}: refined poses {r.shape}")
+    log("icp", f"one raw request, then full-res and sampled ICP, each "
+        f"counted from 0: launches {req_launches} and {icp_launches}")
+
+    # K4 at the ICP shape, on the prefilter's own inputs, timed before
+    # any trace with CPU activity: after one, the profiler dropped this
+    # ctypes launch from the device's events.
+    (wa, _, wgot) = wins[0]
+    pts, msk, bw = wa
+    hyp, kk = msk.shape
+
+    def kernel():
+        return winner.winner_stats(pts, msk, bw)
+    wplain = winner.winner_stats_plain(pts, msk, bw)
+    if not (_index_equal(wgot, wplain) and _index_equal(kernel(), wplain)):
+        raise AssertionError("K4 winner at the ICP shape differs from plain")
+
+    def library():
+        inb = ((torch.cdist(pts, pts) < bw) & msk[:, None, :]
+               & msk[:, :, None])
+        num = inb.sum(-1, dtype=torch.int32)
+        wn = num.argmax(-1)
+        rows = torch.arange(hyp, device=dev)
+        return wn, inb[rows, wn], num[rows, wn]
+    v = msk.sum(1).double()
+    flops = float((v * v + v).sum()) * (D2_FLOPS + 1)
+    n_bytes = hyp * kk * 14 + hyp * 8
+    k4 = {"shape": f"H={hyp} K={kk} bw={bw}",
+          "launches": icp_launches["winner"],
+          "max_abs_err": _err(wgot, wplain), "tol": "bit for bit",
+          "valid": int(v.sum()), "hypotheses_with_points": int((v > 0).sum()),
+          "threads": winner.cta_threads(hyp),
+          "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+          "plain_ms": time_ms(lambda: winner.winner_stats_plain(pts, msk, bw),
+                              reps=1),
+          "library_ms": time_ms(library)}
+    k4["bound_ms"], k4["bound_by"] = bound_ms(n_bytes, flops)
+    log("icp", f"K4 winner at the ICP shape H={hyp} K={kk} bw={bw}: grid "
+        f"{hyp} clusters x {winner.CLUSTER} CTAs of {k4['threads']} threads, "
+        f"{k4['valid']} valid points in {k4['hypotheses_with_points']} "
+        f"hypotheses; equal to plain bit for bit; {k4['ms']:.4f} ms, on the "
+        f"device {k4['device_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
+        f"({k4['bound_by']}); plain {k4['plain_ms']:.3f}, "
+        f"cdist+lt+sum+argmax {k4['library_ms']:.4f} [{smi}]")
+
+
+    min_pts = cfg.icp.min_class_points
+    per_mode, captured = {}, {}
+    for mode in ("fullres", "sampled"):
+        a = args_of(out, mode)
+        refines, frames, props = [], [], []
+        with _capture(icp, "icp_refine", refines), \
+                _capture(pipeline, "refine_frame_poses", frames), \
+                _capture(icp, "propagate_labels_fullres", props):
+            icp_step(*a)
+        torch.cuda.synchronize()
+        fa, fk, _ = frames[0]
+        counts = fk["gate_counts"]
+        if counts is None:
+            counts = fa[4].sum(-1)
+        n_iter = int(refines[0][2][2][0])
+        rec = {"ms": time_ms(lambda: icp_step(*a), reps=1),
+               "n_iter": n_iter,
+               "loop_reads": -(-n_iter // icp._CHECK_EVERY),
+               "gate_passed": int((counts >= min_pts).sum()),
+               "classes_with_points": int((counts > 0).sum())}
+        rec.update(_trace(lambda: icp_step(*a)))
+        per_mode[mode] = rec
+        captured[mode] = (refines[0], props)
+        log("icp", f"{mode} ICP, one {h}x{w} raw frame, {n_cls - 1} "
+            f"classes x {cfg.icp.max_scene_points} scene points x "
+            f"{mesh_pts.shape[1]} mesh points: "
+            f"{rec['ms']:.2f} ms (events, median of 3), device "
+            f"{rec['device_ms']:.3f} ms in {rec['kernels']} kernel and "
+            f"{rec['copies']} copy launches; {n_iter} iterations, "
+            f"{rec['loop_reads']} loop reads, {rec['host_reads']} host reads "
+            f"and {rec['syncs']} synchronisations in all; "
+            f"{rec['gate_passed']} of {rec['classes_with_points']} classes "
+            f"with points passed the gate (>= {min_pts}) [{smi}]")
+
+    # The 1-NN propagation alone, on its own inputs (full-res mode).
+    pa, _, plabels = captured["fullres"][1][0]
+    prop = lambda: icp.propagate_labels_fullres(*pa)      # noqa: E731
+    prop_ms = time_ms(prop, reps=1)
+    prop_tr = _trace(prop)
+    log("icp", f"1-NN propagation {pa[0].shape[0]} pixels x "
+        f"{pa[2].shape[0]} samples (chunks of 4096): {prop_ms:.3f} ms "
+        f"(events), device "
+        f"{prop_tr['device_ms']:.3f} ms in {prop_tr['kernels']} kernel "
+        f"launches [{smi}]")
+    # ... on the card against the CPU, on every 16th pixel.
+    cloud, valid, samples, slabels = (t.cpu() for t in pa)
+    sub = slice(None, None, 16)
+    cpu_labels = icp.propagate_labels_fullres(cloud[sub], valid[sub],
+                                              samples, slabels).numpy()
+    card_labels = plabels.cpu().numpy()[sub]
+    n_bad, near = _near_ties(cloud[sub].numpy(), samples.numpy(),
+                             slabels.numpy(), card_labels, cpu_labels)
+    if near < 1.0:
+        raise AssertionError(f"icp: propagation card vs CPU: {n_bad} "
+                             f"mismatches, {near:.3f} at near-ties")
+    log("icp", f"propagation card vs CPU on {card_labels.size} pixels "
+        f"(every 16th): {n_bad} label mismatches, {near:.3f} of them at "
+        f"near-ties")
+
+    # icp_refine on the card against the CPU, on the full-res scene.
+    (ra, rk, (card_poses, card_err, card_iter)) = captured["fullres"][0]
+    cpu_poses, cpu_err, cpu_iter = icp.icp_refine(
+        *(t.cpu() for t in ra), **rk)
+    has = ra[3].cpu().any(-1)
+    pose_diff = float((card_poses.cpu() - cpu_poses)[has].abs().max()) \
+        if bool(has.any()) else 0.0
+    if not (bool(torch.isfinite(card_poses).all())
+            and bool(torch.isfinite(cpu_poses).all())):
+        raise AssertionError("icp: non-finite refined poses")
+    log("icp", f"icp_refine card vs CPU on the full-res scene "
+        f"({int(has.sum())} problems with points, random-weight initial "
+        f"poses): largest pose difference {pose_diff:.3e}, mean error card "
+        f"{card_err.cpu()[has].numpy().round(6).tolist()} vs CPU "
+        f"{cpu_err[has].numpy().round(6).tolist()} m, iterations "
+        f"{int(card_iter[0])} vs {int(cpu_iter[0])}")
+    wp_diff, wp_gt, wp_iter = _well_posed_icp(icp, mesh_pts, mesh_valid,
+                                              seed)
+    if not (wp_diff < 1e-3 and wp_gt < 2e-2):
+        raise AssertionError(f"icp: well-posed ICP card vs CPU {wp_diff}, "
+                             f"from the GT {wp_gt}")
+    log("icp", f"icp_refine card vs CPU on {n_cls - 1} well-posed problems "
+        f"(each mesh 1 m away, 2 mm noise, started ~3 degrees and 1 cm "
+        f"off; tolerance 1e-6): largest pose difference {wp_diff:.3e}, "
+        f"largest from the GT {wp_gt:.3e}, iterations card / CPU "
+        f"{wp_iter[0]} / {wp_iter[1]}")
+    # Where ICP's host reads come from: one batched SVD and one det of
+    # the fit's 21 3x3 matrices, alone.
+    h3 = torch.randn(n_cls - 1, 3, 3, device=dev)
+    svd_tr = _trace(lambda: torch.linalg.svd(h3))
+    det_tr = _trace(lambda: torch.linalg.det(h3))
+    log("icp", f"one torch.linalg.svd of {n_cls - 1} 3x3 matrices: "
+        f"{svd_tr['host_reads']} host reads, {svd_tr['syncs']} "
+        f"synchronisations, {svd_tr['kernels']} kernels and "
+        f"{svd_tr['copies']} copies, "
+        f"{svd_tr['device_ms']:.4f} ms device; one torch.linalg.det: "
+        f"{det_tr['host_reads']} host reads, {det_tr['syncs']} "
+        f"synchronisations, {det_tr['kernels']} kernels, "
+        f"{det_tr['device_ms']:.4f} ms device")
+
+    # The accuracy tool, short, at full width.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = synthetic_e2e.main(["--steps", "20", "--batch", "4",
+                                  "--eval_frames", "4", "--icp"])
+    for line in buf.getvalue().splitlines():
+        log("icp", f"synthetic_e2e: {line}")
+    keys = {"metric", "value", "add_auc", "adds_auc", "eval_seg_acc",
+            "steps", "icp"}
+    icp_keys = {"add_s_auc", "add_auc", "adds_auc", "delta_add_auc",
+                "delta_adds_auc", "scene_mode"}
+    nums = [v for kk_, v in res.items() if kk_ not in ("metric", "icp")]
+    nums += [v for kk_, v in res["icp"].items() if kk_ != "scene_mode"]
+    if (set(res) != keys or set(res["icp"]) != icp_keys
+            or not all(np.isfinite(nums))):
+        raise AssertionError(f"icp: synthetic_e2e record {res}")
+    # The traces' and the tool's garbage is collected here, not inside the
+    # next phase's timed steps.
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(k4, modes=per_mode, propagation_ms=prop_ms,
+                          propagation_device_ms=prop_tr["device_ms"],
+                          icp_refine_card_vs_cpu=pose_diff)
 
 
 def phase_train(smi: str, seed: int = 0):
@@ -1433,6 +1802,7 @@ def main() -> int:
     phase_edge_cases(rng)
     launches, _ = phase_slice()
     raw_launches = phase_raw(smi)
+    icp_launches, k4_icp = phase_icp(smi)
     phase_reference()
     train_launches = phase_train(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
@@ -1441,10 +1811,10 @@ def main() -> int:
         r = rec[k.name]
         bound, by = r["bound"]
         # Launches: over the serving slice's three requests, the raw
-        # path's three requests and the training path's three steps, each
-        # counted from 0.
+        # path's three requests, one raw request with ICP in both modes
+        # and the training path's three steps, each counted from 0.
         total = (launches[k.name] + raw_launches[k.name]
-                 + train_launches[k.name])
+                 + icp_launches[k.name] + train_launches[k.name])
         if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
@@ -1454,6 +1824,7 @@ def main() -> int:
             "launches": total,
             "launches_serving": launches[k.name],
             "launches_raw": raw_launches[k.name],
+            "launches_icp": icp_launches[k.name],
             "launches_training": train_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
@@ -1463,7 +1834,10 @@ def main() -> int:
             line[-1]["device_ms"] = r["device_ms"]
             line[-1]["levels"] = r["levels"]
         if k.name == "winner":
-            line[-1].update(device_ms=r["device_ms"], passes=r["passes"])
+            # K4 also at the ICP prefilter's shape (H = 21, K = 2000).
+            line[-1].update(device_ms=r["device_ms"], passes=r["passes"],
+                            icp=k4_icp, max_abs_err=max(
+                                r["max_abs_err"], k4_icp["max_abs_err"]))
         if k.name == "interp_bwd":
             t = rec["interp_bwd_train"]
             line[-1].update(index_add_ms=r["index_add_ms"],

@@ -8,16 +8,30 @@ in float32 on whatever device the inputs lie on (TF32 is off for matmuls,
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
-def best_fit_transform(src: torch.Tensor, dst: torch.Tensor
+def best_fit_transform(src: torch.Tensor, dst: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Least-squares rigid transform mapping ``src`` onto ``dst``:
-    (..., N, 3) x 2 -> (..., 3, 4) with ``dst ~= src @ R^T + t``."""
+    (..., N, 3) x 2 -> (..., 3, 4) with ``dst ~= src @ R^T + t``.
+
+    ``weights`` (..., N), nonnegative, weigh the points (uniform when not
+    given); they are normalised by ``max(sum, 1e-12)``, so zero-weight
+    rows are ignored.  With all weights zero the cross-covariance is 0 and
+    the rotation is whatever the SVD returns for it.
+    """
     src = src.float()
     dst = dst.float()
-    wn = torch.full(src.shape[:-1], 1.0 / src.shape[-2], device=src.device)
+    if weights is None:
+        wn = torch.full(src.shape[:-1], 1.0 / src.shape[-2],
+                        device=src.device)
+    else:
+        w = weights.float()
+        wn = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
     c_src = torch.einsum("...n,...nc->...c", wn, src)
     c_dst = torch.einsum("...n,...nc->...c", wn, dst)
     src_c = src - c_src[..., None, :]

@@ -4,10 +4,12 @@ Port of the JAX package's ``inference/pipeline.py``: ``make_pose_fn``,
 ``make_inference_step`` (prepared batches), ``make_raw_inference_step``
 (raw RGB-D sensor frames, built into network inputs on the device by
 ``data/device_frame.py``), each with the metrics branch, and the
-evaluation loop ``accumulate_batches`` / ``evaluate_dataset``.  The ICP
-steps are not ported yet.  The JAX step is one jitted XLA program; here
-it runs eagerly in ``torch.inference_mode`` on one device, frame by frame
-for the pose stage.
+evaluation loop ``accumulate_batches`` / ``evaluate_dataset``, and the ICP
+post-refinement ``make_icp_step`` / ``make_icp_refine_fn`` (reference:
+eval_icp.py).  The JAX step is one jitted XLA program; here it runs
+eagerly in ``torch.inference_mode`` on one device, frame by frame for the
+pose stage and the ICP scenes, with every frame's ICP problems refined in
+one batch.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ from pvn3d_tpu_torch.config import Config
 from pvn3d_tpu_torch.data.device_frame import build_inference_batch_device
 from pvn3d_tpu_torch.inference.evaluator import (PoseEvaluator,
                                                  eval_frame_metrics)
-from pvn3d_tpu_torch.inference.pose import FramePoses, cal_frame_poses
+from pvn3d_tpu_torch.inference.icp import (fullres_class_clouds,
+                                           refine_frame_poses)
+from pvn3d_tpu_torch.inference.pose import (FramePoses, _select_class_points,
+                                            cal_frame_poses)
 from pvn3d_tpu_torch.utils.device import disable_tf32, resolve_device
 
 
@@ -151,14 +156,117 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
     return step
 
 
+def make_icp_step(cfg: Config, mesh_pts: np.ndarray, mesh_valid: np.ndarray,
+                  device: str | torch.device = "cuda"):
+    """Batched ICP refinement of per-class poses against the
+    predicted-class scene points (reference: eval_icp.py):
+    ``step(pcld (B, N, 3), seg (B, N), poses (B, n_cls, 3, 4))`` in sampled
+    mode, or with ``depth`` (B, H, W) in metres and ``cam_k`` (B, 3, 3)
+    added in full-resolution mode -> refined poses (B, n_cls, 3, 4).
+
+    Full-resolution mode is reference parity: the scene is the
+    full-resolution depth cloud of the 1-NN-upsampled predicted mask,
+    capped at ``icp.max_scene_points`` per class, with the
+    ``>= min_class_points`` gate on the full-res count (eval_icp.py:
+    224-291, :388-426, :146-151); ``priorities`` (B, H*W) replace the
+    fixed subsample draw.  Sampled mode (no depth map) takes the class
+    points of the sampled cloud.  Row 0 (background) passes through.  Runs
+    on the card unless ``device="cpu"``; raises when CUDA is asked for and
+    missing.
+    """
+    dev = resolve_device(device)
+    disable_tf32()
+    icp = cfg.icp
+    n_cls = mesh_pts.shape[0]
+    k = icp.max_scene_points
+    pts = torch.as_tensor(mesh_pts[1:], dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(mesh_valid[1:], device=dev).bool()
+
+    @torch.inference_mode()
+    def step(pcld, seg, poses, depth=None, cam_k=None, priorities=None):
+        pcld = torch.as_tensor(pcld, device=dev).float()
+        seg = torch.as_tensor(seg, device=dev)
+        poses = torch.as_tensor(poses, device=dev).float()
+        b = pcld.shape[0]
+        scenes = []
+        for i in range(b):
+            if depth is None:
+                sel, sel_valid, _ = _select_class_points(seg[i], n_cls, k)
+                scenes.append((pcld[i][sel], sel_valid, None))
+            else:
+                scenes.append(fullres_class_clouds(
+                    torch.as_tensor(depth[i], device=dev),
+                    torch.as_tensor(cam_k[i], device=dev), pcld[i], seg[i],
+                    n_cls, k, priorities=(
+                        None if priorities is None
+                        else torch.as_tensor(priorities[i], device=dev))))
+        scene, scene_valid, counts = zip(*scenes)
+        # Every frame's problems in one batch: a stopped problem keeps its
+        # pose, so the poses equal a loop per frame.
+        refined, _, _ = refine_frame_poses(
+            poses[:, 1:].reshape(-1, 3, 4), pts.repeat(b, 1, 1),
+            valid.repeat(b, 1), torch.cat(scene), torch.cat(scene_valid),
+            min_points=icp.min_class_points,
+            cluster_bandwidth=icp.cluster_bandwidth,
+            max_iter=icp.max_iter, tolerance=icp.tolerance,
+            gate_counts=None if depth is None else torch.cat(counts))
+        return torch.cat([poses[:, :1], refined.reshape(b, n_cls - 1, 3, 4)],
+                         dim=1)
+
+    return step
+
+
+def make_icp_refine_fn(cfg: Config, mesh_pts: np.ndarray,
+                       mesh_valid: np.ndarray, warn=None,
+                       device: str | torch.device = "cuda"):
+    """ICP post-refinement for ``accumulate_batches``: ``refine_fn(batch,
+    out) -> (add, adds)`` recomputed from the refined poses.
+
+    The scene in the reference's order (eval_icp.py:224-291): the filled
+    depth ``depth_m`` of the raw step, else the batch's full-res
+    ``depth`` (metres), else -- loudly, ``warn`` is called with the
+    message once -- the sampled cloud, which is NOT reference parity.
+    ``refine_fn.mode`` says which ("fullres" / "sampled")."""
+    dev = resolve_device(device)
+    icp_step = make_icp_step(cfg, mesh_pts, mesh_valid, dev)
+    pts = torch.as_tensor(mesh_pts, dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(mesh_valid, device=dev).bool()
+    warn = warn or (lambda msg: print(msg, flush=True))
+
+    def refine_fn(batch, out):
+        icp_args = ()
+        if "depth_m" in out:
+            icp_args = (out["depth_m"], batch["cam_k"])
+        elif "depth" in batch:
+            icp_args = (batch["depth"], batch["cam_k"])
+        elif refine_fn.mode != "sampled":
+            warn("WARNING: batch has no full-res depth map — ICP scene "
+                 "falls back to the sampled point cloud (NOT eval_icp.py "
+                 "parity; packed shards don't carry depth — evaluate from "
+                 "raw frames for the reference-parity scene)")
+        refine_fn.mode = "fullres" if icp_args else "sampled"
+        pcld = out["pointcloud"] if "pointcloud" in out else batch[
+            "pointcloud"]
+        refined = icp_step(torch.as_tensor(pcld)[..., :3], out["seg"],
+                           out["poses"], *icp_args)
+        with torch.inference_mode():
+            return eval_frame_metrics(
+                refined, torch.as_tensor(batch["cls_ids"], device=dev),
+                torch.as_tensor(batch["rts"], device=dev), pts, valid)
+
+    refine_fn.mode = None
+    return refine_fn
+
+
 def accumulate_batches(step, batches, ev: PoseEvaluator,
                        ds_type: str = "ycb", obj_id: int = 0,
-                       max_frames: int = 0) -> int:
-    """The evaluation loop: run ``step`` on each batch and feed the
-    scored frames to ``ev``.  A batch's ``_n_valid`` says how many of its
-    frames are real (a padded last batch); LineMOD frames store their one
-    object as class 1 and are scored under ``obj_id``.  Returns the number
-    of frames scored."""
+                       refine_fn=None, max_frames: int = 0) -> int:
+    """The evaluation loop: run ``step`` on each batch, optionally replace
+    its ADD / ADD-S by ``refine_fn(batch, out) -> (add, adds)`` (ICP,
+    ``make_icp_refine_fn``), and feed the scored frames to ``ev``.  A
+    batch's ``_n_valid`` says how many of its frames are real (a padded
+    last batch); LineMOD frames store their one object as class 1 and are
+    scored under ``obj_id``.  Returns the number of frames scored."""
     n_frames = 0
     for batch in batches:
         batch = dict(batch)
@@ -166,6 +274,8 @@ def accumulate_batches(step, batches, ev: PoseEvaluator,
         out = step(batch)
         if "add" not in out:
             continue
+        if refine_fn is not None:
+            out["add"], out["adds"] = refine_fn(batch, out)
         cls_ids = np.asarray(batch["cls_ids"])
         add = out["add"].cpu().numpy()
         adds = out["adds"].cpu().numpy()

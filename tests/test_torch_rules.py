@@ -97,6 +97,22 @@ def test_raw_entry_point_raises_without_cuda(monkeypatch):
                                 np.zeros((22, 9, 3)), np.ones(22))
 
 
+def test_icp_entry_points_and_tool_raise_without_cuda(monkeypatch):
+    from pvn3d_tpu_torch.inference.pipeline import (make_icp_refine_fn,
+                                                    make_icp_step)
+    from pvn3d_tpu_torch.tools import synthetic_e2e
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config.Config.ycb()
+    mesh, valid = np.zeros((22, 9, 3), np.float32), np.ones((22, 9), bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_icp_step(cfg, mesh, valid)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_icp_refine_fn(cfg, mesh, valid)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic_e2e.main(["--tiny", "--steps", "0"])
+    assert callable(make_icp_step(cfg, mesh, valid, device="cpu"))
+
+
 def _with_pointnet2(**kw):
     import dataclasses
     m = port_config.small_model_config()
