@@ -1,7 +1,7 @@
 """Batching of per-frame sample dicts.
 
-Port of ``collate`` from the JAX package's ``data/frame.py`` (the frame
-builder and the loaders beside it are not ported yet).
+Port of ``collate`` from the JAX package's ``data/frame.py`` (its sample
+construction and the loaders beside it are not ported yet).
 """
 from __future__ import annotations
 
