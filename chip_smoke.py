@@ -16,8 +16,9 @@ that fails):
                function (K2: cdist + where + topk; K3: cdist + topk +
                gather), and the bound the card's peak rates set; K1's time
                per step and K2's and K3's times per level are logged, each
-               also as device time from a ``torch.profiler`` trace (the
-               kernel without the host's launch cost); K3 forward logs
+               also as device time from a ``torch.profiler`` trace kept
+               only when each launch has its device record (the kernel
+               without the host's launch cost); K3 forward logs
                each level's grid and bound.  K3's backward kernel is held
                bit for bit against its plain version at the training
                step's shapes (batch 4, fp3 .. fp0), run twice for
@@ -60,10 +61,12 @@ that fails):
                weights, 22 meshes of 2000 points): the raw step's filled
                depth through ``make_icp_step`` in full-resolution mode,
                then the same frame in sampled mode, each timed (events,
-               median of 3) and traced (device time, kernel and copy
-               launches, host reads), with its iterations and the classes
-               that passed the gate; the request and the two ICP calls
-               counted from 0 (fps 1, query 4, interp 4, winner 3 + 2);
+               median of 3) and traced (device time and kernel and copy
+               launches from complete traces of CUDA activity alone, host
+               reads from one of CPU activity alone), with its iterations
+               and the classes that passed the gate; the request and the
+               two ICP calls counted from 0 (fps 1, query 4, interp 4,
+               winner 3 + 2);
                the 1-NN propagation alone; K4 at the prefilter's shape
                (H = 21, K = 2000, bandwidth 0.06) held bit for bit against
                its plain version on its own inputs (captured by wrapping
@@ -72,9 +75,11 @@ that fails):
                scene (largest pose difference, printed) and on 21
                well-posed problems (within 1e-3), the propagation against
                the CPU on every 16th pixel (every mismatch at a near-tie),
-               and the host reads of one SVD and one det alone;
-               then ``tools/synthetic_e2e.py`` for 20 steps at batch 4
-               with ``--icp``, its JSON record complete and finite.
+               and one SVD and one det traced alone; then
+               ``tools/synthetic_e2e.py`` for 20 steps at batch 4 with
+               ``--icp``, its JSON record complete and finite, and K4 held
+               bit for bit and timed on its prefilter calls (a trained
+               network's classes, captured as above).
 8. reference — the same code on the card (kernels) and on the CPU
                (plain versions): a small frame's forward within 2e-3, and
                the full-width pose stage on labelled votes (several
@@ -148,18 +153,82 @@ def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time per call of the kernels ``fn`` launches, from a
-    ``torch.profiler`` trace: the kernel alone, without the host's launch
-    cost that the CUDA-event time of a short kernel also holds."""
-    from torch.autograd import DeviceType
-    cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
+# CUDA runtime calls that launch a kernel.
+_LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
+# Marker kernels launched at the start of each trace, not counted.
+_MARKERS = 4
+
+
+def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
+    """``reps`` calls of ``fn`` in one ``torch.profiler`` trace of CUDA
+    activity alone: the device time in ms, the kernel and the copy/memset
+    launches, the runtime's synchronisations (the trace's own closing one
+    not counted), the kernels whose names hold each of ``names``, and
+    whether the trace is complete: each kernel launch of ``fn`` that the
+    runtime recorded has its device record, matched by correlation id
+    (copies are not held so: a memset of no bytes leaves no record).  On
+    an H100 a trace loses device records, never runtime calls: once
+    earlier phases have run, those of its first launches (which the
+    markers take), at times up to 6% of a 31,000-launch call's, and, in a
+    trace that also records the CPU, more (K4's ctypes launch among
+    them)."""
+    from torch._C._autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(_MARKERS):
+            torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    ev = prof.profiler.kineto_results.events()
+    dev = [e for e in ev if e.device_type() == DeviceType.CUDA
+           and "spin_kernel" not in e.name()]
+    recorded = {e.correlation_id() for e in dev}
+    calls = sorted((e for e in ev if e.device_type() != DeviceType.CUDA
+                    and any(n in e.name() for n in _LAUNCH_CALLS)),
+                   key=lambda e: e.start_ns())[_MARKERS:]
+    copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in dev)
+    syncs = sum("Synchronize" in e.name() for e in ev
+                if e.device_type() != DeviceType.CUDA)
+    by_corr = {e.correlation_id(): e.name() for e in dev}
+    lost_at = [(i, c.name(), by_corr.get(calls[i - 1].correlation_id(), "")
+                [:70] if i else "") for i, c in enumerate(calls)
+               if c.correlation_id() not in recorded][:6]
+    return {"device_ms": sum(e.duration_ns() for e in dev) / 1e6,
+            "lost_at": lost_at,
+            "kernels": len(dev) - copies, "copies": copies,
+            "syncs": syncs - 1,
+            "named": {n: sum(n in e.name() for e in dev) for n in names},
+            "lost": sum(e.correlation_id() not in recorded for e in calls),
+            "complete": len(dev) - copies == len(calls) and all(
+                e.correlation_id() in recorded for e in calls)}
+
+
+def _complete_traces(fn, reps: int = 1, names=(), want: int = 1,
+                     attempts: int = 6) -> list:
+    """``want`` complete traces (``_cuda_trace``) of ``fn``, of at most
+    ``attempts`` taken; raises when fewer were complete."""
+    runs = []
+    for _ in range(attempts):
+        r = _cuda_trace(fn, reps, names)
+        runs += [r] if r["complete"] else []
+        if len(runs) == want:
+            return runs
+    raise AssertionError(f"profiler: {len(runs)} of {attempts} traces held "
+                         f"a device record for each launch; the last {r}")
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time per call of the kernels ``fn`` launches, from a complete
+    ``torch.profiler`` trace of CUDA activity alone: the kernel alone,
+    without the host's launch cost that the CUDA-event time of a short
+    kernel also holds.  Raises when the trace shows no device time."""
+    ms = _complete_traces(fn, reps)[0]["device_ms"] / reps
+    if ms <= 0.0:
+        raise AssertionError("device_ms: the trace holds no device time for "
+                             "a call that launches a kernel")
+    return ms
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -1119,30 +1188,26 @@ def phase_raw(smi: str, seed: int = 0):
                  normals_from_depth_map(depth_m, k))),
              "sample + gather": time_ms(sample),
              "whole build": time_ms(build)}
-    from torch.autograd import DeviceType
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        build()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    build_launches = sum(e.count for e in ev)
-    build_dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    tr = _complete_traces(build)[0]
+    build_launches = tr["kernels"] + tr["copies"]
+    build_dev_ms = tr["device_ms"]
     log("raw", f"frame build, one {h}x{w} frame, CUDA events ms (median of "
         "3): " + ", ".join(f"{key} {v:.3f}" for key, v in stage.items())
         + f"; device {build_dev_ms:.3f} ms in {build_launches} kernel and "
         f"copy launches (profiler) [{smi}]")
-    # One whole raw request in a trace: wall clock, device busy, launches.
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    # One whole raw request in a trace: wall clock, device busy, launches
+    # (the wall clock of the complete trace's call, the last one taken).
+    walls = []
+
+    def traced_request():
         t0 = time.perf_counter()
         step(request(4), gen(4))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    log("raw", f"one raw request in a trace: wall {wall:.2f} ms, device busy "
-        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms in "
-        f"{sum(e.count for e in ev)} kernel and copy launches")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    tr = _complete_traces(traced_request)[0]
+    log("raw", f"one raw request in a trace: wall {walls[-1]:.2f} ms, device "
+        f"busy {tr['device_ms']:.3f} ms in {tr['kernels'] + tr['copies']} "
+        f"kernel and copy launches")
 
     # The card's frame build against the CPU plain path: same frame, same
     # priorities.
@@ -1204,26 +1269,72 @@ def _capture(module, name: str, calls: list):
         setattr(module, name, real)
 
 
-def _trace(fn):
-    """One call of ``fn`` in a profiler trace (CPU and CUDA): its device
-    busy time in ms, kernel launches, copy and memset launches, host reads
-    of a device scalar and stream/device synchronisations."""
-    from torch.autograd import DeviceType
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def _device_trace(fn, expect=None, min_kernels: int = 1):
+    """The device side of a call of ``fn``: after a warm-up call, two
+    complete traces of one call each (``_complete_traces``).  Returns the
+    device busy ms (mean of the two), the kernel and copy/memset launches
+    and the synchronisations.  Raises unless the two agree on the launches
+    and hold at least ``min_kernels`` kernels, positive device time where
+    they hold one, and for each kernel name part in ``expect`` that many
+    launches of kernels so named."""
+    fn()
+    a, b = _complete_traces(fn, names=tuple(expect or ()), want=2)
+    if ((a["kernels"], a["copies"]) != (b["kernels"], b["copies"])
+            or a["kernels"] < min_kernels or a["named"] != (expect or {})
+            or b["named"] != a["named"]
+            or (a["kernels"] and min(a["device_ms"], b["device_ms"]) <= 0)):
+        raise AssertionError(f"device trace: {a} and {b}, expected at "
+                             f"least {min_kernels} kernels and {expect}")
+    return {"device_ms": (a["device_ms"] + b["device_ms"]) / 2,
+            "kernels": a["kernels"], "copies": a["copies"],
+            "syncs": a["syncs"]}
+
+
+def _host_reads(fn) -> int:
+    """Host reads of a device scalar (``aten::_local_scalar_dense``) in one
+    call of ``fn``, from a profiler trace of CPU activity alone (run after
+    the phase's device traces)."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = prof.key_averages()
-    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
-    copies = sum(e.count for e in dev
-                 if e.key.startswith(("Memcpy", "Memset")))
-    cpu = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU}
-    return {"device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-            "kernels": sum(e.count for e in dev) - copies, "copies": copies,
-            "host_reads": cpu.get("aten::_local_scalar_dense", 0),
-            "syncs": sum(n for k, n in cpu.items() if "Synchronize" in k)}
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "aten::_local_scalar_dense")
+
+
+def _k4_record(winner, pts, msk, bw, got, launches: int, dev) -> dict:
+    """K4 on captured inputs: equal to its plain version bit for bit (the
+    captured result and a new launch), its event, device, plain and
+    ``cdist`` yardstick times, and the bound of the valid pairs."""
+    hyp, kk = msk.shape
+
+    def kernel():
+        return winner.winner_stats(pts, msk, bw)
+    want = winner.winner_stats_plain(pts, msk, bw)
+    if not (_index_equal(got, want) and _index_equal(kernel(), want)):
+        raise AssertionError(f"K4 winner at H={hyp} K={kk} differs from "
+                             f"plain")
+
+    def library():
+        inb = ((torch.cdist(pts, pts) < bw) & msk[:, None, :]
+               & msk[:, :, None])
+        num = inb.sum(-1, dtype=torch.int32)
+        wn = num.argmax(-1)
+        rows = torch.arange(hyp, device=dev)
+        return wn, inb[rows, wn], num[rows, wn]
+    v = msk.sum(1).double()
+    rec = {"shape": f"H={hyp} K={kk} bw={bw}", "launches": launches,
+           "max_abs_err": _err(got, want), "tol": "bit for bit",
+           "valid": int(v.sum()), "hypotheses_with_points": int((v > 0).sum()),
+           "threads": winner.cta_threads(hyp),
+           "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+           "plain_ms": time_ms(lambda: winner.winner_stats_plain(pts, msk, bw),
+                               reps=1),
+           "library_ms": time_ms(library)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        hyp * kk * 14 + hyp * 8, float((v * v + v).sum()) * (D2_FLOPS + 1))
+    return rec
 
 
 def _near_ties(pts, samples, sample_labels, got, want):
@@ -1285,14 +1396,17 @@ def phase_icp(smi: str, seed: int = 0):
     """ICP after a raw request at full width: full-resolution ICP on the
     raw step's filled depth, then sampled ICP on the same frame, each
     timed (events, median of 3) and traced (device time, kernel and copy
-    launches, host reads), with its iterations and the classes that passed
-    the gate, and the 1-NN propagation alone; K4 held bit for bit against
-    its plain version on the prefilter's own inputs (captured by wrapping
-    ``winner_stats``) and timed at that shape; ``icp_refine`` (on the
-    captured scene and on well-posed problems) and the propagation on the
-    card against the CPU; one SVD's and one det's host reads; then the
-    accuracy tool for 20 steps with ``--icp``.  Returns (launches of one raw request with
-    both ICP modes, counted from 0; K4's record at the ICP shape)."""
+    launches from traces of CUDA activity alone; host reads from one of
+    CPU activity alone, taken last), with its iterations and the classes
+    that passed the gate, and the 1-NN propagation alone; K4 held bit for
+    bit against its plain version on the prefilter's own inputs (captured
+    by wrapping ``winner_stats``) and timed at that shape; ``icp_refine``
+    (on the captured scene and on well-posed problems) and the propagation
+    on the card against the CPU; one SVD and one det traced; then the
+    accuracy tool for 20 steps with ``--icp``, its prefilter calls (a
+    trained network's classes) captured and held and timed as above.
+    Returns (launches of one raw request with both ICP modes, counted from
+    0; K4's records at the ICP shape)."""
     import gc
     import io
 
@@ -1360,47 +1474,17 @@ def phase_icp(smi: str, seed: int = 0):
     log("icp", f"one raw request, then full-res and sampled ICP, each "
         f"counted from 0: launches {req_launches} and {icp_launches}")
 
-    # K4 at the ICP shape, on the prefilter's own inputs, timed before
-    # any trace with CPU activity: after one, the profiler dropped this
-    # ctypes launch from the device's events.
-    (wa, _, wgot) = wins[0]
-    pts, msk, bw = wa
-    hyp, kk = msk.shape
-
-    def kernel():
-        return winner.winner_stats(pts, msk, bw)
-    wplain = winner.winner_stats_plain(pts, msk, bw)
-    if not (_index_equal(wgot, wplain) and _index_equal(kernel(), wplain)):
-        raise AssertionError("K4 winner at the ICP shape differs from plain")
-
-    def library():
-        inb = ((torch.cdist(pts, pts) < bw) & msk[:, None, :]
-               & msk[:, :, None])
-        num = inb.sum(-1, dtype=torch.int32)
-        wn = num.argmax(-1)
-        rows = torch.arange(hyp, device=dev)
-        return wn, inb[rows, wn], num[rows, wn]
-    v = msk.sum(1).double()
-    flops = float((v * v + v).sum()) * (D2_FLOPS + 1)
-    n_bytes = hyp * kk * 14 + hyp * 8
-    k4 = {"shape": f"H={hyp} K={kk} bw={bw}",
-          "launches": icp_launches["winner"],
-          "max_abs_err": _err(wgot, wplain), "tol": "bit for bit",
-          "valid": int(v.sum()), "hypotheses_with_points": int((v > 0).sum()),
-          "threads": winner.cta_threads(hyp),
-          "ms": time_ms(kernel), "device_ms": device_ms(kernel),
-          "plain_ms": time_ms(lambda: winner.winner_stats_plain(pts, msk, bw),
-                              reps=1),
-          "library_ms": time_ms(library)}
-    k4["bound_ms"], k4["bound_by"] = bound_ms(n_bytes, flops)
-    log("icp", f"K4 winner at the ICP shape H={hyp} K={kk} bw={bw}: grid "
-        f"{hyp} clusters x {winner.CLUSTER} CTAs of {k4['threads']} threads, "
-        f"{k4['valid']} valid points in {k4['hypotheses_with_points']} "
-        f"hypotheses; equal to plain bit for bit; {k4['ms']:.4f} ms, on the "
-        f"device {k4['device_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
-        f"({k4['bound_by']}); plain {k4['plain_ms']:.3f}, "
-        f"cdist+lt+sum+argmax {k4['library_ms']:.4f} [{smi}]")
-
+    # K4 at the ICP shape, on the prefilter's own inputs.
+    (pts, msk, bw), _, wgot = wins[0]
+    k4 = _k4_record(winner, pts, msk, bw, wgot, icp_launches["winner"], dev)
+    log("icp", f"K4 winner at the ICP shape {k4['shape']}: grid "
+        f"{msk.shape[0]} clusters x {winner.CLUSTER} CTAs of {k4['threads']} "
+        f"threads, {k4['valid']} valid points in "
+        f"{k4['hypotheses_with_points']} hypotheses; equal to plain bit for "
+        f"bit; {k4['ms']:.4f} ms, on the device {k4['device_ms']:.4f} ms, "
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}); plain "
+        f"{k4['plain_ms']:.3f}, cdist+lt+sum+argmax {k4['library_ms']:.4f} "
+        f"[{smi}]")
 
     min_pts = cfg.icp.min_class_points
     per_mode, captured = {}, {}
@@ -1416,13 +1500,12 @@ def phase_icp(smi: str, seed: int = 0):
         counts = fk["gate_counts"]
         if counts is None:
             counts = fa[4].sum(-1)
-        n_iter = int(refines[0][2][2][0])
         rec = {"ms": time_ms(lambda: icp_step(*a), reps=1),
-               "n_iter": n_iter,
-               "loop_reads": -(-n_iter // icp._CHECK_EVERY),
+               "n_iter": int(refines[0][2][2][0]),
                "gate_passed": int((counts >= min_pts).sum()),
                "classes_with_points": int((counts > 0).sum())}
-        rec.update(_trace(lambda: icp_step(*a)))
+        rec.update(_device_trace(lambda: icp_step(*a),
+                                 expect={"winner_kernel": 1}))
         per_mode[mode] = rec
         captured[mode] = (refines[0], props)
         log("icp", f"{mode} ICP, one {h}x{w} raw frame, {n_cls - 1} "
@@ -1430,17 +1513,17 @@ def phase_icp(smi: str, seed: int = 0):
             f"{mesh_pts.shape[1]} mesh points: "
             f"{rec['ms']:.2f} ms (events, median of 3), device "
             f"{rec['device_ms']:.3f} ms in {rec['kernels']} kernel and "
-            f"{rec['copies']} copy launches; {n_iter} iterations, "
-            f"{rec['loop_reads']} loop reads, {rec['host_reads']} host reads "
-            f"and {rec['syncs']} synchronisations in all; "
+            f"{rec['copies']} copy launches, {rec['syncs']} "
+            f"synchronisations; {rec['n_iter']} iterations; "
             f"{rec['gate_passed']} of {rec['classes_with_points']} classes "
             f"with points passed the gate (>= {min_pts}) [{smi}]")
 
-    # The 1-NN propagation alone, on its own inputs (full-res mode).
+    # The 1-NN propagation alone, on its own inputs (full-res mode): at
+    # least an addmm and an argmin a chunk.
     pa, _, plabels = captured["fullres"][1][0]
     prop = lambda: icp.propagate_labels_fullres(*pa)      # noqa: E731
     prop_ms = time_ms(prop, reps=1)
-    prop_tr = _trace(prop)
+    prop_tr = _device_trace(prop, min_kernels=2 * -(-pa[0].shape[0] // 4096))
     log("icp", f"1-NN propagation {pa[0].shape[0]} pixels x "
         f"{pa[2].shape[0]} samples (chunks of 4096): {prop_ms:.3f} ms "
         f"(events), device "
@@ -1487,23 +1570,18 @@ def phase_icp(smi: str, seed: int = 0):
         f"off; tolerance 1e-6): largest pose difference {wp_diff:.3e}, "
         f"largest from the GT {wp_gt:.3e}, iterations card / CPU "
         f"{wp_iter[0]} / {wp_iter[1]}")
-    # Where ICP's host reads come from: one batched SVD and one det of
-    # the fit's 21 3x3 matrices, alone.
+    # Where ICP's synchronisations come from: one batched SVD and one det
+    # of the fit's 21 3x3 matrices, alone.
     h3 = torch.randn(n_cls - 1, 3, 3, device=dev)
-    svd_tr = _trace(lambda: torch.linalg.svd(h3))
-    det_tr = _trace(lambda: torch.linalg.det(h3))
-    log("icp", f"one torch.linalg.svd of {n_cls - 1} 3x3 matrices: "
-        f"{svd_tr['host_reads']} host reads, {svd_tr['syncs']} "
-        f"synchronisations, {svd_tr['kernels']} kernels and "
-        f"{svd_tr['copies']} copies, "
-        f"{svd_tr['device_ms']:.4f} ms device; one torch.linalg.det: "
-        f"{det_tr['host_reads']} host reads, {det_tr['syncs']} "
-        f"synchronisations, {det_tr['kernels']} kernels, "
-        f"{det_tr['device_ms']:.4f} ms device")
+    lin = {"svd": lambda: torch.linalg.svd(h3),
+           "det": lambda: torch.linalg.det(h3)}
+    lin_tr = {n: _device_trace(f, min_kernels=0) for n, f in lin.items()}
 
-    # The accuracy tool, short, at full width.
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    # The accuracy tool, short, at full width; its prefilter calls carry a
+    # trained network's classes.
+    buf, tool_wins = io.StringIO(), []
+    with contextlib.redirect_stdout(buf), \
+            _capture(icp, "winner_stats", tool_wins):
         res = synthetic_e2e.main(["--steps", "20", "--batch", "4",
                                   "--eval_frames", "4", "--icp"])
     for line in buf.getvalue().splitlines():
@@ -1517,11 +1595,41 @@ def phase_icp(smi: str, seed: int = 0):
     if (set(res) != keys or set(res["icp"]) != icp_keys
             or not all(np.isfinite(nums))):
         raise AssertionError(f"icp: synthetic_e2e record {res}")
+    if not tool_wins:
+        raise AssertionError("icp: the tool's ICP ran no prefilter")
+    trained = [_k4_record(winner, *ta, tout, 1, dev)
+               for ta, _, tout in tool_wins]
+    for t in trained:
+        log("icp", f"K4 winner on the tool's prefilter inputs (20 trained "
+            f"steps) {t['shape']}: {t['valid']} valid points in "
+            f"{t['hypotheses_with_points']} hypotheses; equal to plain bit "
+            f"for bit; {t['ms']:.4f} ms, on the device "
+            f"{t['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); plain {t['plain_ms']:.3f}, "
+            f"cdist+lt+sum+argmax {t['library_ms']:.4f} [{smi}]")
+
+    # Host reads last, in traces of CPU activity alone: one loop read an
+    # iteration and one at its end, plus the SVD's.
+    for mode, rec in per_mode.items():
+        a = args_of(out, mode)
+        rec["host_reads"] = _host_reads(lambda: icp_step(*a))
+        if rec["host_reads"] < rec["n_iter"] + 1:
+            raise AssertionError(f"icp {mode}: {rec['host_reads']} host reads "
+                                 f"for {rec['n_iter']} iterations")
+        log("icp", f"{mode} ICP: {rec['host_reads']} host reads for "
+            f"{rec['n_iter']} iterations")
+    for n, f in lin.items():
+        t = lin_tr[n]
+        log("icp", f"one torch.linalg.{n} of {n_cls - 1} 3x3 matrices: "
+            f"{_host_reads(f)} host reads, {t['syncs']} synchronisations, "
+            f"{t['kernels']} kernels and {t['copies']} copies, "
+            f"{t['device_ms']:.4f} ms device")
     # The traces' and the tool's garbage is collected here, not inside the
     # next phase's timed steps.
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(k4, modes=per_mode, propagation_ms=prop_ms,
+    return launches, dict(k4, modes=per_mode, trained=trained,
+                          propagation_ms=prop_ms,
                           propagation_device_ms=prop_tr["device_ms"],
                           icp_refine_card_vs_cpu=pose_diff)
 

@@ -15,12 +15,8 @@ Reference semantics kept (icp.py:141-192):
   * the pose accumulates from ``init_pose``.
 
 The JAX loop is a ``lax.while_loop`` on the device.  Here the host runs the
-iterations and reads the "any problem active" flag once every
-``_CHECK_EVERY`` of them.  That is exact: a problem that has stopped keeps
-its pose, the iteration count is counted on the device (an iteration
-counts when some problem is active at its start, as JAX's loop condition
-runs it), and the error returned is the one of the last counted
-iteration.
+iterations and reads the "any problem active" flag before each one, as
+JAX's loop condition does.
 """
 from __future__ import annotations
 
@@ -33,8 +29,6 @@ from pvn3d_tpu_torch.geometry.cloud import depth_to_cloud_map
 from pvn3d_tpu_torch.geometry.se3 import best_fit_transform, transform_points
 from pvn3d_tpu_torch.ops.kernels.winner import winner_stats
 
-# Iterations between host reads of the loop's stopping rule.
-_CHECK_EVERY = 8
 # Bounds of the fixed full-resolution subsample priorities (the JAX
 # package draws ``uniform(PRNGKey(0), (P,), 1e-3, 1.0)``).
 _PRIORITY_MIN = 1e-3
@@ -87,30 +81,24 @@ def icp_refine(mesh_pts: torch.Tensor, mesh_valid: torch.Tensor,
 
     pose = init_pose.float()
     prev_err = torch.zeros(b, device=dev)
-    err_out = torch.zeros(b, device=dev)
+    err = torch.zeros(b, device=dev)
     active = torch.ones(b, dtype=torch.bool, device=dev)
-    n_iter = torch.zeros((), dtype=torch.int32, device=dev)
-    it = 0
-    while b and it < max_iter:
-        for _ in range(min(_CHECK_EVERY, max_iter - it)):
-            counted = active.any()
-            n_iter += counted.to(torch.int32)
-            matched, dist = nn_match(pose)
-            err = torch.sum(dist * sc_w, dim=-1) / sc_n
-            err_out = torch.where(counted, err, err_out)
-            inc = best_fit_transform(matched, scene_pts, weights=sc_w)
-            pose = torch.where(active[:, None, None],
-                               compose_poses(inc, pose), pose)
-            # The reference's 1e-9 absolute test was written for float64;
-            # in float32 one ulp of err exceeds it once err > ~1.7 cm, so
-            # changes at err's rounding level count as converged.
-            tol = torch.clamp(err * 1.2e-7, min=tolerance)
-            active = active & (torch.abs(prev_err - err) >= tol)
-            prev_err = err
-        it += min(_CHECK_EVERY, max_iter - it)
-        if not bool(active.any()):              # one host read per group
-            break
-    return pose, err_out, n_iter.expand(b)
+    n_iter = 0
+    while n_iter < max_iter and bool(active.any()):
+        matched, dist = nn_match(pose)
+        err = torch.sum(dist * sc_w, dim=-1) / sc_n
+        inc = best_fit_transform(matched, scene_pts, weights=sc_w)
+        pose = torch.where(active[:, None, None],
+                           compose_poses(inc, pose), pose)
+        # The reference's 1e-9 absolute test was written for float64; in
+        # float32 one ulp of err exceeds it once err > ~1.7 cm, so changes
+        # at err's rounding level count as converged.
+        tol = torch.clamp(err * 1.2e-7, min=tolerance)
+        active = active & (torch.abs(prev_err - err) >= tol)
+        prev_err = err
+        n_iter += 1
+    return pose, err, torch.full((b,), n_iter, dtype=torch.int32,
+                                 device=dev)
 
 
 def biggest_cluster_mask(points: torch.Tensor, valid: torch.Tensor,

@@ -168,8 +168,7 @@ def make_icp_step(cfg: Config, mesh_pts: np.ndarray, mesh_valid: np.ndarray,
     full-resolution depth cloud of the 1-NN-upsampled predicted mask,
     capped at ``icp.max_scene_points`` per class, with the
     ``>= min_class_points`` gate on the full-res count (eval_icp.py:
-    224-291, :388-426, :146-151); ``priorities`` (B, H*W) replace the
-    fixed subsample draw.  Sampled mode (no depth map) takes the class
+    224-291, :388-426, :146-151).  Sampled mode (no depth map) takes the class
     points of the sampled cloud.  Row 0 (background) passes through.  Runs
     on the card unless ``device="cpu"``; raises when CUDA is asked for and
     missing.
@@ -183,7 +182,7 @@ def make_icp_step(cfg: Config, mesh_pts: np.ndarray, mesh_valid: np.ndarray,
     valid = torch.as_tensor(mesh_valid[1:], device=dev).bool()
 
     @torch.inference_mode()
-    def step(pcld, seg, poses, depth=None, cam_k=None, priorities=None):
+    def step(pcld, seg, poses, depth=None, cam_k=None):
         pcld = torch.as_tensor(pcld, device=dev).float()
         seg = torch.as_tensor(seg, device=dev)
         poses = torch.as_tensor(poses, device=dev).float()
@@ -197,9 +196,7 @@ def make_icp_step(cfg: Config, mesh_pts: np.ndarray, mesh_valid: np.ndarray,
                 scenes.append(fullres_class_clouds(
                     torch.as_tensor(depth[i], device=dev),
                     torch.as_tensor(cam_k[i], device=dev), pcld[i], seg[i],
-                    n_cls, k, priorities=(
-                        None if priorities is None
-                        else torch.as_tensor(priorities[i], device=dev))))
+                    n_cls, k))
         scene, scene_valid, counts = zip(*scenes)
         # Every frame's problems in one batch: a stopped problem keeps its
         # pose, so the poses equal a loop per frame.
