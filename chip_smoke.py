@@ -7,8 +7,9 @@ that fails):
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all five CUDA kernels from ``pvn3d_tpu_torch/csrc`` (one
-               ``nvcc`` per source, all at once) into ``build/kernels``.
+2. build     — all five CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
+               ``nvcc`` per source, all at once) into ``build/kernels``;
+               nine kernel instances with their own launch counts.
 3. kernels   — each kernel against its plain PyTorch version on the card
                at the shapes the serving path gives it (indices exact,
                floats within 1e-5), timed with CUDA events beside the
@@ -103,11 +104,29 @@ that fails):
                ``tests/test_torch_train.py``); and the same backward with
                BN on its running statistics, every leaf within
                2e-3 * max|g|.
-10. a JSON line per kernel (launches on the serving slice, the raw
-   requests, the ICP request and the training steps, error, times, bound;
-   K3 forward and backward also per level, the backward on both clouds;
-   K4 also per pass on both inputs and at the ICP shape), the
-   ``nvidia-smi`` line again, then the result line.
+10. modes    — the JAX package's neighbour and sampling modes: K2's
+               capacity (query_mode "pallas"), expanded ("approx") and
+               bf16 instances bit for bit against their plain versions at
+               the four serving levels (and on an adversarial cloud whose
+               indices j, j+128, j+256 coincide, where the capacity result
+               must differ from the exact one on some rows, and at 12
+               off-path shapes), timed there beside the exact instance
+               (events, device, bound, plain, cdist+where+topk); K3's
+               expanded instance (interp_mode "exact" / "approx") at the
+               four FP levels; grouped FPS (G = 2, 4) against plain FPS on
+               the same slabs and against the CPU; then three full-width
+               requests in each deployment mode (query_mode "pallas";
+               "approx" with interp_mode "exact"; fps_groups 4;
+               query_compute "bf16"), every count set to 0 just before
+               and read just after, each mode's kernel instances launched,
+               median latency beside the exact mode's; and each mode on a
+               small frame card against CPU (forward 2e-3, poses 1e-4).
+11. a JSON line per kernel and kernel instance (launches on the serving
+   slice, the raw requests, the ICP request, the training steps and the
+   mode requests, error, times, bound; K2's instances and K3 forward and
+   backward also per level, the backward on both clouds; K4 also per pass
+   on both inputs and at the ICP shape), the ``nvidia-smi`` line again,
+   then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
@@ -116,6 +135,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -124,6 +144,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores, the rate every kernel here runs at.
 PEAK_BYTES = 3.35e12
@@ -155,8 +176,9 @@ def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
 
 # CUDA runtime calls that launch a kernel.
 _LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
-# Marker kernels launched at the start of each trace, not counted.
-_MARKERS = 4
+# Marker kernels launched at the start and at the end of each trace, not
+# counted: the launches whose device records a trace loses.
+_MARKERS = 16
 
 
 def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
@@ -169,8 +191,10 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     (copies are not held so: a memset of no bytes leaves no record).  On
     an H100 a trace loses device records, never runtime calls: once
     earlier phases have run, those of its first launches (which the
-    markers take), at times up to 6% of a 31,000-launch call's, and, in a
-    trace that also records the CPU, more (K4's ctypes launch among
+    markers take: up to 9 in [modes] on an H100), those of its last
+    launches (which the closing markers take: 4 of a 29,393-launch
+    sampled ICP call), at times up to 6% of a 31,000-launch call's, and,
+    in a trace that also records the CPU, more (K4's ctypes launch among
     them)."""
     from torch._C._autograd import DeviceType
     torch.cuda.synchronize()
@@ -180,6 +204,8 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
             torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
+        for _ in range(_MARKERS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     ev = prof.profiler.kineto_results.events()
     dev = [e for e in ev if e.device_type() == DeviceType.CUDA
@@ -187,7 +213,7 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     recorded = {e.correlation_id() for e in dev}
     calls = sorted((e for e in ev if e.device_type() != DeviceType.CUDA
                     and any(n in e.name() for n in _LAUNCH_CALLS)),
-                   key=lambda e: e.start_ns())[_MARKERS:]
+                   key=lambda e: e.start_ns())[_MARKERS:-_MARKERS]
     copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in dev)
     syncs = sum("Synchronize" in e.name() for e in ev
                 if e.device_type() != DeviceType.CUDA)
@@ -282,7 +308,15 @@ def phase_build() -> None:
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 log("build", line.strip())
-    log("build", f"{len(KERNELS)} kernels ready in {dt:.1f} s")
+    sources = len({k.source for k in KERNELS})
+    log("build", f"{len(KERNELS)} kernel instances of {sources} sources "
+        f"ready in {dt:.1f} s")
+
+
+def _expected_launches(**counts) -> dict:
+    """Every kernel instance's launch count: ``counts``, 0 for the rest."""
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    return {k.name: counts.get(k.name, 0) for k in KERNELS}
 
 
 def _err(a, b) -> float:
@@ -459,6 +493,35 @@ def _winner_passes():
     return per_pass, err
 
 
+def _k2_library(lvl, src, cen):
+    """K2's library composition, one unchunked call chain: distances, hit
+    indices (misses score N), the ns smallest, then the first-hit fill."""
+    d = torch.cdist(cen, src)
+    npts = src.shape[1]
+    iota = torch.arange(npts, device=src.device)
+    res = []
+    for r, ns in zip(lvl.radii, lvl.nsamples):
+        score = torch.where(d < r, iota, npts)
+        vals = torch.topk(score, ns, dim=-1, largest=False).values
+        found = vals < npts
+        first = torch.where(found[..., 0], vals[..., 0], 0)
+        res.append(torch.where(found, vals, first[..., None]))
+    return res
+
+
+def _k2_tests(outs, nsamples, npts) -> float:
+    """Pairs K2's scan must test on this run's data: per centroid, up to
+    the index of the last slot of the scale that fills last (all N if one
+    never fills)."""
+    tests = torch.zeros(outs[0].shape[:2], dtype=torch.float64,
+                        device=outs[0].device)
+    for o, ns in zip(outs, nsamples):
+        hits = (o != o[..., :1]).sum(-1) + 1
+        stop = torch.where(hits >= ns, o[..., -1].double() + 1, float(npts))
+        tests = torch.maximum(tests, stop)
+    return float(tests.sum())
+
+
 def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
@@ -518,36 +581,15 @@ def phase_kernels(rng):
             lvl.radii, lvl.nsamples, src, cen), reps=1)
         npts, m = src.shape[1], cen.shape[1]
 
-        def library():
-            # One unchunked composition: distances, hit indices (misses
-            # score N), the ns smallest, then the first-hit fill.
-            d = torch.cdist(cen, src)
-            iota = torch.arange(npts, device=dev)
-            res = []
-            for r, ns in zip(lvl.radii, lvl.nsamples):
-                score = torch.where(d < r, iota, npts)
-                vals = torch.topk(score, ns, dim=-1, largest=False).values
-                found = vals < npts
-                first = torch.where(found[..., 0], vals[..., 0], 0)
-                res.append(torch.where(found, vals, first[..., None]))
-            return res
-        level_lib = time_ms(library)
+        level_lib = time_ms(lambda: _k2_library(lvl, src, cen))
         lib += level_lib
         level_dev = device_ms(lambda: query.ball_query(
             lvl.radii, lvl.nsamples, src, cen))
         log("kernels", f"K2 query L{li} N={npts} m={m}: {level_ms:.4f} ms, "
             f"on the device {level_dev:.4f} ms (cdist+where+topk "
             f"{level_lib:.4f})")
-        # Pairs the scan must test: per centroid, up to the index of the
-        # last slot of the scale that fills last (all N if one never fills).
-        tests = torch.zeros(m, dtype=torch.float64, device=dev)
-        for o, ns in zip(got, lvl.nsamples):
-            hits = (o[0] != o[0, :, :1]).sum(1) + 1
-            full = hits >= ns
-            stop = torch.where(full, o[0, :, -1].double() + 1,
-                               float(npts))
-            tests = torch.maximum(tests, stop)
-        flops += float(tests.sum()) * (D2_FLOPS + len(lvl.radii))
+        flops += _k2_tests(got, lvl.nsamples, npts) * (D2_FLOPS
+                                                        + len(lvl.radii))
         n_bytes += npts * 12 + m * 12 + m * sum(lvl.nsamples) * 4
         shapes.append(f"L{li} N={npts} m={m} r={lvl.radii}")
     rec["query"] = dict(shapes=shapes, max_abs_err=err, tol="indices exact",
@@ -1144,8 +1186,7 @@ def phase_raw(smi: str, seed: int = 0):
         lat.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
     launches = {kern.name: kern.launches for kern in KERNELS}
-    want = {"fps": 3, "query": 12, "interp": 12, "interp_bwd": 0,
-            "winner": 9}
+    want = _expected_launches(fps=3, query=12, interp=12, winner=9)
     if launches != want:
         raise AssertionError(f"raw: launches {launches} over 3 requests, "
                              f"expected {want}")
@@ -1459,10 +1500,8 @@ def phase_icp(smi: str, seed: int = 0):
     torch.cuda.synchronize()
     icp_launches = {kern.name: kern.launches for kern in KERNELS}
     launches = {n: req_launches[n] + icp_launches[n] for n in req_launches}
-    want = {"fps": 1, "query": 4, "interp": 4, "interp_bwd": 0,
-            "winner": 3}
-    want_icp = {"fps": 0, "query": 0, "interp": 0, "interp_bwd": 0,
-                "winner": 2}
+    want = _expected_launches(fps=1, query=4, interp=4, winner=3)
+    want_icp = _expected_launches(winner=2)
     if req_launches != want or icp_launches != want_icp:
         raise AssertionError(f"icp: launches {req_launches} for the "
                              f"request and {icp_launches} for ICP, expected "
@@ -1718,7 +1757,8 @@ def phase_train(smi: str, seed: int = 0):
     _, metrics = accum_step(state, batch)
     accum_loss = float(metrics["loss"])
     accum_launches = {k.name: k.launches for k in KERNELS}
-    if accum_launches != {name: 2 * n for name, n in want.items()}:
+    if accum_launches != _expected_launches(
+            **{name: 2 * n for name, n in want.items()}):
         raise AssertionError(f"train: grad_accum 2 launched "
                              f"{accum_launches}")
     if not np.isfinite(accum_loss) or not accum_loss < losses[0]:
@@ -1902,6 +1942,410 @@ def phase_reference(seed: int = 1):
         f"{pose_err:.2e}, {pose_ms:.2f} ms on the card (median of 3)")
 
 
+# The JAX package's deployment modes that [modes] drives at full width,
+# and the kernel instances each must launch.
+DEPLOY_MODES = {
+    "query_mode=pallas": (dict(query_mode="pallas"),
+                          ("query_capacity", "interp")),
+    "query_mode=approx, interp_mode=exact": (
+        dict(query_mode="approx", interp_mode="exact"),
+        ("query_expanded", "interp_expanded")),
+    "fps_groups=4": (dict(fps_groups=4), ("fps", "query", "interp")),
+    "query_compute=bf16": (dict(query_compute="bf16"), ("query_bf16",)),
+}
+
+
+def _with_pointnet2(model_cfg, **over):
+    import dataclasses
+    return dataclasses.replace(model_cfg, pointnet2=dataclasses.replace(
+        model_cfg.pointnet2, **over))
+
+
+# What each K2 instance replaces: the Pallas kernel, or the XLA arm of
+# ball_query_multi (its bf16 cast at :109).
+_K2_REPLACES = {"query": "pvn3d_tpu/ops/pallas/query.py:118",
+                "query_capacity": "pvn3d_tpu/ops/pallas/query.py:118",
+                "query_expanded": "pvn3d_tpu/ops/grouping.py:88",
+                "query_bf16": "pvn3d_tpu/ops/grouping.py:109"}
+
+
+def _k2_variant(name, lvl, src, cen, capacity):
+    """(kernel call, plain call) of K2 instance ``name`` at one level."""
+    from pvn3d_tpu_torch.ops.kernels import query
+    r, ns = lvl.radii, lvl.nsamples
+    if name == "query_capacity":
+        return (lambda: query.ball_query(r, ns, src, cen, expanded=True,
+                                         capacity=capacity),
+                lambda: query.ball_query_capacity_plain(r, ns, src, cen,
+                                                        capacity))
+    kw = {"query": {}, "query_expanded": {"expanded": True},
+          "query_bf16": {"bf16": True}}[name]
+    return (lambda: query.ball_query(r, ns, src, cen, **kw),
+            lambda: query.ball_query_plain(r, ns, src, cen, **kw))
+
+
+def _k2_modes_levels(levels, pcfg, smi):
+    """K2's capacity, expanded and bf16 instances (bf16 in both d^2
+    forms) held bit for bit against their plain versions at the four
+    serving levels, and timed there beside the exact instance (events,
+    device, bound, plain, cdist+where+topk).  Returns {name: record}."""
+    from pvn3d_tpu_torch.ops.kernels import query
+    cap = pcfg.query_capacity
+    rec = {}
+    for name in ("query", "query_capacity", "query_expanded", "query_bf16"):
+        per_level = []
+        for li, lvl in enumerate(pcfg.sa_levels):
+            src, cen = levels[li], levels[li + 1]
+            kernel, plain = _k2_variant(name, lvl, src, cen, cap)
+            got = kernel()
+            if not _index_equal(got, plain()):
+                raise AssertionError(f"modes: K2 {name} L{li}: kernel "
+                                     f"differs from plain")
+            if name == "query_bf16":
+                r, ns = lvl.radii, lvl.nsamples
+                if not _index_equal(
+                        query.ball_query(r, ns, src, cen, expanded=True,
+                                         bf16=True),
+                        query.ball_query_plain(r, ns, src, cen,
+                                               expanded=True, bf16=True)):
+                    raise AssertionError(f"modes: K2 bf16 expanded L{li}: "
+                                         f"kernel differs from plain")
+            npts, m = src.shape[1], cen.shape[1]
+            n_bytes = npts * 12 + m * 12 + m * sum(lvl.nsamples) * 4
+            flops = _k2_tests(got, lvl.nsamples, npts) * (D2_FLOPS
+                                                          + len(lvl.radii))
+            lv = dict(level=f"L{li}", n=npts, m=m, C=0,
+                      ms=time_ms(kernel), device_ms=device_ms(kernel),
+                      plain_ms=time_ms(plain, reps=1),
+                      library_ms=time_ms(lambda: _k2_library(lvl, src,
+                                                             cen)),
+                      n_bytes=n_bytes, flops=flops)
+            lv["bound_ms"], lv["bound_by"] = bound_ms(n_bytes, flops)
+            per_level.append(lv)
+        rec[name] = _level_record(per_level, 0.0, "indices exact",
+                                  _K2_REPLACES[name])
+    for li in range(len(pcfg.sa_levels)):
+        ex = rec["query"]["levels"][li]
+        cp = rec["query_capacity"]["levels"][li]
+        log("modes", f"K2 L{li} N={ex['n']} m={ex['m']}: capacity "
+            f"{cap} {cp['ms']:.4f} ms, on the device {cp['device_ms']:.4f} "
+            f"ms, bound {cp['bound_ms']:.4f} ms ({cp['bound_by']}) | exact "
+            f"{ex['ms']:.4f} ms, on the device {ex['device_ms']:.4f} ms, "
+            f"bound {ex['bound_ms']:.4f} ms | expanded "
+            f"{rec['query_expanded']['levels'][li]['device_ms']:.4f}, bf16 "
+            f"{rec['query_bf16']['levels'][li]['device_ms']:.4f} ms on the "
+            f"device; cdist+where+topk {ex['library_ms']:.4f} ms ({smi})")
+    for name, r in rec.items():
+        log("modes", f"K2 {name} x4 levels: equal to plain; {r['ms']:.4f} "
+            f"ms, on the device {r['device_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); plain "
+            f"{r['plain_ms']:.3f}, cdist+where+topk {r['library_ms']:.4f}")
+    return rec
+
+
+def _k2_modes_edges(rng, levels, pcfg):
+    """The capacity instance on an adversarial cloud (indices j, j + 128
+    and j + 256 co-located, so capacity 2 drops hits) and every K2
+    instance at shapes off the serving path."""
+    from pvn3d_tpu_torch.ops.kernels import fps, query
+    dev = levels[0].device
+    lvl0 = pcfg.sa_levels[0]
+    adv = levels[0].clone()
+    for b0 in range(0, adv.shape[1] - 383, 384):
+        adv[:, b0 + 128:b0 + 256] = adv[:, b0:b0 + 128]
+        adv[:, b0 + 256:b0 + 384] = adv[:, b0:b0 + 128]
+    cen = adv[:, fps.fps(adv, lvl0.npoint)[0].long()]
+    r, ns, cap = lvl0.radii, lvl0.nsamples, pcfg.query_capacity
+    got = query.ball_query(r, ns, adv, cen, expanded=True, capacity=cap)
+    if not _index_equal(got, query.ball_query_capacity_plain(r, ns, adv, cen,
+                                                             cap)):
+        raise AssertionError("modes: K2 capacity on the adversarial cloud "
+                             "differs from plain")
+    exact = query.ball_query(r, ns, adv, cen)
+    differ = [int((g != e).any(-1).sum()) for g, e in zip(got, exact)]
+    if not all(d > 0 for d in differ):
+        raise AssertionError(f"modes: the adversarial cloud's capacity "
+                             f"result equals the exact one ({differ})")
+    log("modes", f"adversarial cloud N={adv.shape[1]} (j, j+128, j+256 "
+        f"co-located), m={cen.shape[1]}: capacity {cap} equals plain; rows "
+        f"differing from the exact K2 per scale {differ}")
+
+    def cloud(b, n, scale=0.3):
+        return torch.tensor((rng.rand(b, n, 3).astype(np.float32) - 0.5)
+                            * scale, device=dev)
+    depth = levels[0]
+    cases = [  # (points, centroids, radii, nsamples, capacity)
+        ("N=1000, m=77", cloud(1, 1000), (0.05, 0.1), (16, 32), 2, 77),
+        ("B=2 N=4097, m=1001", cloud(2, 4097), (0.03, 0.06), (16, 32), 1,
+         1001),
+        ("N=130, m=5, ns=64", cloud(1, 130), (0.2,), (64,), 3, 5),
+        ("depth N=12288, m=333", depth, lvl0.radii, lvl0.nsamples, 3, 333),
+        ("N=129, 3 scales", cloud(1, 129), (0.1, 0.2, 0.4), (8, 16, 64), 2,
+         7),
+        ("B=2 N=640, r=0.5 (every point hits)", cloud(2, 640), (0.5,),
+         (64,), 1, 64),
+        ("N=12000, m=2048", cloud(1, 12000, 0.6), (0.0175, 0.025), (16, 32),
+         2, 2048),
+        ("N=32 < ns", cloud(1, 32), (1.0,), (64,), 2, 3),
+        ("B=2 N=3000, 4 scales", cloud(2, 3000), (0.05, 0.1, 0.2, 0.3),
+         (4, 8, 16, 64), 3, 513),
+        ("r=0: empty balls", cloud(1, 2048), (0.0,), (16,), 2, 2),
+        ("N=777, ns=48", cloud(1, 777), (0.08,), (48,), 1, 100),
+        ("N=6000, ns=64", cloud(1, 6000), (0.02, 0.04), (32, 64), 2, 1500),
+    ]
+    for name, pts, radii, nss, c, m in cases:
+        cen = pts[:, :m] + 0.001
+        checks = {
+            "capacity": (query.ball_query(radii, nss, pts, cen,
+                                          expanded=True, capacity=c),
+                         query.ball_query_capacity_plain(radii, nss, pts,
+                                                         cen, c)),
+            "expanded": (query.ball_query(radii, nss, pts, cen,
+                                          expanded=True),
+                         query.ball_query_plain(radii, nss, pts, cen,
+                                                expanded=True)),
+            "bf16": (query.ball_query(radii, nss, pts, cen, bf16=True),
+                     query.ball_query_plain(radii, nss, pts, cen,
+                                            bf16=True)),
+            "bf16 expanded": (query.ball_query(radii, nss, pts, cen,
+                                               expanded=True, bf16=True),
+                              query.ball_query_plain(radii, nss, pts, cen,
+                                                     expanded=True,
+                                                     bf16=True)),
+        }
+        for kind, (a, b) in checks.items():
+            if not _index_equal(a, b):
+                raise AssertionError(f"modes: K2 {kind} {name} (capacity "
+                                     f"{c}) differs from plain")
+    log("modes", f"{len(cases)} off-path shapes (N not a multiple of 128, "
+        f"m not a multiple of 4, ns up to 64, capacity 1-3, 1-4 scales): "
+        f"K2 capacity, expanded, bf16 and bf16 expanded equal their plain "
+        f"versions")
+
+
+def _k3_expanded_levels(rng, levels, known_c, smi):
+    """K3's expanded instance at the four FP levels: held against its
+    plain version as the fused one is, timed beside it."""
+    from pvn3d_tpu_torch.ops.kernels import interp
+    dev = levels[0].device
+    per_level = []
+    err = 0.0
+    for li in range(3, -1, -1):
+        unk, kn = levels[li], levels[li + 1]
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        feats = torch.tensor(rng.randn(1, nk, c).astype(np.float32),
+                             device=dev)
+        got = interp.three_interpolate_fused(unk, kn, feats, expanded=True)
+        want = interp.three_interpolate_plain(unk, kn, feats, expanded=True)
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError(f"modes: K3 expanded fp{li}: indices "
+                                 f"differ")
+        e = _err(got[:2], want[:2])
+        if e > 1e-5:
+            raise AssertionError(f"modes: K3 expanded fp{li}: max abs err "
+                                 f"{e}")
+        err = max(err, e)
+        same = float((got[2] == interp.three_interpolate_fused(
+            unk, kn, feats)[2]).all(-1).float().mean())
+
+        def kernel():
+            return interp.three_interpolate_fused(unk, kn, feats,
+                                                  expanded=True)
+
+        def library():
+            d, i = torch.topk(torch.cdist(unk, kn), 3, largest=False)
+            w = 1.0 / (d + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            return (feats[0][i[0]] * w[0, :, :, None]).sum(1)
+        n_bytes = nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
+        flops = nu * nk * (D2_FLOPS + 1) + nu * c * 5
+        lvl = dict(level=f"fp{li}", n=nu, m=nk, C=c, ms=time_ms(kernel),
+                   device_ms=device_ms(kernel),
+                   fused_device_ms=device_ms(
+                       lambda: interp.three_interpolate_fused(unk, kn,
+                                                              feats)),
+                   plain_ms=time_ms(lambda: interp.three_interpolate_plain(
+                       unk, kn, feats, expanded=True), reps=1),
+                   library_ms=time_ms(library), n_bytes=n_bytes,
+                   flops=flops, rows_same_as_direct=same)
+        lvl["bound_ms"], lvl["bound_by"] = bound_ms(n_bytes, flops)
+        per_level.append(lvl)
+        log("modes", f"K3 expanded fp{li} n={nu} m={nk} C={c}: idx equal, "
+            f"max err {e:.2e}; {lvl['ms']:.4f} ms, on the device "
+            f"{lvl['device_ms']:.4f} ms (direct form "
+            f"{lvl['fused_device_ms']:.4f}), bound {lvl['bound_ms']:.4f} ms "
+            f"({lvl['bound_by']}); plain {lvl['plain_ms']:.3f}, "
+            f"cdist+topk+gather {lvl['library_ms']:.4f}; rows with the "
+            f"direct form's neighbours {same:.4f} ({smi})")
+    return _level_record(per_level, err, "indices exact, out/dist 1e-5",
+                         "pvn3d_tpu/ops/interpolate.py:23")
+
+
+def _grouped_fps(xyz, m0, smi):
+    """Grouped FPS (G = 2, 4): K1 on the slabs against plain FPS on the
+    same slabs, the whole grouped sample on the card against the CPU, and
+    its time beside exact FPS."""
+    from pvn3d_tpu_torch.ops import sampling
+    from pvn3d_tpu_torch.ops.kernels import fps
+    n = xyz.shape[1]
+    exact_ms = time_ms(lambda: fps.fps(xyz, m0))
+    exact_dev = device_ms(lambda: fps.fps(xyz, m0))
+    for g in (2, 4):
+        spread = xyz.amax(1) - xyz.amin(1)
+        ax = torch.argmax(spread, dim=1)
+        key = torch.gather(xyz, 2, ax[:, None, None].expand(-1, n, 1))[..., 0]
+        order = torch.sort(key, dim=1, stable=True).indices
+        slabs = torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3)
+                             ).reshape(g, n // g, 3).contiguous()
+        if not torch.equal(fps.fps(slabs, m0 // g),
+                           fps.fps_plain(slabs, m0 // g)):
+            raise AssertionError(f"modes: K1 on {g} slabs differs from "
+                                 f"plain")
+        got = sampling.furthest_point_sample(xyz, m0, groups=g)
+        want = sampling.furthest_point_sample(xyz.cpu(), m0, groups=g)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"modes: grouped FPS G={g} on the card "
+                                 f"differs from the CPU")
+        ms = time_ms(lambda: sampling.furthest_point_sample(xyz, m0,
+                                                            groups=g))
+        # K1 alone: traces of the whole sample (sort, gathers, copies)
+        # taken after the earlier phases lose their first device records.
+        k1_ms = device_ms(lambda: fps.fps(slabs, m0 // g))
+        log("modes", f"grouped FPS G={g}: K1 on ({g}, {n // g}, 3) slabs "
+            f"equals plain, the sample equals the CPU's; {ms:.3f} ms "
+            f"(sort + K1 + gathers; K1 on the device {k1_ms:.3f}) against "
+            f"exact FPS {exact_ms:.3f} ms, on the device {exact_dev:.3f} "
+            f"({smi})")
+
+
+def _request_card_vs_cpu(over, seed: int = 1):
+    """A small float32 frame through ``make_inference_step`` in a mode on
+    the card (kernels) and on the CPU (plain versions), same weights and
+    frame: (forward max err, seg agreement, pose max err, present)."""
+    from pvn3d_tpu_torch.config import Config, small_model_config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    mcfg = _with_pointnet2(small_model_config(), **over)
+    cfg = Config(model=mcfg)
+    batch = synthetic_batch(cfg, batch_size=1, seed=seed)
+    batch["pointcloud"][..., :3] = depth_cloud(
+        np.random.RandomState(seed), mcfg.n_sample_points)[None] * 0.3
+    fwd, req = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(mcfg, seed).to(dev)
+        with torch.inference_mode():
+            fwd[dev] = model(*(torch.as_tensor(batch[k], device=dev)
+                               for k in ("pointcloud", "rgb", "choose")))
+        step = make_inference_step(cfg, model, stacked_mesh_kps(),
+                                   stacked_class_radii(), device=dev)
+        req[dev] = step(batch)
+    err = max(float((fwd["cuda"][k].cpu() - fwd["cpu"][k]).abs().max())
+              for k in ("seg_logits", "kp_offsets", "ctr_offsets"))
+    agree = float((fwd["cuda"]["seg_logits"].argmax(-1).cpu()
+                   == fwd["cpu"]["seg_logits"].argmax(-1)).float().mean())
+    present = req["cpu"]["present"]
+    if not torch.equal(req["cuda"]["present"].cpu(), present):
+        raise AssertionError(f"modes {over}: present differs card vs CPU")
+    pose_err = float((req["cuda"]["poses"].cpu()
+                      - req["cpu"]["poses"]).abs().max())
+    return err, agree, pose_err, int(present.sum())
+
+
+def phase_modes(smi: str, seed: int = 0):
+    """The JAX package's neighbour and sampling modes on the card.  K2's
+    capacity, expanded and bf16 instances and K3's expanded one held bit
+    for bit against their plain versions at the serving levels (and K2's
+    on an adversarial cloud and 12 off-path shapes), grouped FPS against
+    plain FPS on the same slabs, times beside the default instances; then
+    one full-width request in each deployment mode (``Config.ycb()``,
+    seeded random weights, three requests, every count set to 0 just
+    before and read just after, each mode's instances launched) beside the
+    exact mode's, and each mode card against CPU on a small frame
+    (forward 2e-3, poses 1e-4).  Returns (records, launches)."""
+    import dataclasses
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.models.pvn3d import PVN3D
+    from pvn3d_tpu_torch.ops.kernels import KERNELS, fps
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    rng = np.random.RandomState(seed + 7)
+    cfg = Config.ycb()
+    pcfg = cfg.model.pointnet2
+    dev = torch.device("cuda")
+    xyz = torch.tensor(depth_cloud(rng, cfg.model.n_sample_points)[None],
+                       device=dev)
+    m0 = pcfg.sa_levels[0].npoint
+    pts = xyz[0, fps.fps(xyz, m0)[0].long()][None]
+    levels = [xyz] + [pts[:, :lvl.npoint].contiguous()
+                      for lvl in pcfg.sa_levels]
+    rec = _k2_modes_levels(levels, pcfg, smi)
+    _k2_modes_edges(rng, levels, pcfg)
+    widths = [sum(m[-1] for m in lvl.mlps) for lvl in pcfg.sa_levels]
+    known_c = [pcfg.fp_mlps[i + 1][-1] if i < 3 else widths[3]
+               for i in range(4)]
+    rec["interp_expanded"] = _k3_expanded_levels(rng, levels, known_c, smi)
+    _grouped_fps(xyz, m0, smi)
+
+    base = build_model(cfg.model, seed)
+    state = base.state_dict()
+    mesh_kps, radii = stacked_mesh_kps(), stacked_class_radii()
+    batches = [synthetic_batch(cfg, batch_size=1, seed=100 + i)
+               for i in range(3)]
+    launches = {k.name: 0 for k in KERNELS}
+    lat = {}
+    for name, (over, instances) in [("exact", ({}, ()))] + list(
+            DEPLOY_MODES.items()):
+        mcfg = dataclasses.replace(cfg, model=_with_pointnet2(cfg.model,
+                                                              **over))
+        model = PVN3D(mcfg.model)
+        model.load_state_dict(state, strict=True)
+        step = make_inference_step(mcfg, model, mesh_kps, radii)
+        step(batches[0])                                    # warm-up
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        times = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(out["poses"]).all()):
+                raise AssertionError(f"modes {name}: non-finite poses")
+        counts = {k.name: k.launches for k in KERNELS}
+        for inst in instances:
+            if counts[inst] < 3:
+                raise AssertionError(f"modes {name}: {inst} launched "
+                                     f"{counts[inst]} times in 3 requests")
+        if name != "exact":
+            for k, v in counts.items():
+                launches[k] += v
+        lat[name] = statistics.median(times)
+        log("modes", f"{name}: 3 full-width requests, median "
+            f"{lat[name]:.2f} ms (exact mode "
+            f"{lat.get('exact', lat[name]):.2f} ms in this call); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        del model, step
+    for name, (over, _) in DEPLOY_MODES.items():
+        err, agree, pose_err, present = _request_card_vs_cpu(over)
+        if err > 2e-3 or agree <= 0.999 or pose_err > 1e-4:
+            raise AssertionError(f"modes {name}: card vs CPU forward err "
+                                 f"{err}, seg agreement {agree}, pose err "
+                                 f"{pose_err}")
+        log("modes", f"{name}: small frame card vs CPU plain: forward max "
+            f"err {err:.2e}, seg agreement {agree:.4f}, poses max err "
+            f"{pose_err:.2e} ({present} classes present)")
+    rec["latency_ms"] = lat
+    return rec, launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1913,32 +2357,38 @@ def main() -> int:
     icp_launches, k4_icp = phase_icp(smi)
     phase_reference()
     train_launches = phase_train(smi)
+    modes_rec, modes_launches = phase_modes(smi)
+    rec.update({k: v for k, v in modes_rec.items() if k != "query"})
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
         r = rec[k.name]
         bound, by = r["bound"]
         # Launches: over the serving slice's three requests, the raw
-        # path's three requests, one raw request with ICP in both modes
-        # and the training path's three steps, each counted from 0.
+        # path's three requests, one raw request with ICP in both modes,
+        # the training path's three steps and three requests in each of
+        # the [modes] phase's deployment modes, each counted from 0.
         total = (launches[k.name] + raw_launches[k.name]
-                 + icp_launches[k.name] + train_launches[k.name])
+                 + icp_launches[k.name] + train_launches[k.name]
+                 + modes_launches[k.name])
         if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
             "name": k.name, "route": "cuda",
-            "source": f"pvn3d_tpu_torch/csrc/{k.name}.cu",
+            "source": os.path.relpath(k.source, ROOT),
             "replaces": r["replaces"],
             "launches": total,
             "launches_serving": launches[k.name],
             "launches_raw": raw_launches[k.name],
             "launches_icp": icp_launches[k.name],
             "launches_training": train_launches[k.name],
+            "launches_modes": modes_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})
         if "levels" in r:
-            # K3: the sums' parts, one record per level (fp3 .. fp0).
+            # K2's mode instances and K3: the sums' parts, one record per
+            # level (L0 .. L3, fp3 .. fp0).
             line[-1]["device_ms"] = r["device_ms"]
             line[-1]["levels"] = r["levels"]
         if k.name == "winner":

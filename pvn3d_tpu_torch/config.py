@@ -3,14 +3,56 @@
 The dataclasses, defaults and ``Config.ycb()`` are field-for-field the JAX
 package's (``tests/test_torch_weights.py::test_config_copy_matches`` holds
 ``dataclasses.asdict`` of both equal), so one config describes both.
-Knobs that only shape the TPU program (``fps_mode``, ``query_capacity``,
-``resize_method``, ``fuse_upsample``, ``sparse_cnn_eval``,
-``head_split_global``, the ``*_precompute_first`` restructures) are kept
-as fields; the port runs the dense reference graph with exact point ops,
-which those restructures equal up to summation order.  The values the port cannot honour
-(``fps_groups != 1``, ``query_compute != "f32"``, ``query_mode`` "approx"
-or "pallas", ``interp_mode`` "approx") raise in
-``models.pvn3d.check_supported``.
+Knobs that only shape the TPU program (``fps_mode``, ``resize_method``,
+``fuse_upsample``, ``sparse_cnn_eval``, ``head_split_global``, the
+``*_precompute_first`` restructures) are kept as fields; the port runs the
+dense reference graph, which those restructures equal up to summation
+order.  ``fusion_dim`` is documentation only: the fusion and the heads
+take their widths from the two branches (``models/pvn3d.py``).
+
+The neighbour and sampling modes run as in the JAX package, each through
+its own kernel instance on the card (``ops/kernels/__init__.py`` names
+them) and its plain version on the CPU, and each is held against the JAX
+arm named here on the CPU (``tests/test_torch_modes.py``):
+
+=========================  =================================  ==============
+setting                    JAX arm (off a TPU)                port on the card
+=========================  =================================  ==============
+query_mode auto / exact    ball_query_multi(mode="exact"):    K2 exact
+                           direct d^2, first ns hits
+query_mode pallas          ball_query_pallas(capacity=        K2 capacity
+                           query_capacity): expanded d^2, at
+                           most C hits per residue class
+                           (index % 128), then first ns;
+                           query_compute ignored
+query_mode approx          ball_query_multi(mode="approx"):   K2 expanded
+                           expanded d^2, first ns (off a TPU
+                           approx_min_k is exact, so
+                           query_recall has no effect; the
+                           TPU's recall-limited reduction has
+                           no counterpart elsewhere)
+query_compute bf16         coordinates rounded to bf16        K2 bf16
+(exact / approx)           (nearest even), same f32 d^2
+interp_mode auto / pallas  three_interpolate_fused: direct    K3 fused
+                           d^2, (d^2, index) order
+interp_mode exact /        three_nn + idw_weights +           K3 expanded
+approx                     three_interpolate: expanded d^2,
+                           lowest index on ties,
+                           sqrt(max(d^2, 0))
+fps_groups G > 1           _fps_grouped: stable sort on the   K1 on (B*G, N/G)
+                           widest axis, G slabs, FPS of m/G   rows
+                           each; slab_sorted after level 0;
+                           fps_prefix only when G == 1
+=========================  =================================  ==============
+
+``query_mode`` is resolved per phase by
+``models.pointnet2.resolve_query_mode`` with the backend "cuda", where
+"auto" passes through to the exact query in training and evaluation.
+``models.pvn3d.check_supported`` raises on an unknown mode or query dtype
+and on a ``fps_groups`` that does not divide the point count and every
+level's npoint.  The accuracy figures in the field comments below are the
+JAX package's records on its synthetic world, not the port's
+(``PERF.md`` section 6 has the port's).
 """
 from __future__ import annotations
 
@@ -101,25 +143,28 @@ class PointNet2Config:
     """PointNet++ MSG semantic-seg trunk (reference: pvn3d.py:46-154)."""
     input_channels: int = 6          # rgb + normal features per point
     use_xyz: bool = True
-    # Neighbor-selection mode: "exact", "approx", "pallas" (fused
-    # residue-class ball-query kernel, ops/pallas/query.py), or "auto" —
-    # which is TRAIN/EVAL-aware on TPU: approx while training, pallas at
-    # eval (exact elsewhere).  Measured r4: training through the pallas
-    # kernel's capacity-limited neighbor sets costs ~12 synthetic-e2e
-    # ADD-AUC, while at eval it is the best arm (models/pointnet2.py).
+    # Neighbor-selection mode: "exact", "approx", "pallas" (the
+    # residue-class ball query, ops/pallas/query.py of the JAX package;
+    # K2's capacity instance here), or "auto".  In the JAX package "auto"
+    # is TRAIN/EVAL-aware on TPU (approx while training, pallas at eval)
+    # and exact elsewhere; on the port's CUDA backend it is exact
+    # (resolve_query_mode).  JAX package's record (r4, synthetic e2e):
+    # training through pallas's capacity-limited neighbor sets cost ~12
+    # ADD-AUC, while at eval it was its best arm (33.8 vs exact 33.0 /
+    # approx 32.6 on one checkpoint).
     query_mode: str = "auto"
-    # FP-stage 3-NN interpolation kernel, independent of the ball query:
-    # "auto" resolves to the fused exact 3-NN+IDW pallas kernel on TPU
-    # (ops/pallas/interp.py — exact, grads match XLA) and to exact top_k
-    # elsewhere; "exact"/"approx" force the XLA three_nn formulation,
-    # "pallas" forces the fused kernel.
+    # FP-stage 3-NN interpolation, independent of the ball query: "auto"
+    # and "pallas" run the fused exact 3-NN + IDW kernel (direct d^2; K3);
+    # "exact"/"approx" the XLA three_nn formulation (expanded d^2; K3's
+    # expanded instance here).  In the JAX package "auto" is the fused
+    # kernel on TPU or under query_mode "pallas", XLA three_nn elsewhere.
     interp_mode: str = "auto"
     # Sharded FPS: sort by the widest axis, cut into G contiguous
     # equal-count slabs, run G parallel FPS chains of m/G steps each
     # (ops/sampling.py::_fps_grouped).  1 = reference-exact serial FPS.
     # G=4 cuts the serial chain of dependent steps 4x; covering radius
-    # measured ~1.12x exact greedy.
-    # MEASURED accuracy cost on the synthetic e2e world (600-step
+    # measured ~1.12x exact greedy (JAX package).
+    # JAX package's accuracy record on its synthetic e2e world (600-step
     # training, benchmarks/synthetic_e2e.py): exact ADD-AUC 33.5 /
     # seg 0.854; trained+evaled with G=4: 24.7 / 0.757; weights trained
     # exact but evaled G=4: 19.1 / 0.686.  Latency-for-accuracy trade —
@@ -142,7 +187,9 @@ class PointNet2Config:
     # mag<=1e-3 skip quirk is per-point and subset-independent, so it
     # preserves the property).  Exact mode only (fps_groups == 1).
     fps_prefix: bool = True
-    # approx_min_k recall_target for approx-mode ball query.  The cost is
+    # approx_min_k recall_target for approx-mode ball query (no effect
+    # off a TPU, where approx_min_k is exact; the notes below are the JAX
+    # package's TPU records).  The cost is
     # almost entirely the exact-aggregation phase over the reduction
     # buffer, whose width is recall-driven: at L0 (N=12288, k=32) 0.99
     # keeps 6144 candidates while 0.95 keeps 768 (8x fewer) and 0.98
@@ -153,12 +200,14 @@ class PointNet2Config:
     # 28.1 / seg 0.854 -> 0.829 on the synthetic e2e world — keep 0.99
     # unless weights were trained at the lower recall (see CLAUDE.md).
     query_recall: float = 0.99
-    # Per-residue-class candidate capacity for the pallas query kernel
-    # (ops/pallas/query.py): exact first-k whenever no residue class
-    # (index % 128) holds more than this many of the first k hits.
-    # Measured on the realistic plane+blobs scanline cloud (L0 shapes):
-    # capacity 2 -> neighbor-set recall 0.9986/0.9998 (scales 1/2),
-    # >= the approx path at recall_target 0.99; capacity 3 -> 0.9987/1.0.
+    # Per-residue-class candidate capacity of the "pallas" ball query
+    # (ops/pallas/query.py; K2's capacity instance here): a hit is kept
+    # iff fewer than this many earlier hits share its index % 128, so the
+    # result is the exact first-k whenever no class holds more than this
+    # many of the first k hits.  JAX package's record on the realistic
+    # plane+blobs scanline cloud (L0 shapes): capacity 2 -> neighbor-set
+    # recall 0.9986/0.9998 (scales 1/2), >= the approx path at
+    # recall_target 0.99; capacity 3 -> 0.9987/1.0.
     query_capacity: int = 2
     # Eval-only SA restructure: compute the first SharedMLP layer's
     # feature term per source point BEFORE the neighborhood gather
@@ -174,10 +223,12 @@ class PointNet2Config:
     # up to f32 reassociation; equivalence-tested.
     fp_precompute_first: bool = True
     # Distance-matrix dtype for ball query: "f32" (reference parity) or
-    # "bf16" (halved MXU/HBM cost).  MEASURED on the synthetic e2e world
-    # with exact-trained weights: eval under bf16 collapsed seg 0.854 ->
-    # 0.591 (radius-boundary membership churn at 8-bit mantissa) — keep
-    # f32 on the accuracy path; bf16 only for throughput screening.
+    # "bf16" (halved MXU/HBM cost on a TPU; here the coordinates rounded
+    # to bf16 before the same f32 arithmetic, ignored under "pallas").
+    # JAX package's record on its synthetic e2e world with exact-trained
+    # weights: eval under bf16 collapsed seg 0.854 -> 0.591
+    # (radius-boundary membership churn at 8-bit mantissa) — keep f32 on
+    # the accuracy path; bf16 only for throughput screening.
     query_compute: str = "f32"
     sa_levels: Tuple[SALevelConfig, ...] = (
         SALevelConfig(2048, (0.0175, 0.025), (16, 32),

@@ -9,6 +9,14 @@
 // d^2 = 1e30 (the reference's initialised slots), so their weight is ~0.
 // Returns out (B, n, C), dist (B, n, 3) and idx (B, n, 3).
 //
+// The expanded instance (kExpanded) is the XLA arm of the JAX package's
+// interp_mode "exact" / "approx" (pvn3d_tpu/ops/interpolate.py:22-70:
+// three_nn, then idw_weights and three_interpolate): d^2 in the expanded
+// form (|u|^2 - 2 u.k) + |k|^2, the same (d^2, index) order (top_k puts
+// the lower index first on ties; approx_min_k off a TPU is exact), and
+// dist = sqrt(max(d^2, 0)), since the expanded d^2 can be negative.  The
+// blend, and the backward kernel, are the same for both forms.
+//
 // Bound: bytes.  The n*C float32 output (fp0: 12.6 MB) and the n*m
 // direct-form distance tests (fp0: 12288 x 2048 = 25M, ~9 flops each) are
 // both a few microseconds of the card; what held the first kernel back was
@@ -33,8 +41,10 @@
 //   is not 16-byte aligned.  The TPU kernel's blend was a bf16 MXU matmul;
 //   this one is float32.
 //
-// d^2 is ((dx*dx)+(dy*dy))+(dz*dz) with round-to-nearest intrinsics: no FMA
-// contraction, so neighbour order equals the plain version's.
+// d^2 is ((dx*dx)+(dy*dy))+(dz*dz), or in the expanded instance each norm
+// and u.k as ((x*x)+(y*y))+(z*z) and then (|u|^2 - 2 u.k) + |k|^2, with
+// round-to-nearest intrinsics: no FMA contraction, so neighbour order
+// equals the plain version's.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -59,6 +69,12 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
   const float dz = __fsub_rn(az, bz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
+                   __fmul_rn(az, bz));
 }
 
 // Running top-3 over a lane's subset, scanned in index order: strict '<'
@@ -128,7 +144,7 @@ __device__ __forceinline__ float blend(float w0, float a, float w1, float b,
                    __fmul_rn(w2, c));
 }
 
-template <int R, bool kVec>
+template <int R, bool kVec, bool kExpanded>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     three_interp_kernel(const float* __restrict__ unknown,
                         const float* __restrict__ known,
@@ -142,7 +158,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int b = blockIdx.y;
   const float* kp = known + static_cast<size_t>(b) * m * 3;
 
-  float ux[R], uy[R], uz[R];
+  float ux[R], uy[R], uz[R], usq[R];
   Top3 t[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -151,6 +167,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     ux[r] = __ldg(u);
     uy[r] = __ldg(u + 1);
     uz[r] = __ldg(u + 2);
+    usq[r] = dot3(ux[r], uy[r], uz[r], ux[r], uy[r], uz[r]);
     t[r] = Top3{kEmpty, kEmpty, kEmpty, kNone, kNone, kNone};
   }
 #pragma unroll 4
@@ -158,9 +175,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     const float kx = __ldg(kp + 3 * j);
     const float ky = __ldg(kp + 3 * j + 1);
     const float kz = __ldg(kp + 3 * j + 2);
+    const float ksq = dot3(kx, ky, kz, kx, ky, kz);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      insert(t[r], sqdist(ux[r], uy[r], uz[r], kx, ky, kz), j);
+      if constexpr (kExpanded) {
+        const float cross = dot3(ux[r], uy[r], uz[r], kx, ky, kz);
+        insert(t[r],
+               __fadd_rn(__fsub_rn(usq[r], __fmul_rn(2.f, cross)), ksq), j);
+      } else {
+        insert(t[r], sqdist(ux[r], uy[r], uz[r], kx, ky, kz), j);
+      }
     }
   }
 
@@ -219,17 +243,40 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
-template <int R>
+template <int R, bool kExpanded>
 void launch_rows(dim3 grid, dim3 block, bool vec, cudaStream_t stream,
                  const float* unknown, const float* known, const float* feats,
                  int n, int m, int c, float eps, float* out, float* dist,
                  int* idx) {
   if (vec) {
-    three_interp_kernel<R, true><<<grid, block, 0, stream>>>(
+    three_interp_kernel<R, true, kExpanded><<<grid, block, 0, stream>>>(
         unknown, known, feats, n, m, c, eps, out, dist, idx);
   } else {
-    three_interp_kernel<R, false><<<grid, block, 0, stream>>>(
+    three_interp_kernel<R, false, kExpanded><<<grid, block, 0, stream>>>(
         unknown, known, feats, n, m, c, eps, out, dist, idx);
+  }
+}
+
+template <bool kExpanded>
+bool launch_form(int rows, dim3 grid, dim3 block, bool vec,
+                 cudaStream_t stream, const float* unknown,
+                 const float* known, const float* feats, int n, int m, int c,
+                 float eps, float* out, float* dist, int* idx) {
+  switch (rows) {
+    case 1:
+      launch_rows<1, kExpanded>(grid, block, vec, stream, unknown, known,
+                                feats, n, m, c, eps, out, dist, idx);
+      return true;
+    case 2:
+      launch_rows<2, kExpanded>(grid, block, vec, stream, unknown, known,
+                                feats, n, m, c, eps, out, dist, idx);
+      return true;
+    case 4:
+      launch_rows<4, kExpanded>(grid, block, vec, stream, unknown, known,
+                                feats, n, m, c, eps, out, dist, idx);
+      return true;
+    default:
+      return false;
   }
 }
 
@@ -237,11 +284,12 @@ void launch_rows(dim3 grid, dim3 block, bool vec, cudaStream_t stream,
 
 // rows: unknown rows per warp (1, 2 or 4); warps: warps per block (1-4).
 // The wrapper (ops/kernels/interp.py::forward_grid) chooses both.
+// expanded: 0 for the direct d^2, 1 for the expanded form.
 extern "C" int three_interp_launch(const float* unknown, const float* known,
                                    const float* feats, int b, int n, int m,
                                    int c, float eps, int rows, int warps,
                                    float* out, float* dist, int* idx,
-                                   cudaStream_t stream) {
+                                   int expanded, cudaStream_t stream) {
   if (warps < 1 || warps > kMaxWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -250,22 +298,13 @@ extern "C" int three_interp_launch(const float* unknown, const float* known,
   const bool vec = (c % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(feats) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  switch (rows) {
-    case 1:
-      launch_rows<1>(grid, block, vec, stream, unknown, known, feats, n, m,
-                     c, eps, out, dist, idx);
-      break;
-    case 2:
-      launch_rows<2>(grid, block, vec, stream, unknown, known, feats, n, m,
-                     c, eps, out, dist, idx);
-      break;
-    case 4:
-      launch_rows<4>(grid, block, vec, stream, unknown, known, feats, n, m,
-                     c, eps, out, dist, idx);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool ok =
+      expanded ? launch_form<true>(rows, grid, block, vec, stream, unknown,
+                                   known, feats, n, m, c, eps, out, dist, idx)
+               : launch_form<false>(rows, grid, block, vec, stream, unknown,
+                                    known, feats, n, m, c, eps, out, dist,
+                                    idx);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,9 @@ ported.  Module names are the reference checkpoint's top-level keys
 (``cnn.model``, ``pointnet2``, ``rgbd_feat``, ``SEG_layer``,
 ``KpOF_layer``, ``CtrOf_layer``), so ``state_dict()`` loads a reference
 checkpoint and ``utils.weights.from_jax_variables`` maps JAX weights in.
+The fusion and the heads take their input widths from the two branches'
+(``cnn.embedding_dim``, ``fp_mlps[0][-1]``), not from ``fusion_dim``, as
+the JAX package's modules infer them.
 """
 from __future__ import annotations
 
@@ -24,50 +27,53 @@ from pvn3d_tpu_torch.config import ModelConfig
 from pvn3d_tpu_torch.models.layers import Conv1x1BN, linear
 from pvn3d_tpu_torch.models.pointnet2 import PointNet2MSG
 from pvn3d_tpu_torch.models.pspnet import PSPNetEmbedding
+from pvn3d_tpu_torch.ops.grouping import QUERY_COMPUTE, QUERY_MODES
+from pvn3d_tpu_torch.ops.interpolate import INTERP_MODES
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-# Neighbour modes whose JAX arms are not the exact ones the port runs: the
-# approximate top-k ball query, the capacity-limited Pallas ball query
-# (exact only while no residue class holds more than ``query_capacity`` of
-# the first k hits) and the approximate 3-NN.
-_UNPORTED_QUERY_MODES = ("approx", "pallas")
-_UNPORTED_INTERP_MODES = ("approx",)
-
-
 def check_supported(cfg: ModelConfig) -> torch.dtype:
-    """The compute dtype of ``cfg``; raise on settings the port does not
-    run (grouped FPS, bf16 distance matrices, neighbour modes other than
-    the exact ones)."""
+    """The compute dtype of ``cfg``; raise on settings the JAX package
+    does not run either: an unknown neighbour mode or query dtype, a
+    ``fps_groups`` that does not divide the point count and every level's
+    npoint, a "pallas" query with no capacity."""
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
                          f"runs {sorted(_DTYPES)}")
-    if cfg.pointnet2.fps_groups != 1:
-        raise NotImplementedError("the port runs exact FPS (fps_groups=1)")
-    if cfg.pointnet2.query_compute != "f32":
-        raise NotImplementedError("the port computes every d^2 in float32")
-    if cfg.pointnet2.query_mode in _UNPORTED_QUERY_MODES:
-        raise NotImplementedError(
-            f"query_mode {cfg.pointnet2.query_mode!r}: the port runs the "
-            f"exact ball query ('auto' or 'exact')")
-    if cfg.pointnet2.interp_mode in _UNPORTED_INTERP_MODES:
-        raise NotImplementedError(
-            f"interp_mode {cfg.pointnet2.interp_mode!r}: the port runs the "
-            f"exact 3-NN ('auto', 'exact' or 'pallas')")
+    pn = cfg.pointnet2
+    if pn.query_mode not in QUERY_MODES:
+        raise ValueError(f"query_mode {pn.query_mode!r}: one of "
+                         f"{QUERY_MODES}")
+    if pn.interp_mode not in INTERP_MODES:
+        raise ValueError(f"interp_mode {pn.interp_mode!r}: one of "
+                         f"{INTERP_MODES}")
+    if pn.query_compute not in QUERY_COMPUTE:
+        raise ValueError(f"query_compute {pn.query_compute!r}: one of "
+                         f"{QUERY_COMPUTE}")
+    if pn.query_mode == "pallas" and pn.query_capacity < 1:
+        raise ValueError(f"query_capacity {pn.query_capacity}: the 'pallas' "
+                         f"query keeps at least 1 hit per residue class")
+    sizes = (cfg.n_sample_points,) + tuple(lv.npoint for lv in pn.sa_levels)
+    if pn.fps_groups < 1 or any(n % pn.fps_groups for n in sizes):
+        raise ValueError(f"fps_groups {pn.fps_groups} must divide the point "
+                         f"count and every level's npoint {sizes}")
     return _DTYPES[cfg.compute_dtype]
 
 
 class DenseFusion(nn.Module):
-    """Per-point RGB-D fusion (pvn3d.py:157-182): (B, N, 128) x 2 ->
-    (B, N, 1792) = [rgb, cld, relu(rgb'), relu(cld'), global mean]."""
+    """Per-point RGB-D fusion (pvn3d.py:157-182): (B, N, emb_rgb) and
+    (B, N, emb_cld) -> (B, N, emb_rgb + emb_cld + 512 + 1024) = [rgb, cld,
+    relu(rgb'), relu(cld'), global mean].  Each conv's input width comes
+    from the branch it reads, as the JAX package infers it."""
 
-    def __init__(self, emb: int = 128):
+    def __init__(self, emb_rgb: int = 128, emb_cld: int = 128):
         super().__init__()
-        self.conv2_rgb = nn.Conv1d(emb, 256, 1)
-        self.conv2_cld = nn.Conv1d(emb, 256, 1)
-        self.conv3 = nn.Conv1d(2 * emb, 512, 1)
+        self.conv2_rgb = nn.Conv1d(emb_rgb, 256, 1)
+        self.conv2_cld = nn.Conv1d(emb_cld, 256, 1)
+        self.conv3 = nn.Conv1d(emb_rgb + emb_cld, 512, 1)
         self.conv4 = nn.Conv1d(512, 1024, 1)
+        self.out_dim = emb_rgb + emb_cld + 2 * 256 + 1024
 
     def forward(self, rgb_emb: torch.Tensor,
                 cld_emb: torch.Tensor) -> torch.Tensor:
@@ -128,12 +134,13 @@ class PVN3D(nn.Module):
             backbone_layers=cc.backbone_layers, dropout_psp=cc.dropout_psp,
             dropout_up=cc.dropout_up)
         self.pointnet2 = PointNet2MSG(cfg.pointnet2)
-        self.rgbd_feat = DenseFusion(cc.embedding_dim)
-        self.SEG_layer = PredictionHead(cfg.fusion_dim, cfg.seg_head,
-                                        cfg.n_classes)
-        self.KpOF_layer = PredictionHead(cfg.fusion_dim, cfg.kp_head,
+        self.rgbd_feat = DenseFusion(cc.embedding_dim,
+                                     cfg.pointnet2.fp_mlps[0][-1])
+        fused = self.rgbd_feat.out_dim
+        self.SEG_layer = PredictionHead(fused, cfg.seg_head, cfg.n_classes)
+        self.KpOF_layer = PredictionHead(fused, cfg.kp_head,
                                          cfg.n_keypoints * 3)
-        self.CtrOf_layer = PredictionHead(cfg.fusion_dim, cfg.ctr_head, 3)
+        self.CtrOf_layer = PredictionHead(fused, cfg.ctr_head, 3)
         self.eval()
 
     def forward(self, pointcloud: torch.Tensor, rgb: torch.Tensor,

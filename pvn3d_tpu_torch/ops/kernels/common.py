@@ -6,6 +6,9 @@ a build takes seconds.  Libraries go to ``<checkout>/build/kernels/``
 (listed in ``.gitignore``), named by a hash of the source and the flags, so
 a changed source rebuilds and an unchanged one is reused.  The build
 happens at first use; ``build_all`` starts one ``nvcc`` per source at once.
+Variants of one kernel (K2's capacity, expanded and bf16 instances, K3's
+expanded one) are separate ``CudaKernel`` objects, each with its own
+launch count, over one source and so one library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 nonzero code raises here.  Nothing falls back to a plain version.
@@ -61,8 +64,9 @@ class CudaKernel:
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
+        stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR,
-                            f"lib{self.name}-{digest.hexdigest()[:16]}.so")
+                            f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
     def start_build(self):
         """Start ``nvcc`` for this source unless its library exists.
@@ -114,7 +118,9 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[str]:
     """Build every kernel's library that is missing, all ``nvcc`` runs at
     once.  Returns each build's compiler output (ptxas register and
     shared-memory report); raises if any build fails."""
-    started = [(k,) + k.start_build() for k in kernels]
+    # One build per library: the variants of a kernel share theirs.
+    unique = {k.lib_path(): k for k in kernels}
+    started = [(k,) + k.start_build() for k in unique.values()]
     logs = []
     failed = []
     for kernel, proc, target in started:
@@ -147,10 +153,31 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
 
 def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Squared distance over the last (xyz) axis, broadcasting, in the
-    direct form ((dx*dx)+(dy*dy))+(dz*dz) that every kernel computes (never
-    the expanded |a|^2-2ab+|b|^2 form, whose cancellation moves radius and
-    bandwidth boundaries)."""
+    direct form ((dx*dx)+(dy*dy))+(dz*dz) that every kernel computes by
+    default (the expanded form's cancellation moves radius and bandwidth
+    boundaries)."""
     dx = a[..., 0] - b[..., 0]
     dy = a[..., 1] - b[..., 1]
     dz = a[..., 2] - b[..., 2]
     return (dx * dx + dy * dy) + dz * dz
+
+
+def sqnorm(a: torch.Tensor) -> torch.Tensor:
+    """((x*x)+(y*y))+(z*z) over the last axis."""
+    return (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]) \
+        + a[..., 2] * a[..., 2]
+
+
+def sqdist_expanded(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(B, r, 3), (B, c, 3) -> (B, r, c) squared distances in the expanded
+    form of the JAX package's XLA arms and its Pallas ball query,
+    ``(|a|^2 - 2 a.b) + |b|^2`` with ``a`` the row (centroid or unknown
+    point) and ``b`` the column, each norm and the dot product
+    ((x*x)+(y*y))+(z*z): elementwise float32 operations in the order the
+    kernels' expanded instances repeat with round-to-nearest intrinsics,
+    never a matmul.  It can be negative for coincident points."""
+    a = rows[:, :, None, :]
+    b = cols[:, None, :, :]
+    cross = (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
+    return (sqnorm(rows)[:, :, None] - 2.0 * cross) + sqnorm(cols)[:, None, :]

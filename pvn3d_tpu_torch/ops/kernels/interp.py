@@ -15,6 +15,15 @@ the total (d^2, index) order, and the same warp writes the blend with
 lanes along the channels in float4 (source note in ``interp.cu``).  The
 TPU blend was a bf16 MXU matmul; this one is float32.
 
+The expanded instance (``KERNEL_EXPANDED``, ``expanded=True``) is the XLA
+arm of the JAX package's ``interp_mode`` "exact" / "approx"
+(``ops/interpolate.py:22-70``: ``three_nn``, ``idw_weights``,
+``three_interpolate``): d^2 in the expanded form ``(|u|^2 - 2 u.k) +
+|k|^2`` (``common.sqdist_expanded``), the same (d^2, index) order and
+``sqrt(max(d^2, 0))``.  Off a TPU ``approx_min_k`` is exact, so both modes
+are this one function.  It counts its own launches; the blend and the
+backward are shared.
+
 Backward.  ``g_features[b, idx[b,i,k], :] += w[b,i,k] * g_out[b,i,:]``, with
 ``w`` recomputed from the saved distances in the forward's own order
 ``(r0 + r1) + r2``; the coordinates get no gradient.  Bound: bytes (g_out
@@ -38,14 +47,16 @@ from typing import Tuple
 import torch
 
 from pvn3d_tpu_torch.ops.kernels.common import (CudaKernel, require_cuda,
-                                               sqdist)
+                                               sqdist, sqdist_expanded)
 
-KERNEL = CudaKernel(
-    "interp", "interp.cu", "three_interp_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p])
+_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+KERNEL = CudaKernel("interp", "interp.cu", "three_interp_launch",
+                    _FWD_ARGTYPES)
+KERNEL_EXPANDED = CudaKernel("interp_expanded", "interp.cu",
+                             "three_interp_launch", _FWD_ARGTYPES)
 KERNEL_BWD = CudaKernel(
     "interp_bwd", "interp_bwd.cu", "three_interp_bwd_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -85,16 +96,21 @@ def backward_scratch_words(b: int, n: int, m: int) -> int:
 
 
 def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor,
-                   chunk: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+                   chunk: int = 2048, expanded: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, n, 3), (B, m, 3) -> (d^2 (B, n, 3) float32, idx (B, n, 3)
     int64): the 3 smallest known points in lexicographic (d^2, index)
-    order, three rounds of successor extraction (the Pallas kernel's)."""
+    order, three rounds of successor extraction (the Pallas kernel's);
+    d^2 direct, or ``expanded``."""
     m = known.shape[1]
     col = torch.arange(m, device=known.device)
     vals, idxs = [], []
     for s in range(0, unknown.shape[1], chunk):
-        d2 = sqdist(unknown[:, s:s + chunk, None, :], known[:, None, :, :])
-        pv = torch.full(d2.shape[:-1] + (1,), -1.0, device=d2.device)
+        u = unknown[:, s:s + chunk]
+        d2 = (sqdist_expanded(u, known) if expanded
+              else sqdist(u[:, :, None, :], known[:, None, :, :]))
+        pv = torch.full(d2.shape[:-1] + (1,), float("-inf"),
+                        device=d2.device)
         pi = torch.full(d2.shape[:-1] + (1,), -1, dtype=torch.long,
                         device=d2.device)
         v3, i3 = [], []
@@ -119,14 +135,15 @@ def _idw_weights(dist: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def three_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor,
-                            features: torch.Tensor, eps: float = 1e-8
+                            features: torch.Tensor, eps: float = 1e-8,
+                            expanded: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Plain PyTorch version of the kernel: same selection, weights and
-    float32 blend order."""
+    float32 blend order; d^2 direct, or ``expanded``."""
     unknown, known, features = unknown.float(), known.float(), \
         features.float()
-    d2, idx = three_nn_plain(unknown, known)
+    d2, idx = three_nn_plain(unknown, known, expanded=expanded)
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
     w = _idw_weights(dist, eps)
     b, n, _ = idx.shape
@@ -202,11 +219,12 @@ def three_interpolate_backward(g_out: torch.Tensor, idx: torch.Tensor,
 
 
 def _forward(unknown: torch.Tensor, known: torch.Tensor,
-             features: torch.Tensor, eps: float
+             features: torch.Tensor, eps: float, expanded: bool
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     tensors = (unknown, known, features)
     if all(t.device.type == "cpu" for t in tensors):
-        return three_interpolate_plain(unknown, known, features, eps)
+        return three_interpolate_plain(unknown, known, features, eps,
+                                       expanded)
     dev = require_cuda(*tensors)
     b, n, _ = unknown.shape
     m = known.shape[1]
@@ -228,9 +246,11 @@ def _forward(unknown: torch.Tensor, known: torch.Tensor,
     known = known.float().contiguous()
     features = features.float().contiguous()
     rows, warps, _ = forward_grid(b, n)
-    KERNEL.launch(dev, unknown.data_ptr(), known.data_ptr(),
+    kernel = KERNEL_EXPANDED if expanded else KERNEL
+    kernel.launch(dev, unknown.data_ptr(), known.data_ptr(),
                   features.data_ptr(), b, n, m, c, eps, rows, warps,
-                  out.data_ptr(), dist.data_ptr(), idx.data_ptr())
+                  out.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                  int(expanded))
     return out, dist, idx
 
 
@@ -241,8 +261,8 @@ class ThreeInterpolateFused(torch.autograd.Function):
     coordinates are data."""
 
     @staticmethod
-    def forward(ctx, unknown, known, features, eps):
-        out, dist, idx = _forward(unknown, known, features, eps)
+    def forward(ctx, unknown, known, features, eps, expanded):
+        out, dist, idx = _forward(unknown, known, features, eps, expanded)
         ctx.mark_non_differentiable(dist, idx)
         ctx.save_for_backward(dist, idx)
         ctx.eps = eps
@@ -255,18 +275,21 @@ class ThreeInterpolateFused(torch.autograd.Function):
     def backward(ctx, g_out, _g_dist, _g_idx):
         dist, idx = ctx.saved_tensors
         g_feat = three_interpolate_backward(g_out, idx, dist, ctx.m, ctx.eps)
-        return None, None, g_feat.to(ctx.dtype), None
+        return None, None, g_feat.to(ctx.dtype), None, None
 
 
 def three_interpolate_fused(unknown: torch.Tensor, known: torch.Tensor,
-                            features: torch.Tensor, eps: float = 1e-8
+                            features: torch.Tensor, eps: float = 1e-8,
+                            expanded: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Fused exact 3-NN IDW interpolation: (B, n, 3), (B, m, 3), (B, m, C)
-    -> (out (B, n, C) float32, dist (B, n, 3), idx (B, n, 3) int32).
-    Differentiable with respect to ``features``; where no gradient is
-    asked for (serving under ``torch.inference_mode``) it is the forward
-    launch alone and saves nothing."""
+    -> (out (B, n, C) float32, dist (B, n, 3), idx (B, n, 3) int32); d^2
+    direct, or ``expanded`` (the XLA arm).  Differentiable with respect to
+    ``features``; where no gradient is asked for (serving under
+    ``torch.inference_mode``) it is the forward launch alone and saves
+    nothing."""
     if torch.is_grad_enabled() and features.requires_grad:
-        return ThreeInterpolateFused.apply(unknown, known, features, eps)
-    return _forward(unknown, known, features, eps)
+        return ThreeInterpolateFused.apply(unknown, known, features, eps,
+                                           expanded)
+    return _forward(unknown, known, features, eps, expanded)

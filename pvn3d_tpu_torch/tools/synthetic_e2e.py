@@ -4,16 +4,20 @@ with and without ICP refinement.
 
   python -m pvn3d_tpu_torch.tools.synthetic_e2e [--steps 600] [--batch 4]
       [--icp] [--seed 0] [--tiny] [--device cuda|cpu]
+      [--fps_groups G] [--eval_fps_groups G] [--query_mode M]
+      [--eval_query_mode M] [--query_compute f32|bf16] [--query_recall R]
 
 Port of the JAX package's ``benchmarks/synthetic_e2e.py``.  Passing means
 every stage works together: model, losses, optimizer, BN statistics, seg
 argmax, vote clustering, mask refinement, Umeyama fit, ICP, ADD metrics.
 The world (``data.synthetic_world``) and its data stream are the JAX
 tool's for the same ``--seed``; the weights start from the port's seeded
-initialisation.  The modes the port does not run (sharded FPS, the
-approximate and capacity-limited neighbour queries, bf16 query distances)
-have no flags here.  Timing lines go before the last line, which is the
-JAX tool's JSON record.
+initialisation.  The neighbour and sampling modes take the JAX tool's
+flags with its meanings: ``--fps_groups`` and ``--query_mode`` for
+training and evaluation, ``--eval_fps_groups``, ``--eval_query_mode``,
+``--query_compute`` and ``--query_recall`` for evaluation only (a
+``--load_ckpt`` run evaluates a saved model under them).  Timing lines go
+before the last line, which is the JAX tool's JSON record.
 """
 from __future__ import annotations
 
@@ -31,10 +35,10 @@ from pvn3d_tpu_torch.config import (Config, DatasetConfig, ICPConfig,
 
 
 def tiny_config() -> Config:
-    """Full architecture at tiny widths and shapes (64x64 image, 512
-    points), float32: a run on the CPU in seconds.  The last FP level
-    stays 128 wide, the width of the port's per-point fusion input; ICP's
-    scene cap and gate are scaled to the world's ~85 points a class."""
+    """The JAX tool's ``--tiny`` model (``__graft_entry__._tiny_config``:
+    full architecture at tiny widths and shapes, 64x64 image, 512 points),
+    float32: a run on the CPU in seconds.  ICP's scene cap and gate are
+    scaled to the world's ~85 points a class."""
     pn2 = PointNet2Config(
         sa_levels=(
             SALevelConfig(128, (0.0175, 0.025), (8, 16),
@@ -46,7 +50,7 @@ def tiny_config() -> Config:
             SALevelConfig(16, (0.1, 0.2), (8, 16),
                           ((32, 32, 64), (32, 32, 64))),
         ),
-        fp_mlps=((32, 128), (32, 32), (64, 64), (64, 64)),
+        fp_mlps=((32, 32), (32, 32), (64, 64), (64, 64)),
     )
     model = ModelConfig(
         n_sample_points=512, image_height=64, image_width=64,
@@ -80,7 +84,32 @@ def build_argparser():
                    help="skip training; load a --save_ckpt file")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--fps_groups", type=int, default=1,
+                   help="grouped-FPS group count for training AND eval")
+    p.add_argument("--eval_fps_groups", type=int, default=0,
+                   help="override fps_groups for eval only (weights "
+                        "trained exact, inference grouped)")
+    p.add_argument("--query_mode", default="",
+                   help="override PointNet2Config.query_mode for training "
+                        "AND eval (auto, exact, approx, pallas)")
+    p.add_argument("--eval_query_mode", default="",
+                   help="override query_mode for eval only")
+    p.add_argument("--query_compute", default="",
+                   help="override PointNet2Config.query_compute for eval "
+                        "(f32 or bf16)")
+    p.add_argument("--query_recall", type=float, default=0.0,
+                   help="override PointNet2Config.query_recall for eval "
+                        "(0 = config default; no effect off a TPU)")
     return p
+
+
+def with_pointnet2(cfg: Config, **over) -> Config:
+    """``cfg`` with the PointNet2Config fields in ``over`` replaced."""
+    if not over:
+        return cfg
+    model = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        model, pointnet2=dataclasses.replace(model.pointnet2, **over)))
 
 
 def _sync(dev: torch.device) -> None:
@@ -96,6 +125,7 @@ def main(argv=None) -> dict:
                                                      eval_frame_metrics)
     from pvn3d_tpu_torch.inference.pipeline import (make_icp_step,
                                                     make_inference_step)
+    from pvn3d_tpu_torch.models.pvn3d import PVN3D
     from pvn3d_tpu_torch.train.state import create_train_state
     from pvn3d_tpu_torch.train.step import make_train_step
     from pvn3d_tpu_torch.utils.device import resolve_device
@@ -110,6 +140,12 @@ def main(argv=None) -> dict:
     n_points = args.n_points or cfg.model.n_sample_points
     cfg = dataclasses.replace(
         cfg, train=TrainConfig(base_lr=args.lr, max_lr=args.lr))
+    train_over = {}
+    if args.fps_groups > 1:
+        train_over["fps_groups"] = args.fps_groups
+    if args.query_mode:
+        train_over["query_mode"] = args.query_mode
+    cfg = with_pointnet2(cfg, **train_over)
 
     world = SyntheticWorld(n_classes=4,
                            n_keypoints=cfg.model.n_keypoints, seed=0)
@@ -154,6 +190,20 @@ def main(argv=None) -> dict:
     if args.cluster_cap:
         cfg = dataclasses.replace(cfg, cluster=dataclasses.replace(
             cfg.cluster, max_points_per_class=args.cluster_cap))
+    eval_over = {}
+    if args.eval_fps_groups:
+        eval_over["fps_groups"] = args.eval_fps_groups
+    if args.eval_query_mode:
+        eval_over["query_mode"] = args.eval_query_mode
+    if args.query_compute:
+        eval_over["query_compute"] = args.query_compute
+    if args.query_recall:
+        eval_over["query_recall"] = args.query_recall
+    model = state.model
+    if eval_over:
+        cfg = with_pointnet2(cfg, **eval_over)
+        model = PVN3D(cfg.model).to(dev)
+        model.load_state_dict(state.model.state_dict(), strict=True)
     # Pad the world's class tables up to the model's class count (the
     # extra classes never occur in frames).
     n_cls = cfg.model.n_classes
@@ -165,7 +215,7 @@ def main(argv=None) -> dict:
     radii = np.full(n_cls, 0.1, np.float32)
     mesh_pts = pad_c(world.stacked_pts)
     mesh_valid = pad_c(world.stacked_valid)
-    infer = make_inference_step(cfg, state.model, pad_c(world.stacked_kps),
+    infer = make_inference_step(cfg, model, pad_c(world.stacked_kps),
                                 radii, mesh_pts, mesh_valid,
                                 refine_mask=True, device=dev)
     icp_step = None

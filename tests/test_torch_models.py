@@ -142,6 +142,6 @@ def test_unsupported_settings_raise():
     cfg = to_port(small_model_cfg())
     for bad in (dataclasses.replace(cfg, compute_dtype="float16"),
                 dataclasses.replace(cfg, pointnet2=dataclasses.replace(
-                    cfg.pointnet2, fps_groups=4))):
+                    cfg.pointnet2, fps_groups=3))):
         with pytest.raises((ValueError, NotImplementedError)):
             PVN3D(bad)

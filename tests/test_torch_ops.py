@@ -80,8 +80,14 @@ class TestFPS:
         got = sampling.gather_points(torch.tensor(xyz), idx).numpy()
         want = jax_gather_points(jnp.asarray(xyz), jnp.asarray(idx.numpy()))
         np.testing.assert_array_equal(got, np.asarray(want))
-        with pytest.raises(NotImplementedError):
-            sampling.furthest_point_sample(torch.tensor(xyz), 32, groups=4)
+        # Grouped FPS runs (tests/test_torch_modes.py holds it against the
+        # JAX package's); a G that does not divide N and m raises as there.
+        grouped = sampling.furthest_point_sample(torch.tensor(xyz), 32,
+                                                 groups=4).numpy()
+        np.testing.assert_array_equal(grouped, np.asarray(jax_fps(
+            jnp.asarray(xyz), 32, use_pallas=False, groups=4)))
+        with pytest.raises(ValueError, match="groups=3"):
+            sampling.furthest_point_sample(torch.tensor(xyz), 32, groups=3)
 
 
 class TestBallQuery:

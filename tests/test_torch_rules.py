@@ -121,29 +121,35 @@ def _with_pointnet2(**kw):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("query_mode", "approx"), ("query_mode", "pallas"),
-    ("interp_mode", "approx")])
+    ("query_mode", "nearest"), ("interp_mode", "linear"),
+    ("query_compute", "f16")])
 def test_check_supported_rejects_inexact_neighbour_modes(field, value):
-    """The JAX package's approximate and capacity-limited neighbour modes
-    are not ported: a config asking for one raises instead of running the
-    exact kernels silently."""
-    with pytest.raises(NotImplementedError, match=field):
+    """Every neighbour mode of the JAX package is ported; a mode string
+    it does not know raises instead of running some other arm silently."""
+    with pytest.raises(ValueError, match=field):
         check_supported(_with_pointnet2(**{field: value}))
 
 
-@pytest.mark.parametrize("query_mode,interp_mode", [
-    ("auto", "auto"), ("exact", "exact"), ("auto", "pallas")])
-def test_check_supported_accepts_exact_neighbour_modes(query_mode,
-                                                       interp_mode):
+@pytest.mark.parametrize("query_mode,interp_mode,query_compute", [
+    ("auto", "auto", "f32"), ("exact", "exact", "f32"),
+    ("auto", "pallas", "f32"), ("pallas", "auto", "f32"),
+    ("pallas", "pallas", "bf16"), ("approx", "exact", "f32"),
+    ("approx", "approx", "bf16"), ("exact", "approx", "bf16")])
+def test_check_supported_accepts_exact_neighbour_modes(
+        query_mode, interp_mode, query_compute):
+    """Every (query_mode, interp_mode, query_compute) the JAX package
+    runs builds a model."""
     from pvn3d_tpu_torch.models.pvn3d import PVN3D
-    cfg = _with_pointnet2(query_mode=query_mode, interp_mode=interp_mode)
+    cfg = _with_pointnet2(query_mode=query_mode, interp_mode=interp_mode,
+                          query_compute=query_compute)
     assert check_supported(cfg) == torch.float32
     assert PVN3D(cfg).cfg.pointnet2.query_mode == query_mode
 
 
 def _inputs():
     """Per kernel of ``KERNELS``: its module, wrapper, the name of its
-    plain version and arguments for both."""
+    plain version, positional arguments for both and the keyword
+    arguments of each."""
     rng = np.random.RandomState(0)
     xyz = torch.tensor(rng.rand(1, 64, 3).astype(np.float32))
     feats = torch.tensor(rng.randn(1, 16, 4).astype(np.float32))
@@ -151,17 +157,30 @@ def _inputs():
     g_out = torch.tensor(rng.randn(1, 64, 4).astype(np.float32))
     idx = torch.tensor(rng.randint(0, 16, (1, 64, 3)).astype(np.int32))
     dist = torch.tensor(rng.rand(1, 64, 3).astype(np.float32))
+    q_args = ((0.2,), (4,), xyz, xyz[:, :8])
+    i_args = (xyz, xyz[:, :16], feats)
     return {
-        "fps": (fps, fps.fps, "fps_plain", (xyz, 8)),
-        "query": (query, query.ball_query, "ball_query_plain",
-                  ((0.2,), (4,), xyz, xyz[:, :8])),
+        "fps": (fps, fps.fps, "fps_plain", (xyz, 8), {}, {}),
+        "query": (query, query.ball_query, "ball_query_plain", q_args, {},
+                  {}),
+        "query_expanded": (query, query.ball_query, "ball_query_plain",
+                           q_args, {"expanded": True}, {"expanded": True}),
+        "query_bf16": (query, query.ball_query, "ball_query_plain", q_args,
+                       {"bf16": True}, {"bf16": True}),
+        "query_capacity": (query, query.ball_query,
+                           "ball_query_capacity_plain", q_args,
+                           {"expanded": True, "capacity": 2},
+                           {"capacity": 2}),
         "interp": (interp, interp.three_interpolate_fused,
-                   "three_interpolate_plain", (xyz, xyz[:, :16], feats)),
+                   "three_interpolate_plain", i_args, {}, {}),
+        "interp_expanded": (interp, interp.three_interpolate_fused,
+                            "three_interpolate_plain", i_args,
+                            {"expanded": True}, {"expanded": True}),
         "interp_bwd": (interp, interp.three_interpolate_backward,
                        "three_interpolate_backward_plain",
-                       (g_out, idx, dist, 16)),
+                       (g_out, idx, dist, 16), {}, {}),
         "winner": (winner, winner.winner_stats, "winner_stats_plain",
-                   (xyz[:, :32].reshape(2, 16, 3), mask, 0.08)),
+                   (xyz[:, :32].reshape(2, 16, 3), mask, 0.08), {}, {}),
     }
 
 
@@ -178,13 +197,14 @@ def test_every_kernel_has_a_rules_case():
 
 @pytest.mark.parametrize("name", _KERNEL_NAMES)
 def test_cpu_tensor_takes_plain_version(name, monkeypatch):
-    mod, wrapper, plain_name, args = _inputs()[name]
+    mod, wrapper, plain_name, args, wkw, pkw = _inputs()[name]
 
     def no_launch(*a, **k):
         raise AssertionError("CPU tensors must not launch the kernel")
-    monkeypatch.setattr(_kernel(name), "launch", no_launch)
-    got = wrapper(*args)
-    want = getattr(mod, plain_name)(*args)
+    for k in KERNELS:
+        monkeypatch.setattr(k, "launch", no_launch)
+    got = wrapper(*args, **wkw)
+    want = getattr(mod, plain_name)(*args, **pkw)
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     for g, w in zip(got, want):
@@ -196,7 +216,7 @@ def test_device_tensor_launches_or_raises(name, monkeypatch):
     """A tensor off the CPU never reaches the plain version: the wrapper
     launches its kernel (here a recorder, on 'meta' tensors standing in
     for CUDA ones) or, for a device that is not CUDA, raises."""
-    mod, wrapper, plain_name, args = _inputs()[name]
+    mod, wrapper, plain_name, args, wkw, _ = _inputs()[name]
     kernel = _kernel(name)
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
 
@@ -204,13 +224,14 @@ def test_device_tensor_launches_or_raises(name, monkeypatch):
         raise AssertionError("device tensors must not take the plain path")
     monkeypatch.setattr(mod, plain_name, no_plain)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        wrapper(*meta)
+        wrapper(*meta, **wkw)
 
     calls = []
     monkeypatch.setattr(mod, "require_cuda", lambda *t: t[0].device)
+    # Only this instance records; the wrapper reaching any other raises.
     monkeypatch.setattr(kernel, "launch",
                         lambda dev, *a: calls.append(len(a)))
-    wrapper(*meta)
+    wrapper(*meta, **wkw)
     assert len(calls) == 1
     assert calls[0] == len(kernel.argtypes) - 1   # all but the stream
 
@@ -227,7 +248,7 @@ def test_backward_of_a_device_tensor_launches_the_backward_kernel(
         seen.append(a[3])
         return real(*a, **k)
     monkeypatch.setattr(interp, "three_interpolate_backward", recording)
-    _, _, _, (xyz, known, feats) = _inputs()["interp"]
+    _, _, _, (xyz, known, feats), _, _ = _inputs()["interp"]
     feats = feats.clone().requires_grad_(True)
     out, _, _ = interp.three_interpolate_fused(xyz, known, feats)
     assert type(out.grad_fn).__name__ == "ThreeInterpolateFusedBackward"
@@ -270,8 +291,15 @@ def test_library_function_loads_the_kernel_library(monkeypatch):
 
 
 def test_every_kernel_has_its_source_and_counter():
-    assert len(KERNELS) == 5 and len(set(_KERNEL_NAMES)) == 5
+    """Nine counters over five sources: an instance of a source is named
+    after it (``query_capacity`` of ``query.cu``) and shares its
+    library."""
+    assert len(KERNELS) == 9 and len(set(_KERNEL_NAMES)) == 9
+    assert len({k.source for k in KERNELS}) == 5
     for k in KERNELS:
         assert os.path.exists(k.source)
-        assert os.path.basename(k.source) == f"{k.name}.cu"
+        stem = os.path.basename(k.source)[:-len(".cu")]
+        assert k.name == stem or k.name.startswith(stem + "_")
+        assert k.lib_path() == next(
+            j for j in KERNELS if j.name == stem).lib_path()
         assert isinstance(k.launches, int)
