@@ -121,12 +121,34 @@ that fails):
                and read just after, each mode's kernel instances launched,
                median latency beside the exact mode's; and each mode on a
                small frame card against CPU (forward 2e-3, poses 1e-4).
-11. a JSON line per kernel and kernel instance (launches on the serving
-   slice, the raw requests, the ICP request, the training steps and the
-   mode requests, error, times, bound; K2's instances and K3 forward and
-   backward also per level, the backward on both clouds; K4 also per pass
-   on both inputs and at the ICP shape), the ``nvidia-smi`` line again,
-   then the result line.
+11. disk     — the dataset path through the apps at full width, from
+               trees written here by ``tools/fake_data.py`` (under
+               ``build/disk``): a YCB tree at 480x640 (8 real frames named
+               as the vendored test list's first, 8 synthetic) and a
+               LineMOD tree for ape (4 real, 2 render, 2 fuse items).
+               ``apps.train.main`` takes 3 steps at batch 4 on YCB with
+               host frames from 0 and 2 spawned workers and with
+               ``--device_preprocess``, then 2 on LineMOD, each saving a
+               checkpoint (launches exactly fps 1, query 4, interp 4,
+               interp_bwd 4 a step); the host build's frames/s at 0 and
+               2 workers; ``apps.evaluate.main`` on the YCB test split
+               from the first checkpoint with host frames,
+               ``--device_preprocess``, ``--icp`` and ``--packed_dir``
+               (after ``tools/preprocess_testset.py`` packed it), then on
+               LineMOD (K1-K4 each launched, K4 more often with
+               ``--icp``), frames/s for each; every run counted from 0.
+               Then a loader test frame card vs CPU (float32, the
+               checkpoint's weights: forward 2e-3, pose stage 1e-4) and
+               the first ``--device_preprocess`` training batch built on
+               the card and on the CPU from the same raw batch and
+               generator (choose, labels, GT slots equal; cloud and
+               targets 1e-5).
+12. a JSON line per kernel and kernel instance (launches on the serving
+   slice, the raw requests, the ICP request, the training steps, the
+   mode requests and the [disk] runs, error, times, bound; K2's
+   instances and K3 forward and backward also per level, the backward on
+   both clouds; K4 also per pass on both inputs and at the ICP shape),
+   the ``nvidia-smi`` line again, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed.  Times are the card's under its printed power limit.
@@ -134,6 +156,7 @@ every phase passed.  Times are the card's under its printed power limit.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -1136,9 +1159,6 @@ def phase_raw(smi: str, seed: int = 0):
     against the CPU's on the same full-size frame and priorities; the
     metrics branch on the card against the CPU; then the serving app in
     this process.  Returns the launch counts of the three requests."""
-    import contextlib
-    import io
-
     from pvn3d_tpu_torch.apps import serve
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.device_frame import (
@@ -1449,7 +1469,6 @@ def phase_icp(smi: str, seed: int = 0):
     Returns (launches of one raw request with both ICP modes, counted from
     0; K4's records at the ICP shape)."""
     import gc
-    import io
 
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
@@ -2346,6 +2365,331 @@ def phase_modes(smi: str, seed: int = 0):
     return rec, launches
 
 
+# The [disk] phase's trees and runs live in the checkout's build/
+# directory (git ignores it).
+DISK_DIR = os.path.join(ROOT, "build", "disk")
+
+
+class _TimedTrainer:
+    """A ``Trainer`` factory that records each step's host-clock time
+    (synchronised before and after) and the interval between step ends
+    (the loader's wait included)."""
+
+    def __init__(self, base):
+        self.base, self.step_ms, self.interval_ms = base, [], []
+
+    def __call__(self, cfg, state, train_step, *a, **kw):
+        last = [None]
+
+        def timed(st, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(st, batch, seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.step_ms.append((t1 - t0) * 1e3)
+            if last[0] is not None:
+                self.interval_ms.append((t1 - last[0]) * 1e3)
+            last[0] = t1
+            return out
+        return self.base(cfg, state, timed, *a, **kw)
+
+
+def _counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before; returns
+    (its result, the counts read just after)."""
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in KERNELS}
+
+
+def _disk_trees():
+    """A YCB tree at 480x640 (8 real frames named as the vendored test
+    list's first, 8 synthetic; a mesh for each of the 21 classes) and a
+    LineMOD tree for one object (4 real frames, 2 render and 2 fuse
+    items), written by the port's tool."""
+    import shutil
+
+    from pvn3d_tpu_torch.config import ASSETS_DIR
+    from pvn3d_tpu_torch.tools.fake_data import (make_fake_linemod,
+                                                 make_fake_ycb)
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    with open(os.path.join(ASSETS_DIR, "ycb_config",
+                           "test_data_list.txt")) as f:
+        test_items = [ln.strip() for ln in f if ln.strip()][:8]
+    items = test_items + [f"data_syn/{i:06d}" for i in range(1, 9)]
+    t0 = time.perf_counter()
+    ycb = make_fake_ycb(DISK_DIR, items=items, mesh_ids=range(1, 22))
+    lm = make_fake_linemod(DISK_DIR, n_frames=4, n_renders=2)
+    log("disk", f"trees written in {time.perf_counter() - t0:.1f} s: YCB "
+        f"{len(items)} frames (8 real as the test list's first, 8 "
+        f"synthetic), LineMOD 4 real + 2 render + 2 fuse")
+    return ycb, lm
+
+
+def _disk_train(smi, ycb, lm):
+    """The train app: 3 steps at batch 4 on the YCB tree with host frames
+    from 0 and 2 workers and with --device_preprocess, then 2 on the
+    LineMOD tree; each saves a checkpoint.  Returns the summed launch
+    counts and the first YCB run's checkpoint directory."""
+    from pvn3d_tpu_torch.apps import train as train_app
+    from pvn3d_tpu_torch.train.trainer import Trainer
+    runs = {
+        "ycb host, 0 workers": ["--workers", "0"],
+        "ycb host, 2 workers": ["--workers", "2"],
+        "ycb --device_preprocess": ["--workers", "0",
+                                    "--device_preprocess"],
+        "linemod host, 0 workers": ["--workers", "0"],
+    }
+    total, ckpt = {}, None
+    for i, (name, extra) in enumerate(runs.items()):
+        lm_run = name.startswith("linemod")
+        n_steps = 2 if lm_run else 3
+        run_dir = os.path.join(DISK_DIR, f"run{i}")
+        argv = (["--dataset", "linemod", "--cls", "ape", "--data_root", lm]
+                if lm_run else
+                ["--data_root", ycb, "--file_list",
+                 os.path.join(ycb, "image_list.txt")])
+        argv += ["--checkpoint_dir", run_dir, "--batch_size", "4",
+                 "--max_steps", str(n_steps), "--log_every", "1"] + extra
+        timer = _TimedTrainer(Trainer)
+        train_app.Trainer = timer
+        try:
+            t0 = time.perf_counter()
+            trainer, launches = _counted(lambda: train_app.main(argv))
+            wall = time.perf_counter() - t0
+        finally:
+            train_app.Trainer = Trainer
+        want = _expected_launches(fps=n_steps, query=4 * n_steps,
+                                  interp=4 * n_steps,
+                                  interp_bwd=4 * n_steps)
+        if launches != want:
+            raise AssertionError(f"disk: train {name}: launches {launches}, "
+                                 f"expected {want}")
+        if trainer.state.step != n_steps or not os.path.exists(
+                os.path.join(run_dir, f"ckpt_{n_steps}.pt")):
+            raise AssertionError(f"disk: train {name}: no checkpoint at "
+                                 f"step {n_steps}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log("disk", f"train {name}: {n_steps} steps at batch 4, step ms "
+            + ", ".join(f"{t:.1f}" for t in timer.step_ms)
+            + "; between step ends ms "
+            + ", ".join(f"{t:.1f}" for t in timer.interval_ms)
+            + f"; run {wall:.1f} s; launches {launches} [{smi}]")
+        ckpt = ckpt or run_dir
+    return total, ckpt
+
+
+def _disk_loader_rate(smi, ycb):
+    """Frames a second of the host build (YCB train frames, augmentation
+    and fill included) at 0 and 2 workers, 8 frames after the first
+    batch."""
+    from pvn3d_tpu_torch.apps.train import make_dataset_factory, train_config
+    from pvn3d_tpu_torch.apps.train import build_argparser as train_args
+    from pvn3d_tpu_torch.data.loader import DataLoader
+    args = train_args().parse_args(["--data_root", ycb, "--file_list",
+                                    os.path.join(ycb, "image_list.txt")])
+    factory = make_dataset_factory(args, "train", train_config(args))
+    rates = {}
+    for workers in (0, 2):
+        it = iter(DataLoader(factory, 4, num_workers=workers, steps=3))
+        next(it)
+        t0 = time.perf_counter()
+        n = sum(len(b["labels"]) for b in it)
+        rates[workers] = n / (time.perf_counter() - t0)
+    log("disk", f"loader, YCB train frames built on the host: "
+        f"{rates[0]:.2f} frames/s at 0 workers, {rates[2]:.2f} at 2 [{smi}]")
+    return rates
+
+
+def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt):
+    """The evaluate app on the YCB test split from the first checkpoint:
+    host frames, --device_preprocess, --icp, and --packed_dir after the
+    packer packed the split; then once on LineMOD.  Returns the summed
+    launch counts."""
+    from pvn3d_tpu_torch.apps import evaluate as eval_app
+    from pvn3d_tpu_torch.data.ycb import YCBDataset
+    from pvn3d_tpu_torch.tools.preprocess_testset import pack_dataset
+    packed = os.path.join(DISK_DIR, "packed")
+    t0 = time.perf_counter()
+    n_packed = pack_dataset(YCBDataset(ycb, split="test"), packed,
+                            shard_size=4, max_frames=8, workers=2)
+    log("disk", f"packed {n_packed} test frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = ["--data_root", ycb, "--checkpoint_dir", ckpt, "--batch_size",
+            "4", "--max_frames", "8", "--workers", "0"]
+    runs = {"ycb host": base, "ycb --device_preprocess":
+            base + ["--device_preprocess"], "ycb --icp": base + ["--icp"],
+            "ycb --packed_dir": base + ["--packed_dir", packed],
+            "linemod host": ["--dataset", "linemod", "--cls", "ape",
+                             "--data_root", lm, "--checkpoint_dir", lm_ckpt,
+                             "--batch_size", "4", "--workers", "0"]}
+    acc = eval_app.accumulate_batches
+    total, counts = {}, {}
+    for name, argv in runs.items():
+        timed = {}
+
+        def accumulate(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = acc(*a, **kw)
+            torch.cuda.synchronize()
+            timed["s"], timed["n"] = time.perf_counter() - t0, n
+            return n
+        eval_app.accumulate_batches = accumulate
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                summary, launches = _counted(lambda: eval_app.main(argv))
+        finally:
+            eval_app.accumulate_batches = acc
+        want = 4 if name.startswith("linemod") else 8
+        if timed.get("n") != want:
+            raise AssertionError(f"disk: evaluate {name}: {timed.get('n')} "
+                                 f"frames scored, expected {want}")
+        if any(launches[k] < 1 for k in ("fps", "query", "interp",
+                                         "winner")):
+            raise AssertionError(f"disk: evaluate {name}: launches "
+                                 f"{launches}")
+        counts[name] = launches
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        said = [ln for ln in printed.getvalue().splitlines()
+                if ln.startswith(("evaluating", "evaluated", "All", "obj",
+                                  "WARNING"))]
+        log("disk", f"evaluate {name}: {timed['n']} frames in "
+            f"{timed['s']:.2f} s ({timed['n'] / timed['s']:.2f} frames/s, "
+            f"loader included); the app said {said}; launches {launches} "
+            f"[{smi}]")
+    if not counts["ycb --icp"]["winner"] > counts["ycb host"]["winner"]:
+        raise AssertionError("disk: --icp launched K4 no more often than "
+                             "the run without it")
+    return total
+
+
+def _disk_card_vs_cpu(ycb, ckpt):
+    """One evaluation batch from the loader through the card and the CPU
+    plain path with the checkpoint's weights (float32): the forward of
+    its first frame within 2e-3 and the pose stage on the card's votes
+    within 1e-4.  Then the first --device_preprocess training batch built
+    on the card and on the CPU from the same raw batch and generator:
+    choose, labels and the GT slots equal, the cloud and the targets
+    within 1e-5, rgb within 1e-2 and the normals within 1e-4 but for
+    camera-facing flips (at most 0.1% of the points)."""
+    import dataclasses
+
+    from pvn3d_tpu_torch.apps.train import (build_argparser, base_config,
+                                            make_dataset_factory)
+    from pvn3d_tpu_torch.data.device_frame import (build_train_batch_device,
+                                                   step_generator)
+    from pvn3d_tpu_torch.data.loader import DataLoader
+    from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+    from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
+    from pvn3d_tpu_torch.train.state import create_train_state
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    cfg = base_config("ycb", "ape")
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    sd = CheckpointManager(ckpt).restore(
+        create_train_state(cfg, 0, "cuda")).model.state_dict()
+    args = build_argparser().parse_args(["--data_root", ycb])
+    batch = next(iter(DataLoader(make_dataset_factory(args, "test", cfg),
+                                 4)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = create_train_state(f32, 0, dev).model
+        model.load_state_dict(sd)
+        model.eval()
+        with torch.inference_mode():
+            out[dev] = model(*(torch.as_tensor(batch[k][:1], device=dev)
+                               for k in ("pointcloud", "rgb", "choose")))
+    err = max(_err(out["cuda"][k].cpu(), out["cpu"][k])
+              for k in ("seg_logits", "kp_offsets", "ctr_offsets"))
+    agree = float((out["cuda"]["seg_logits"].argmax(-1).cpu()
+                   == out["cpu"]["seg_logits"].argmax(-1)).float().mean())
+    if err > 2e-3 or agree <= 0.999:
+        raise AssertionError(f"disk: loader frame card vs CPU: forward "
+                             f"{err}, seg agreement {agree}")
+    seg = out["cuda"]["seg_logits"].argmax(-1).to(torch.int32)
+    votes = (torch.as_tensor(batch["pointcloud"][:1, :, :3]), seg.cpu(),
+             out["cuda"]["ctr_offsets"].cpu(),
+             out["cuda"]["kp_offsets"].cpu())
+    poses = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii(),
+                          device=dev)
+        with torch.inference_mode():
+            poses[dev] = fn(*(v.to(dev) for v in votes))
+    pose_err = _err(poses["cuda"].poses.cpu(), poses["cpu"].poses)
+    present = int(poses["cpu"].present.sum())
+    if pose_err > 1e-4 or not torch.equal(poses["cuda"].present.cpu(),
+                                          poses["cpu"].present):
+        raise AssertionError(f"disk: loader frame card vs CPU: poses "
+                             f"{pose_err}")
+    log("disk", f"loader test frame card vs CPU plain (float32, the "
+        f"checkpoint's weights): forward max err {err:.2e}, seg agreement "
+        f"{agree:.4f}; pose stage on the card's votes max err "
+        f"{pose_err:.2e} ({present} classes present)")
+
+    args = build_argparser().parse_args(
+        ["--data_root", ycb, "--file_list",
+         os.path.join(ycb, "image_list.txt"), "--device_preprocess"])
+    raw = next(iter(DataLoader(make_dataset_factory(args, "train", cfg), 4,
+                               steps=1)))
+    built = {}
+    for dev in ("cuda", "cpu"):
+        r = {k: (v if k in ("is_syn", "do_jitter")
+                 else torch.as_tensor(v, device=dev))
+             for k, v in raw.items()}
+        with torch.inference_mode():
+            built[dev] = {k: v.cpu() for k, v in build_train_batch_device(
+                r, step_generator(cfg.train.seed, 0),
+                n_sample=cfg.model.n_sample_points,
+                n_classes=cfg.model.n_classes).items()}
+    g, c = built["cuda"], built["cpu"]
+    for k in ("choose", "labels", "cls_ids"):
+        if not torch.equal(g[k], c[k]):
+            raise AssertionError(f"disk: raw-train build card vs CPU: {k} "
+                                 f"differs")
+    xyz = _err(g["pointcloud"][..., :3], c["pointcloud"][..., :3])
+    tgt = max(_err(g[k], c[k]) for k in ("kp_targ_ofst", "ctr_targ_ofst",
+                                          "kp_3ds", "ctr_3ds", "rts"))
+    rgb = _err(g["pointcloud"][..., 3:6], c["pointcloud"][..., 3:6])
+    nrm_off = (g["pointcloud"][..., 6:] - c["pointcloud"][..., 6:]
+               ).abs().amax(-1) > 1e-4
+    flips = int(nrm_off.sum())
+    if xyz > 1e-5 or tgt > 1e-5 or rgb > 1e-2 or flips > 1e-3 * \
+            nrm_off.numel():
+        raise AssertionError(f"disk: raw-train build card vs CPU: xyz {xyz}"
+                             f", targets {tgt}, rgb {rgb}, normals off "
+                             f"{flips}")
+    log("disk", f"first --device_preprocess training batch card vs CPU "
+        f"(is_syn {raw['is_syn'].tolist()}): choose, labels, GT slots "
+        f"equal; xyz {xyz:.2e}, targets {tgt:.2e}, rgb {rgb:.2e}, normals "
+        f"beyond 1e-4 at {flips} of {nrm_off.numel()} points")
+
+
+def phase_disk(smi: str):
+    """Train and evaluate through the apps from trees written here (see
+    the module docstring).  Returns the launch counts of its runs."""
+    import gc
+    ycb, lm = _disk_trees()
+    train_launches, ckpt = _disk_train(smi, ycb, lm)
+    _disk_loader_rate(smi, ycb)
+    eval_launches = _disk_evaluate(smi, ycb, lm, ckpt,
+                                   os.path.join(DISK_DIR, "run3"))
+    _disk_card_vs_cpu(ycb, ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: train_launches[k] + eval_launches[k] for k in train_launches}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -2359,6 +2703,7 @@ def main() -> int:
     train_launches = phase_train(smi)
     modes_rec, modes_launches = phase_modes(smi)
     rec.update({k: v for k, v in modes_rec.items() if k != "query"})
+    disk_launches = phase_disk(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -2366,11 +2711,12 @@ def main() -> int:
         bound, by = r["bound"]
         # Launches: over the serving slice's three requests, the raw
         # path's three requests, one raw request with ICP in both modes,
-        # the training path's three steps and three requests in each of
-        # the [modes] phase's deployment modes, each counted from 0.
+        # the training path's three steps, three requests in each of
+        # the [modes] phase's deployment modes and the [disk] phase's app
+        # runs, each counted from 0.
         total = (launches[k.name] + raw_launches[k.name]
                  + icp_launches[k.name] + train_launches[k.name]
-                 + modes_launches[k.name])
+                 + modes_launches[k.name] + disk_launches[k.name])
         if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
@@ -2383,6 +2729,7 @@ def main() -> int:
             "launches_icp": icp_launches[k.name],
             "launches_training": train_launches[k.name],
             "launches_modes": modes_launches[k.name],
+            "launches_disk": disk_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})

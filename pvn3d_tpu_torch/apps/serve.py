@@ -66,7 +66,7 @@ def _frame_source(args, h: int, w: int):
     """Yield (rgb (H, W, 3) 0-255, depth (H, W) in metres, K (3, 3))
     float32 numpy frames forever."""
     if args.source == "dir":
-        from PIL import Image
+        from pvn3d_tpu_torch.data.png import read_png
         stems = sorted(p[:-len("-color.png")] for p in glob.glob(
             os.path.join(args.frame_dir, "*-color.png")))
         if not stems:
@@ -74,10 +74,9 @@ def _frame_source(args, h: int, w: int):
         i = 0
         while True:
             stem = stems[i % len(stems)]
-            with Image.open(stem + "-color.png") as im:
-                rgb = np.asarray(im)[..., :3].astype(np.float32)
-            with Image.open(stem + "-depth.png") as im:
-                depth = np.asarray(im).astype(np.float32) / args.cam_scale
+            rgb = read_png(stem + "-color.png")[..., :3].astype(np.float32)
+            depth = read_png(stem + "-depth.png").astype(
+                np.float32) / args.cam_scale
             yield rgb, depth, _YCB_K
             i += 1
     else:

@@ -303,3 +303,53 @@ def test_every_kernel_has_its_source_and_counter():
         assert k.lib_path() == next(
             j for j in KERNELS if j.name == stem).lib_path()
         assert isinstance(k.launches, int)
+
+
+def test_port_imports_no_cv2_pil_yaml_or_sklearn():
+    """The card's machine has none of them: the port reads PNGs, gt.yml
+    and depth by its own means (``data/png.py``, ``data/lm_yaml.py``,
+    ``data/depth_completion.py``).  Tests may import them."""
+    banned = {"cv2", "PIL", "yaml", "sklearn"}
+    seen = 0
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}: {name}"
+        seen += 1
+    assert seen > 30
+
+
+def test_apps_raise_without_cuda(monkeypatch, tmp_path):
+    from pvn3d_tpu_torch.apps import evaluate, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--data_root", str(tmp_path), "--max_steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--data_root", str(tmp_path), "--checkpoint_dir",
+                       str(tmp_path), "--device", "cuda"])
+
+
+@pytest.mark.parametrize("app,flags,item", [
+    ("train", ["--distributed"], "item 14"),
+    ("train", ["--remat"], "item 13"),
+    ("train", ["--remat_policy", "dots"], "item 13"),
+    ("train", ["--pretrained_trunk", "r34.pth"], "item 8"),
+    ("evaluate", ["--occ", "--dataset", "linemod"], "item 5"),
+    ("evaluate", ["--sparse_cnn"], "item 12")])
+def test_unported_flags_exit_naming_their_roadmap_item(app, flags, item,
+                                                       tmp_path):
+    """A JAX app flag whose machinery the port lacks exits before any
+    work, naming its ROADMAP.md item, instead of being ignored."""
+    from pvn3d_tpu_torch.apps import evaluate, train
+    main = train.main if app == "train" else evaluate.main
+    with pytest.raises(SystemExit, match=f"ROADMAP.md queue A, {item}\\)"):
+        main(["--data_root", str(tmp_path), "--checkpoint_dir",
+              str(tmp_path), "--device", "cpu"] + flags)

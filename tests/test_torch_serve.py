@@ -117,6 +117,46 @@ def test_serve_reads_png_pairs(tmp_path):
                     str(tmp_path / "none"), "--frames", "1"], cfg)
 
 
+def test_serve_png_frames_pose_as_their_arrays(tmp_path):
+    """Two frames PIL wrote, served from ``--source dir`` (read by
+    ``data/png.py``), give the poses of the same arrays passed to the
+    raw step with the app's weights and per-frame generators."""
+    from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    Image = pytest.importorskip("PIL.Image")
+    cfg = small_config()
+    h, w = cfg.model.image_height, cfg.model.image_width
+    frames = []
+    for i in range(2):
+        rgb, depth, _ = synth_sensor_frame(h, w, seed=i + 3)
+        rgb8, depth16 = rgb[0].astype(np.uint8), (depth[0] * 10000).astype(
+            np.uint16)
+        Image.fromarray(rgb8).save(str(tmp_path / f"{i:06d}-color.png"))
+        Image.fromarray(depth16).save(str(tmp_path / f"{i:06d}-depth.png"))
+        frames.append((rgb8.astype(np.float32),
+                       depth16.astype(np.float32) / 10000.0))
+    out = str(tmp_path / "poses.jsonl")
+    serve.main(["--device", "cpu", "--source", "dir", "--frame_dir",
+                str(tmp_path), "--frames", "2", "--warmup", "0", "--out",
+                out], cfg)
+    with open(out) as f:
+        served = [json.loads(x) for x in f]
+    cpu = torch.device("cpu")
+    step = make_raw_inference_step(
+        cfg, build_model(cfg.model, 0), stacked_mesh_kps(cfg.model.n_classes),
+        stacked_class_radii(), device=cpu)
+    for i, (rgb, depth) in enumerate(frames):
+        want = step({"rgb": rgb[None], "depth": depth[None],
+                     "cam_k": serve._YCB_K[None]},
+                    generator=serve.frame_generator(i, cpu))
+        present = want["present"][0].numpy()
+        assert served[i]["present"] == present.nonzero()[0].tolist()
+        np.testing.assert_array_equal(
+            np.asarray(served[i]["poses"], np.float32).reshape(-1, 3, 4),
+            want["poses"][0].numpy()[present > 0])
+
+
 def test_serve_on_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
