@@ -142,7 +142,10 @@ that fails):
                the first ``--device_preprocess`` training batch built on
                the card and on the CPU from the same raw batch and
                generator (choose, labels, GT slots equal; cloud and
-               targets 1e-5).
+               targets 1e-5).  Its 3 steps and 8 frames check the path
+               and are too few for rates: those come from the phase
+               alone at 20 steps and 32 frames (``phase_disk(smi,
+               steps=20, frames=32)``).
 12. a JSON line per kernel and kernel instance (launches on the serving
    slice, the raw requests, the ICP request, the training steps, the
    mode requests and the [disk] runs, error, times, bound; K2's
@@ -2407,10 +2410,10 @@ def _counted(fn):
     return out, {k.name: k.launches for k in KERNELS}
 
 
-def _disk_trees():
-    """A YCB tree at 480x640 (8 real frames named as the vendored test
-    list's first, 8 synthetic; a mesh for each of the 21 classes) and a
-    LineMOD tree for one object (4 real frames, 2 render and 2 fuse
+def _disk_trees(n_test: int):
+    """A YCB tree at 480x640 (``n_test`` real frames named as the vendored
+    test list's first, 8 synthetic; a mesh for each of the 21 classes)
+    and a LineMOD tree for one object (4 real frames, 2 render and 2 fuse
     items), written by the port's tool."""
     import shutil
 
@@ -2420,22 +2423,28 @@ def _disk_trees():
     shutil.rmtree(DISK_DIR, ignore_errors=True)
     with open(os.path.join(ASSETS_DIR, "ycb_config",
                            "test_data_list.txt")) as f:
-        test_items = [ln.strip() for ln in f if ln.strip()][:8]
+        test_items = [ln.strip() for ln in f if ln.strip()][:n_test]
     items = test_items + [f"data_syn/{i:06d}" for i in range(1, 9)]
     t0 = time.perf_counter()
     ycb = make_fake_ycb(DISK_DIR, items=items, mesh_ids=range(1, 22))
     lm = make_fake_linemod(DISK_DIR, n_frames=4, n_renders=2)
     log("disk", f"trees written in {time.perf_counter() - t0:.1f} s: YCB "
-        f"{len(items)} frames (8 real as the test list's first, 8 "
+        f"{len(items)} frames ({n_test} real as the test list's first, 8 "
         f"synthetic), LineMOD 4 real + 2 render + 2 fuse")
     return ycb, lm
 
 
-def _disk_train(smi, ycb, lm):
-    """The train app: 3 steps at batch 4 on the YCB tree with host frames
-    from 0 and 2 workers and with --device_preprocess, then 2 on the
-    LineMOD tree; each saves a checkpoint.  Returns the summed launch
-    counts and the first YCB run's checkpoint directory."""
+def _interval_summary(ms) -> str:
+    ms = sorted(ms)
+    return (f"median {ms[len(ms) // 2]:.1f} ms, mean "
+            f"{sum(ms) / len(ms):.1f} over {len(ms)} intervals")
+
+
+def _disk_train(smi, ycb, lm, steps: int):
+    """The train app: ``steps`` steps at batch 4 on the YCB tree with
+    host frames from 0 and 2 workers and with --device_preprocess, then 2
+    on the LineMOD tree; each saves a checkpoint.  Returns the summed
+    launch counts and the first YCB run's checkpoint directory."""
     from pvn3d_tpu_torch.apps import train as train_app
     from pvn3d_tpu_torch.train.trainer import Trainer
     runs = {
@@ -2448,7 +2457,7 @@ def _disk_train(smi, ycb, lm):
     total, ckpt = {}, None
     for i, (name, extra) in enumerate(runs.items()):
         lm_run = name.startswith("linemod")
-        n_steps = 2 if lm_run else 3
+        n_steps = 2 if lm_run else steps
         run_dir = os.path.join(DISK_DIR, f"run{i}")
         argv = (["--dataset", "linemod", "--cls", "ape", "--data_root", lm]
                 if lm_run else
@@ -2480,15 +2489,16 @@ def _disk_train(smi, ycb, lm):
             + ", ".join(f"{t:.1f}" for t in timer.step_ms)
             + "; between step ends ms "
             + ", ".join(f"{t:.1f}" for t in timer.interval_ms)
-            + f"; run {wall:.1f} s; launches {launches} [{smi}]")
+            + f" ({_interval_summary(timer.interval_ms)}); run {wall:.1f} "
+            f"s; launches {launches} [{smi}]")
         ckpt = ckpt or run_dir
     return total, ckpt
 
 
-def _disk_loader_rate(smi, ycb):
+def _disk_loader_rate(smi, ycb, steps: int):
     """Frames a second of the host build (YCB train frames, augmentation
-    and fill included) at 0 and 2 workers, 8 frames after the first
-    batch."""
+    and fill included) at 0 and 2 workers, over the ``steps - 1``
+    batches of 4 after the first."""
     from pvn3d_tpu_torch.apps.train import make_dataset_factory, train_config
     from pvn3d_tpu_torch.apps.train import build_argparser as train_args
     from pvn3d_tpu_torch.data.loader import DataLoader
@@ -2497,32 +2507,33 @@ def _disk_loader_rate(smi, ycb):
     factory = make_dataset_factory(args, "train", train_config(args))
     rates = {}
     for workers in (0, 2):
-        it = iter(DataLoader(factory, 4, num_workers=workers, steps=3))
+        it = iter(DataLoader(factory, 4, num_workers=workers, steps=steps))
         next(it)
         t0 = time.perf_counter()
         n = sum(len(b["labels"]) for b in it)
         rates[workers] = n / (time.perf_counter() - t0)
     log("disk", f"loader, YCB train frames built on the host: "
-        f"{rates[0]:.2f} frames/s at 0 workers, {rates[2]:.2f} at 2 [{smi}]")
+        f"{rates[0]:.2f} frames/s at 0 workers, {rates[2]:.2f} at 2, over "
+        f"{4 * (steps - 1)} frames after the first batch [{smi}]")
     return rates
 
 
-def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt):
-    """The evaluate app on the YCB test split from the first checkpoint:
-    host frames, --device_preprocess, --icp, and --packed_dir after the
-    packer packed the split; then once on LineMOD.  Returns the summed
-    launch counts."""
+def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt, frames: int):
+    """The evaluate app on the YCB test split's ``frames`` frames from the
+    first checkpoint: host frames, --device_preprocess, --icp, and
+    --packed_dir after the packer packed the split; then once on
+    LineMOD.  Returns the summed launch counts."""
     from pvn3d_tpu_torch.apps import evaluate as eval_app
     from pvn3d_tpu_torch.data.ycb import YCBDataset
     from pvn3d_tpu_torch.tools.preprocess_testset import pack_dataset
     packed = os.path.join(DISK_DIR, "packed")
     t0 = time.perf_counter()
     n_packed = pack_dataset(YCBDataset(ycb, split="test"), packed,
-                            shard_size=4, max_frames=8, workers=2)
+                            shard_size=4, max_frames=frames, workers=2)
     log("disk", f"packed {n_packed} test frames in "
         f"{time.perf_counter() - t0:.1f} s")
     base = ["--data_root", ycb, "--checkpoint_dir", ckpt, "--batch_size",
-            "4", "--max_frames", "8", "--workers", "0"]
+            "4", "--max_frames", str(frames), "--workers", "0"]
     runs = {"ycb host": base, "ycb --device_preprocess":
             base + ["--device_preprocess"], "ycb --icp": base + ["--icp"],
             "ycb --packed_dir": base + ["--packed_dir", packed],
@@ -2548,7 +2559,7 @@ def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt):
                 summary, launches = _counted(lambda: eval_app.main(argv))
         finally:
             eval_app.accumulate_batches = acc
-        want = 4 if name.startswith("linemod") else 8
+        want = 4 if name.startswith("linemod") else frames
         if timed.get("n") != want:
             raise AssertionError(f"disk: evaluate {name}: {timed.get('n')} "
                                  f"frames scored, expected {want}")
@@ -2675,15 +2686,18 @@ def _disk_card_vs_cpu(ycb, ckpt):
         f"beyond 1e-4 at {flips} of {nrm_off.numel()} points")
 
 
-def phase_disk(smi: str):
+def phase_disk(smi: str, steps: int = 3, frames: int = 8):
     """Train and evaluate through the apps from trees written here (see
-    the module docstring).  Returns the launch counts of its runs."""
+    the module docstring).  Returns the launch counts of its runs.
+
+    ``steps`` YCB training steps a mode and ``frames`` test frames an
+    evaluation mode (see the module docstring)."""
     import gc
-    ycb, lm = _disk_trees()
-    train_launches, ckpt = _disk_train(smi, ycb, lm)
-    _disk_loader_rate(smi, ycb)
+    ycb, lm = _disk_trees(frames)
+    train_launches, ckpt = _disk_train(smi, ycb, lm, steps)
+    _disk_loader_rate(smi, ycb, steps)
     eval_launches = _disk_evaluate(smi, ycb, lm, ckpt,
-                                   os.path.join(DISK_DIR, "run3"))
+                                   os.path.join(DISK_DIR, "run3"), frames)
     _disk_card_vs_cpu(ycb, ckpt)
     gc.collect()
     torch.cuda.empty_cache()

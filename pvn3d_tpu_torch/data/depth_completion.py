@@ -19,25 +19,19 @@ from pvn3d_tpu_torch.ops.preprocess import fill_in_multiscale
 
 
 def fill_missing(depth: np.ndarray, cam_scale: float = 1.0,
-                 scale_to_m: float = 1.0, max_depth: float = 3.0,
-                 fill_type: str = "multiscale",
-                 blur_type: str = "bilateral",
-                 extrapolate: bool = False) -> np.ndarray:
-    """An (H, W) depth map in ``cam_scale`` units per ``1 / scale_to_m``
-    metres, filled, in the same units (float32)."""
+                 fill_type: str = "multiscale") -> np.ndarray:
+    """An (H, W) depth map in ``cam_scale`` units per metre, filled, in
+    the same units (float32): ip_basic's defaults as the reference calls
+    it (max depth 3 m, bilateral blur, no extrapolation)."""
     if fill_type == "fast":
         raise NotImplementedError(
             "fill_type='fast' (ip_basic fill_in_fast) is not ported "
             "(ROADMAP.md queue A, item 9)")
     if fill_type != "multiscale":
         raise ValueError(f"unknown fill_type {fill_type!r}")
-    if blur_type != "bilateral":
-        raise NotImplementedError(
-            f"blur_type={blur_type!r}: the port's fill blurs bilaterally "
-            "only (the YCB default)")
-    d = depth / cam_scale * scale_to_m
+    d = depth / cam_scale
     with torch.no_grad():
         filled = fill_in_multiscale(
-            torch.from_numpy(np.ascontiguousarray(d, np.float32))[None],
-            max_depth=max_depth, extrapolate=extrapolate)[0].numpy()
-    return filled / scale_to_m * cam_scale
+            torch.from_numpy(np.ascontiguousarray(d, np.float32))[None]
+        )[0].numpy()
+    return filled * cam_scale

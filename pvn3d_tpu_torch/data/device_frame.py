@@ -209,17 +209,17 @@ def _host_bools(x) -> np.ndarray:
 
 def build_train_batch_device(raw: Dict, generator: torch.Generator,
                              n_sample: int, n_classes: int,
-                             cam_scale: float = 1.0, fill: bool = True,
+                             fill: bool = True,
                              dataset: str = "ycb", augment: bool = True,
                              priorities: Optional[torch.Tensor] = None
                              ) -> Dict[str, torch.Tensor]:
     """A training batch from raw frames, on the device ``raw["depth"]``
     lies on.
 
-    ``raw`` holds (B, ...) rgb, depth (``cam_scale`` units per metre),
-    label_map, cam_k, cls_ids, rts, mesh_kps, mesh_ctrs, back_rgb,
-    back_depth, back_label as tensors, and is_syn, do_jitter as host
-    arrays (a tensor is read to the host).  LineMOD frames take the BGR
+    ``raw`` holds (B, ...) rgb, depth (metres, as both datasets' raw
+    items carry it), label_map, cam_k, cls_ids, rts, mesh_kps, mesh_ctrs,
+    back_rgb, back_depth, back_label as tensors, and is_syn, do_jitter as
+    host arrays (a tensor is read to the host).  LineMOD frames take the BGR
     flip after the jitter.  ``priorities`` (B, H*W) replace the drawn
     ones (tests pass the JAX package's).  Returns the host build's sample
     fields: pointcloud, rgb, choose, labels and the targets."""
@@ -248,8 +248,7 @@ def build_train_batch_device(raw: Dict, generator: torch.Generator,
         priorities = torch.stack([priority_field(f["priority_seed"], h * w,
                                                  dev) for f in frames])
     built = build_inference_batch_device(
-        rgb, torch.stack(depths), raw["cam_k"], n_sample,
-        cam_scale=cam_scale, fill=fill,
+        rgb, torch.stack(depths), raw["cam_k"], n_sample, fill=fill,
         priorities=torch.as_tensor(priorities, device=dev))
     choose = built["choose"]
     labels = torch.gather(raw["label_map"].reshape(b, h * w).long(), 1,

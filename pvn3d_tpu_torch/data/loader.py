@@ -50,22 +50,17 @@ class DataLoader:
 
     def __init__(self, dataset_factory, batch_size: int,
                  num_workers: int = 0, seed: int = 0,
-                 steps: Optional[int] = None, shuffle: bool = False,
-                 chunksize: int = 1, pad_last: bool = True):
+                 steps: Optional[int] = None):
         self.factory = dataset_factory
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.seed = seed
-        self.steps = steps
-        self.shuffle = shuffle
-        self.chunksize = chunksize
         # Epoch mode (steps=None): the final n % batch_size samples are
         # padded by repeating the last sample to keep one batch shape; the
         # batch carries "_n_valid" (a plain int) so consumers score only
-        # the real frames.  pad_last=False drops them instead.  Training
-        # mode never produces a partial batch (the ticket stream is
-        # steps * batch_size long).
-        self.pad_last = pad_last
+        # the real frames.  Training mode never produces a partial batch
+        # (the ticket stream is steps * batch_size long).
+        self.steps = steps
 
     def _indices(self, n: int) -> Iterator[int]:
         if self.steps is not None:
@@ -75,10 +70,7 @@ class DataLoader:
             for i in range(self.steps * self.batch_size):
                 yield i % n
         else:
-            order = np.arange(n)
-            if self.shuffle:
-                np.random.RandomState(self.seed).shuffle(order)
-            yield from order.tolist()
+            yield from range(n)
 
     def __iter__(self):
         ds = self.factory()
@@ -90,8 +82,7 @@ class DataLoader:
         else:
             pool = mp.get_context("spawn").Pool(
                 self.num_workers, _init_worker, (self.factory, self.seed))
-            sample_stream = pool.imap(_fetch, idx_stream,
-                                      chunksize=self.chunksize)
+            sample_stream = pool.imap(_fetch, idx_stream)
         try:
             batch = []
             for sample in sample_stream:
@@ -101,7 +92,7 @@ class DataLoader:
                 if len(batch) == self.batch_size:
                     yield collate(batch)
                     batch = []
-            if batch and self.steps is None and self.pad_last:
+            if batch and self.steps is None:
                 n_valid = len(batch)
                 batch += [batch[-1]] * (self.batch_size - n_valid)
                 out = collate(batch)
@@ -115,9 +106,12 @@ class DataLoader:
                 pool.join()
 
 
-def prefetch_to_device(iterator: Iterable[dict], device, size: int = 2,
+PREFETCH = 2    # batches in flight on the device
+
+
+def prefetch_to_device(iterator: Iterable[dict], device,
                        host_keys=()) -> Iterator[dict]:
-    """Keep ``size`` batches in flight on ``device``.
+    """Keep ``PREFETCH`` batches in flight on ``device``.
 
     Each array of a host batch becomes a tensor on ``device``; the keys in
     ``host_keys`` and entries that are not arrays (``_n_valid``) stay as
@@ -160,7 +154,7 @@ def prefetch_to_device(iterator: Iterable[dict], device, size: int = 2,
         for batch in iterator:
             in_flight.append(put(batch))
             release(block=False)
-            if len(in_flight) >= size:
+            if len(in_flight) >= PREFETCH:
                 yield in_flight.popleft()
         while in_flight:
             yield in_flight.popleft()

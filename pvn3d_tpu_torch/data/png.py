@@ -11,18 +11,21 @@ returns what ``np.array(PIL.Image.open(path))`` returns:
 - 3 (palette) at 8 bits: the (H, W) uint8 palette indices, as PIL's
   mode "P" gives them.
 
-16-bit samples are big-endian in the file.  Interlaced files and other
-bit depths raise.  ``write_png`` writes grey (uint8 or uint16), grey +
+16-bit samples are big-endian in the file.  A valid file this module
+does not decode (interlaced, or another bit depth) raises
+``UnsupportedPNG``, a ``NotImplementedError``; a missing file raises
+``OSError`` and a corrupt one ``ValueError``, so the datasets, which
+skip missing and corrupt files as the JAX package's do, never skip an
+unsupported one.  ``write_png`` writes grey (uint8 or uint16), grey +
 alpha, RGB or RGBA arrays, every row with filter 0.
 
-Decoding undoes the five scanline filters.  None, Sub and Up depend on
-nothing to their right or below, but Average and Paeth predict each byte
-from its left neighbour, so a row cannot be undone in one vector step.
-The bytes are undone along anti-diagonals instead: pixel x of row r needs
-only pixels x-1 of row r and x-1, x of row r-1, so every pixel with
-r + x = t is ready at step t, whatever each row's filter.  That is
-W + H - 1 vector steps a file; files whose rows use None, Sub and Up only
-are undone row by row.
+Decoding undoes the five scanline filters.  Average and Paeth predict
+each byte from its left neighbour, so a row cannot be undone in one
+vector step.  The bytes are undone along anti-diagonals instead: pixel x
+of row r needs only pixels x-1 of row r and x-1, x of row r-1, so every
+pixel with r + x = t is ready at step t, whatever each row's filter.
+That is W + H - 1 vector steps a file, the same for every mix of filters
+(``tools/png_bench.py`` times it).
 """
 from __future__ import annotations
 
@@ -34,6 +37,13 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths the PNG specification allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+class UnsupportedPNG(NotImplementedError):
+    """A valid PNG file in a form this module does not decode."""
 
 
 def _chunks(data: bytes):
@@ -63,27 +73,7 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter_rows(filt: np.ndarray, kinds: np.ndarray,
-                   bpp: int) -> np.ndarray:
-    """Rows of filters None, Sub and Up, one row at a time."""
-    h, row = filt.shape
-    out = np.zeros((h, row), np.uint8)
-    prev = np.zeros(row, np.uint8)
-    for r in range(h):
-        f = filt[r]
-        if kinds[r] == 0:
-            cur = f
-        elif kinds[r] == 1:
-            cur = np.cumsum(f.reshape(-1, bpp), axis=0,
-                            dtype=np.uint64).astype(np.uint8).reshape(row)
-        else:
-            cur = f + prev
-        out[r] = cur
-        prev = out[r]
-    return out
-
-
-def _unfilter_wavefront(filt: np.ndarray, kinds: np.ndarray, bpp: int,
+def _unfilter(filt: np.ndarray, kinds: np.ndarray, bpp: int,
                         width: int) -> np.ndarray:
     """Any mix of the five filters, by anti-diagonals of pixels."""
     h, w = filt.shape[0], width
@@ -122,15 +112,17 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG file has no IHDR chunk")
     width, height, depth, ctype, comp, filt_method, interlace = header
-    if ctype not in _CHANNELS:
-        raise ValueError(f"unsupported PNG colour type {ctype}")
-    if comp != 0 or filt_method != 0:
-        raise ValueError("unsupported PNG compression or filter method")
-    if interlace != 0:
-        raise ValueError("interlaced PNG files are not supported")
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+        raise ValueError(f"invalid PNG colour type {ctype} at bit depth "
+                         f"{depth}")
+    if comp != 0 or filt_method != 0 or interlace not in (0, 1):
+        raise ValueError("invalid PNG compression, filter or interlace "
+                         "method")
+    if interlace:
+        raise UnsupportedPNG("interlaced PNG files are not supported")
     if not (depth == 8 or (depth == 16 and ctype == 0)):
-        raise ValueError(f"unsupported PNG bit depth {depth} for colour "
-                         f"type {ctype}")
+        raise UnsupportedPNG(f"PNG bit depth {depth} for colour type "
+                             f"{ctype} is not supported")
     chans = _CHANNELS[ctype]
     bpp = chans * depth // 8
     row = width * bpp
@@ -143,10 +135,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if kinds.max(initial=0) > 4:
         raise ValueError(f"unknown PNG filter type {int(kinds.max())}")
     filt = raw[:, 1:]
-    if np.isin(kinds, (3, 4)).any():
-        out = _unfilter_wavefront(filt, kinds, bpp, width)
-    else:
-        out = _unfilter_rows(filt, kinds, bpp)
+    out = _unfilter(filt, kinds, bpp, width)
     if depth == 16:
         return out.reshape(height, width, 2).view(">u2")[..., 0].astype(
             np.uint16)

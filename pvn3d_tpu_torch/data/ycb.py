@@ -121,7 +121,7 @@ class YCBDataset:
         if self.fill_depth and not self.spec.device_preprocess:
             # raw mode defers ip_basic completion to the device
             # (ops/preprocess.py::fill_in_multiscale).
-            depth = fill_missing(depth, cam_scale, 1.0)
+            depth = fill_missing(depth, cam_scale)
 
         instances = []
         cls_id_lst = meta["cls_indexes"].ravel().astype(np.int32)

@@ -145,13 +145,34 @@ def _filtered_png(img: np.ndarray, kinds) -> bytes:
                             np.where(pb <= pc, prev, ul))
         rows.append(np.concatenate([[k], (cur - pred) & 0xFF]))
     raw = np.stack(rows).astype(np.uint8).tobytes()
+    return _png_file(w, h, 8, 2, 0, raw)
 
+
+def _png_file(w, h, depth, ctype, interlace, raw: bytes) -> bytes:
+    """PNG bytes from an IHDR's fields and the unfiltered image data."""
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
     return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, interlace))
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _adam7_png(img: np.ndarray) -> bytes:
+    """An interlaced (Adam7) 8-bit grey or RGB PNG of ``img``, each
+    pass's rows with filter 0: a valid file, which PIL reads."""
+    h, w = img.shape[:2]
+    raw = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            rows = sub.reshape(sub.shape[0], -1)
+            raw += np.concatenate([np.zeros((len(rows), 1), np.uint8),
+                                   rows], 1).tobytes()
+    return _png_file(w, h, 8, 0 if img.ndim == 2 else 2, 1, raw)
 
 
 @pytest.mark.parametrize("kinds", [(0,), (1,), (2,), (3,), (4,),
@@ -172,7 +193,7 @@ def test_png_raises_outside_its_subset():
     data_i = (bytes(data[:8]) + struct.pack(">I", 13) + b"IHDR" + interlaced
               + struct.pack(">I", zlib.crc32(b"IHDR" + interlaced))
               + bytes(data[33:]))
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(png.UnsupportedPNG, match="interlaced"):
         png.decode_png(data_i)
     bad = bytearray(data)
     bad[30] ^= 0xFF                       # inside the CRC of IHDR
@@ -182,6 +203,45 @@ def test_png_raises_outside_its_subset():
         png.decode_png(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError):
         png.encode_png(np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match="bit depth 3"):
+        png.decode_png(_png_file(4, 4, 3, 0, 0, bytes(4 * 3)))
+
+
+def _unsupported_files():
+    img = np.random.RandomState(5).randint(0, 256, (13, 11, 3)).astype(
+        np.uint8)
+    return {
+        "adam7_rgb": (_adam7_png(img), img),
+        "adam7_grey": (_adam7_png(img[..., 0]), img[..., 0]),
+        "grey_1bit": (_pil_png(img[..., 0] > 127), img[..., 0] > 127),
+        "rgb_16bit": (_png_file(2, 1, 16, 2, 0, bytes(13)), None),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_unsupported_files()))
+def test_png_raises_unsupported_for_valid_files_outside_its_subset(name):
+    """Valid files the decoder does not read raise ``UnsupportedPNG``, a
+    ``NotImplementedError`` and no ``ValueError``: the datasets skip
+    corrupt files (``ValueError``) but not these."""
+    data, img = _unsupported_files()[name]
+    if img is not None:
+        np.testing.assert_array_equal(_pil_read(data), img)
+    with pytest.raises(png.UnsupportedPNG) as err:
+        png.decode_png(data)
+    assert isinstance(err.value, NotImplementedError)
+    assert not isinstance(err.value, ValueError)
+
+
+def test_png_bench_files_are_valid():
+    """The timing tool's files: its adaptive encoder's rows use several
+    filters, and PIL and the port read every file back exactly."""
+    from pvn3d_tpu_torch.tools import png_bench
+    for img in png_bench.frames(0, 48, 64).values():
+        for data in (png.encode_png(img), png_bench.encode_adaptive(img)):
+            np.testing.assert_array_equal(_pil_read(data), img)
+            np.testing.assert_array_equal(png.decode_png(data), img)
+        used = png_bench.row_filters(png_bench.encode_adaptive(img), png)
+        assert sum(n > 0 for n in used) >= 2, used
 
 
 REAL_GT_YML = """0:
@@ -319,7 +379,7 @@ def test_normals_match_jax_numpy_arm():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_fill_missing_matches_the_cv2_arm(seed):
     d = _holey_depth(seed)
-    got = fill_missing(d, 10000.0, 1.0)
+    got = fill_missing(d, 10000.0)
     want = jax_dc.fill_missing(d, 10000.0, 1.0, impl="numpy")
     assert got.dtype == np.float32 and got.shape == want.shape
     err = np.abs(got - want) / 10000.0
@@ -633,6 +693,42 @@ def test_linemod_raw_train_items_equal_jax(trees):
     assert len(kinds) >= 2
 
 
+@pytest.mark.parametrize("dataset,split", [
+    ("ycb", "test"), ("ycb", "train"), ("linemod", "test"),
+    ("linemod", "train")])
+def test_interlaced_frame_raises_instead_of_being_skipped(tmp_path, dataset,
+                                                          split):
+    """A colour image in a form the decoder does not read stops the split:
+    a test split would otherwise score fewer frames without a word, and a
+    train split whose files all fail would draw forever."""
+    if dataset == "ycb":
+        root = fake_data.make_fake_ycb(str(tmp_path), n_frames=4, h=24,
+                                       w=32, cls_ids=(1, 2))
+        ds = YCBDataset(root, split=split, file_list=os.path.join(
+            root, "image_list.txt"), spec=frame.FrameSpec(
+                n_sample_points=64), fill_depth=False)
+        names = _read_list(os.path.join(root, "image_list.txt"))
+        paths = [os.path.join(root, n + "-color.png") for n in names]
+    else:
+        root = fake_data.make_fake_linemod(str(tmp_path), n_frames=3, h=24,
+                                           w=32)
+        ds = LineMODDataset(root, "ape", split=split,
+                            spec=frame.FrameSpec(n_sample_points=64))
+        rgb_dir = os.path.join(root, "data", "01", "rgb")
+        paths = [os.path.join(rgb_dir, n) for n in os.listdir(rgb_dir)]
+    for path in paths:
+        img = png.read_png(path)
+        with open(path, "wb") as f:
+            f.write(_adam7_png(img))
+    with pytest.raises(png.UnsupportedPNG, match="interlaced"):
+        ds[0]
+
+
+def _read_list(path):
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
 def test_fake_trees_decode_equal_to_jax(tmp_path):
     import scipy.io as scio
     a, b = str(tmp_path / "jax"), str(tmp_path / "port")
@@ -708,7 +804,7 @@ def test_loader_batches_match_jax_and_workers(trees, jax_numpy_arms):
 def test_prefetch_to_device_on_the_cpu():
     batches = [{"a": np.arange(6).reshape(2, 3) + i, "flag": np.ones(2,
                 bool), "_n_valid": 1} for i in range(5)]
-    out = list(prefetch_to_device(iter(batches), "cpu", size=2,
+    out = list(prefetch_to_device(iter(batches), "cpu",
                                   host_keys=("flag",)))
     assert len(out) == 5
     for i, b in enumerate(out):
