@@ -146,9 +146,35 @@ that fails):
                and are too few for rates: those come from the phase
                alone at 20 steps and 32 frames (``phase_disk(smi,
                steps=20, frames=32)``).
-12. a JSON line per kernel and kernel instance (launches on the serving
+12. apps     — the apps' and tools' surface, on 480x640 trees written
+               here (under ``build/apps``): ``apps.evaluate --occ`` for
+               ape at batch 4 on an Occlusion-LineMOD tree (4 annotated
+               frames and an unannotated one) with synthesised labels,
+               with masks and with ``--device_preprocess``, and with
+               ``--packed_dir`` after ``tools/preprocess_testset.py
+               --occ`` packed it (frames/s, ADD, launches each; K1-K4
+               launched); ``apps.demo`` on the YCB and LineMOD trees, 2
+               frames each, from a checkpoint of seeded weights whose
+               poses land in view (the PNGs decode to full frames that
+               differ from the frames read by the overlays);
+               ``apps.train --pretrained_trunk`` for 2 steps at batch 4
+               on LineMOD from a torchvision-named dict written here
+               (the trunk equals the dict when the first step starts;
+               launches exactly fps 1, query 4, interp 4, interp_bwd 4 a
+               step); ``tools.check_dataset --render_dir`` on both trees
+               (0 violations), ``tools.gen_obj_info`` on a PLY,
+               ``knn_normals`` on a 12288-point cloud on the card against
+               the CPU (|n.n'| >= 1 - 1e-6); ``utils.profiling.
+               device_loop_stats`` around a full-width request (iters 5,
+               trials 3) beside [slice]'s latencies, and one ``trace()``
+               of two requests whose Chrome trace names K1-K4.  Its 4 occ
+               and 2 demo frames check the paths and are too few for
+               rates: those come from the phase alone at 32 and 8
+               (``phase_apps(smi, lat, occ_frames=32, demo_frames=8)``).
+13. a JSON line per kernel and kernel instance (launches on the serving
    slice, the raw requests, the ICP request, the training steps, the
-   mode requests and the [disk] runs, error, times, bound; K2's
+   mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
+   error, times, bound; K2's
    instances and K3 forward and backward also per level, the backward on
    both clouds; K4 also per pass on both inputs and at the ICP shape),
    the ``nvidia-smi`` line again, then the result line.
@@ -2704,13 +2730,438 @@ def phase_disk(smi: str, steps: int = 3, frames: int = 8):
     return {k: train_launches[k] + eval_launches[k] for k in train_launches}
 
 
+# The [apps] phase's trees, checkpoints, renders and traces (under the
+# checkout's git-ignored build/ directory).
+APPS_DIR = os.path.join(ROOT, "build", "apps")
+# Substrings of the four TPU kernels' CUDA names in a profiler trace.
+_TRACE_NAMES = {"K1": "fps_kernel", "K2": "ball_query_kernel",
+                "K3": "three_interp_kernel", "K4": "winner_kernel"}
+
+
+def _add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _apps_trees(occ_frames: int, demo_frames: int):
+    """480x640 trees written by the port's tool: YCB (``demo_frames``
+    real frames named as the vendored test list's first, a mesh for each
+    of the 21 classes), LineMOD ape (``demo_frames`` real frames), and
+    Occlusion-LineMOD ape in both variants, labels synthesised from the
+    mesh and masks on disk (``occ_frames`` annotated frames each and an
+    unannotated last one)."""
+    import shutil
+
+    from pvn3d_tpu_torch.config import ASSETS_DIR
+    from pvn3d_tpu_torch.tools.fake_data import (make_fake_linemod,
+                                                 make_fake_occlusion_linemod,
+                                                 make_fake_ycb)
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    with open(os.path.join(ASSETS_DIR, "ycb_config",
+                           "test_data_list.txt")) as f:
+        items = [ln.strip() for ln in f if ln.strip()][:demo_frames]
+    t0 = time.perf_counter()
+    trees = {
+        "ycb": make_fake_ycb(APPS_DIR, items=items, mesh_ids=range(1, 22)),
+        "linemod": make_fake_linemod(APPS_DIR, n_frames=demo_frames),
+        "occ": make_fake_occlusion_linemod(
+            os.path.join(APPS_DIR, "occ_synth"), n_frames=occ_frames + 1),
+        "occ masks": make_fake_occlusion_linemod(
+            os.path.join(APPS_DIR, "occ_masks"), n_frames=occ_frames + 1,
+            with_masks=True)}
+    log("apps", f"trees written in {time.perf_counter() - t0:.1f} s: YCB "
+        f"{demo_frames} test frames, LineMOD {demo_frames}, "
+        f"Occlusion-LineMOD {occ_frames} annotated + 1 not, with "
+        f"synthesised labels and with masks")
+    return trees
+
+
+# Fewest frames of a run whose wall time [apps] reports as a rate; the
+# smoke run's 4 occ and 2 demo frames are path checks.
+RATE_FRAMES = 8
+
+
+def _rate(n: int, seconds: float) -> str:
+    """``n`` frames in ``seconds`` as frames/s, or, below
+    ``RATE_FRAMES``, as a path check only: a few frames are one batch,
+    whose reading is mostly the first call's or the warm process's."""
+    if n < RATE_FRAMES:
+        return (f"{n} frames in {seconds:.2f} s (a path check, too few "
+                f"frames for a rate)")
+    return f"{n} frames in {seconds:.2f} s ({n / seconds:.2f} frames/s)"
+
+
+def _apps_occ(smi, trees, total, frames):
+    """``apps.evaluate --occ`` at batch 4 on both occ variants (host
+    frames) and with --device_preprocess, then the packer's --occ and
+    --packed_dir on its shards, ``frames`` annotated frames each: wall
+    time, ADD and launches a run."""
+    from pvn3d_tpu_torch.apps import evaluate as eval_app
+    from pvn3d_tpu_torch.inference import evaluator
+    from pvn3d_tpu_torch.tools import preprocess_testset
+    ckpt = os.path.join(APPS_DIR, "occ_run")
+    packed = os.path.join(APPS_DIR, "occ_packed")
+    base = ["--dataset", "linemod", "--cls", "ape", "--occ",
+            "--checkpoint_dir", ckpt, "--batch_size", "4", "--workers", "0"]
+    runs = {"synthesised labels": ["--data_root", trees["occ"]],
+            "masks": ["--data_root", trees["occ masks"]],
+            "--device_preprocess": ["--data_root", trees["occ"],
+                                    "--device_preprocess"],
+            "--packed_dir": ["--data_root", trees["occ"], "--packed_dir",
+                             packed]}
+    acc, made = eval_app.accumulate_batches, []
+
+    class Capture(evaluator.PoseEvaluator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    real_ev = evaluator.PoseEvaluator
+    for name, extra in runs.items():
+        if name == "--packed_dir":
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                preprocess_testset.main(
+                    ["--dataset", "linemod", "--cls", "ape", "--occ",
+                     "--data_root", trees["occ"], "--out", packed,
+                     "--shard_size", "4", "--workers", "0"])
+            log("apps", f"packer --occ: {frames} frames packed in "
+                f"{time.perf_counter() - t0:.1f} s")
+        timed = {}
+
+        def accumulate(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = acc(*a, **kw)
+            torch.cuda.synchronize()
+            timed["s"], timed["n"] = time.perf_counter() - t0, n
+            return n
+        eval_app.accumulate_batches = accumulate
+        evaluator.PoseEvaluator = Capture
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary, launches = _counted(
+                    lambda: eval_app.main(base + extra))
+        finally:
+            eval_app.accumulate_batches = acc
+            evaluator.PoseEvaluator = real_ev
+        add = np.asarray(made[-1].cls_add_dis[1])
+        if timed.get("n") != frames or summary["n"] != frames or \
+                not np.isfinite(add).all():
+            raise AssertionError(f"apps: evaluate --occ {name}: "
+                                 f"{timed.get('n')} frames, summary "
+                                 f"{summary}")
+        if any(launches[k] < 1 for k in ("fps", "query", "interp",
+                                         "winner")):
+            raise AssertionError(f"apps: evaluate --occ {name}: launches "
+                                 f"{launches}")
+        _add_counts(total, launches)
+        log("apps", f"evaluate --occ ({name}), loader included: "
+            f"{_rate(frames, timed['s'])}; ADD "
+            f"mean {add.mean():.4f} m, AUC {summary['add_auc']:.2f}, "
+            f"<0.1d {summary['add_0.1d']:.2f} (random weights); launches "
+            f"{launches} [{smi}]")
+
+
+def _overlay_checkpoint(cfg, run_dir: str) -> None:
+    """A checkpoint of seeded random weights whose poses land in view:
+    the keypoint and center heads' output layers scaled by 1e-4 (votes
+    centimetres from their points, not metres) and class 1's seg logit
+    raised by 50, so class 1 is present at its cloud."""
+    from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
+    from pvn3d_tpu_torch.train.state import create_train_state
+    state = create_train_state(cfg, 0, "cuda")
+    with torch.no_grad():
+        for name in ("KpOF_layer", "CtrOf_layer", "SEG_layer"):
+            head = getattr(state.model, name)
+            out = getattr(head, str(head.n_hidden)).conv
+            if name == "SEG_layer":
+                out.bias[1] += 50.0
+            else:
+                out.weight.mul_(1e-4)
+                out.bias.mul_(1e-4)
+    CheckpointManager(run_dir).save(0, state)
+
+
+def _apps_demo(smi, trees, total, frames):
+    """``apps.demo`` on the YCB and LineMOD trees, ``frames`` frames each:
+    the PNGs decode to full frames and differ from the frames read by the
+    drawn overlays."""
+    from pvn3d_tpu_torch.apps import demo
+    from pvn3d_tpu_torch.apps.train import base_config
+    from pvn3d_tpu_torch.config import ASSETS_DIR
+    from pvn3d_tpu_torch.data.png import read_png
+    with open(os.path.join(ASSETS_DIR, "ycb_config",
+                           "test_data_list.txt")) as f:
+        items = [ln.strip() for ln in f if ln.strip()][:frames]
+    sources = {
+        "ycb": [os.path.join(trees["ycb"], f"{it}-color.png")
+                for it in items],
+        "linemod": [os.path.join(trees["linemod"], "data", "01", "rgb",
+                                 f"{i:04d}.png") for i in range(frames)]}
+    for dataset, srcs in sources.items():
+        run = os.path.join(APPS_DIR, f"demo_run_{dataset}")
+        _overlay_checkpoint(base_config(dataset, "ape"), run)
+        out = os.path.join(APPS_DIR, f"demo_{dataset}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths, launches = _counted(lambda: demo.main(
+                ["--dataset", dataset, "--cls", "ape", "--data_root",
+                 trees[dataset], "--checkpoint_dir", run, "--out_dir", out,
+                 "--n_frames", str(frames), "--workers", "0"]))
+        wall = time.perf_counter() - t0
+        drawn = []
+        for path, src in zip(paths, srcs):
+            img, frame = read_png(path), read_png(src)
+            if img.shape != (480, 640, 3) or img.dtype != np.uint8:
+                raise AssertionError(f"apps: demo {path}: {img.shape} "
+                                     f"{img.dtype}")
+            drawn.append(int((img != frame[..., :3]).any(-1).sum()))
+        if len(paths) != frames or min(drawn) < 1:
+            raise AssertionError(f"apps: demo {dataset}: {len(paths)} "
+                                 f"images, overlay pixels {drawn}")
+        if any(launches[k] < frames for k in ("fps", "query", "interp",
+                                              "winner")):
+            raise AssertionError(f"apps: demo {dataset}: launches "
+                                 f"{launches}")
+        _add_counts(total, launches)
+        log("apps", f"demo {dataset}, model, meshes and loader included: "
+            f"{_rate(frames, wall)}; overlay pixels {drawn}; launches "
+            f"{launches} [{smi}]")
+
+
+def _torchvision_dict(path: str) -> dict:
+    """A state dict with torchvision's resnet34 key names and shapes
+    (the port's trunk keys without their prefix, plus the classifier and
+    BN counters torchvision saves), seeded, written to ``path``."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.utils.torch_convert import TRUNK_PREFIX
+    from pvn3d_tpu_torch.utils.weights import build_model
+    rng = np.random.RandomState(34)
+    sd = {}
+    for k, v in build_model(Config.linemod("ape").model, 0).state_dict(
+            ).items():
+        if not k.startswith(TRUNK_PREFIX):
+            continue
+        key = k[len(TRUNK_PREFIX):]
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(5)
+        elif key.endswith("running_var"):
+            sd[key] = torch.tensor(rng.rand(*v.shape) + 0.5,
+                                   dtype=torch.float32)
+        else:
+            sd[key] = torch.tensor(rng.randn(*v.shape) * 0.05,
+                                   dtype=torch.float32)
+    sd["fc.weight"] = torch.zeros(1000, 512)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def _apps_trunk(smi, trees, total):
+    """``apps.train --pretrained_trunk`` for 2 steps at batch 4 on the
+    LineMOD tree: the trunk equals the dict when the first step starts
+    and the steps launch K1-K3 and K3's backward."""
+    from pvn3d_tpu_torch.apps import train as train_app
+    from pvn3d_tpu_torch.utils.torch_convert import TRUNK_PREFIX
+    path = os.path.join(APPS_DIR, "resnet34.pth")
+    sd = _torchvision_dict(path)
+    seen = {}
+    real = train_app.Trainer
+
+    def trainer(cfg, state, train_step, *a, **kw):
+        def first(st, batch, seed):
+            if not seen:
+                torch.cuda.synchronize()
+                seen.update({k: v.detach().cpu().clone() for k, v in
+                             st.model.state_dict().items()
+                             if k.startswith(TRUNK_PREFIX)})
+            return train_step(st, batch, seed)
+        return real(cfg, state, first, *a, **kw)
+    train_app.Trainer = trainer
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out, launches = _counted(lambda: train_app.main(
+                ["--dataset", "linemod", "--cls", "ape", "--data_root",
+                 trees["linemod"], "--checkpoint_dir",
+                 os.path.join(APPS_DIR, "trunk_run"), "--pretrained_trunk",
+                 path, "--batch_size", "4", "--max_steps", "2",
+                 "--workers", "0", "--log_every", "1"]))
+        wall = time.perf_counter() - t0
+    finally:
+        train_app.Trainer = real
+    off = [k for k, v in sd.items() if not k.startswith("fc.")
+           and "num_batches" not in k
+           and not torch.equal(seen[TRUNK_PREFIX + k], v)]
+    if off or out.state.step != 2:
+        raise AssertionError(f"apps: --pretrained_trunk: step "
+                             f"{out.state.step}, trunk tensors unlike the "
+                             f"dict at the first step: {off[:4]}")
+    want = _expected_launches(fps=2, query=8, interp=8, interp_bwd=8)
+    if launches != want:
+        raise AssertionError(f"apps: --pretrained_trunk: launches "
+                             f"{launches}, expected {want}")
+    _add_counts(total, launches)
+    losses = [ln for ln in printed.getvalue().splitlines()
+              if ln.startswith("[train")]
+    log("apps", f"train --pretrained_trunk: {len(sd) - 2} trunk tensors "
+        f"equal the dict at step 0; 2 steps at batch 4 in {wall:.1f} s; "
+        f"{losses}; launches {launches} [{smi}]")
+
+
+def _apps_tools(smi, trees):
+    """``tools.check_dataset`` with --render_dir on the YCB and LineMOD
+    trees (0 violations), ``tools.gen_obj_info`` on a fake PLY, and
+    ``knn_normals`` on a 12288-point cloud on the card against the
+    CPU."""
+    from pvn3d_tpu_torch.data.normals import knn_normals
+    from pvn3d_tpu_torch.data.png import read_png
+    from pvn3d_tpu_torch.tools import check_dataset, gen_obj_info
+    from pvn3d_tpu_torch.tools.fake_data import _write_ply
+    for dataset, argv in (("ycb", ["--data_root", trees["ycb"]]),
+                          ("linemod", ["--dataset", "linemod", "--cls",
+                                       "ape", "--data_root",
+                                       trees["linemod"]])):
+        renders = os.path.join(APPS_DIR, f"check_{dataset}")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            bad = check_dataset.main(argv + ["--split", "test",
+                                             "--n_frames", "2",
+                                             "--render_dir", renders])
+        names = sorted(os.listdir(renders))
+        shapes = {read_png(os.path.join(renders, n)).shape for n in names}
+        if bad != 0 or len(names) != 2 or shapes != {(480, 640, 3)}:
+            raise AssertionError(f"apps: check_dataset {dataset}: {bad} "
+                                 f"bad, renders {names} {shapes}: "
+                                 f"{printed.getvalue()}")
+        log("apps", f"check_dataset {dataset}: "
+            f"{printed.getvalue().splitlines()[-1]}, {len(names)} renders, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    ply = os.path.join(APPS_DIR, "obj.ply")
+    pts = np.random.RandomState(11).uniform(-40, 40, (2000, 3))
+    _write_ply(ply, pts)
+    info_dir = os.path.join(APPS_DIR, "obj_info")
+    info = gen_obj_info.gen_one_mesh_info(ply, info_dir, scale=1000.0)
+    kps = np.loadtxt(os.path.join(info_dir, "farthest.txt"))
+    near = np.abs(kps[:, None] - pts[None] / 1000.0).sum(-1).min(1)
+    if sorted(os.listdir(info_dir)) != sorted(
+            ["center.txt", "corners.txt", "radius.txt", "farthest.txt",
+             "farthest4.txt", "farthest12.txt", "farthest16.txt",
+             "farthest20.txt"]) or kps.shape != (8, 3) or near.max() > 1e-6:
+        raise AssertionError(f"apps: gen_obj_info: {os.listdir(info_dir)}")
+    log("apps", f"gen_obj_info: {info}, 8 files")
+
+    cloud = depth_cloud(np.random.RandomState(12), 12288)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = knn_normals(cloud, k=50)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = knn_normals(cloud, k=50, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dots = (card.astype(np.float64) * cpu).sum(1)
+    if dots.min() < 1 - 1e-6:
+        raise AssertionError(f"apps: knn_normals card vs CPU: min |n.n'| "
+                             f"{dots.min()}")
+    log("apps", f"knn_normals, 12288 points, k 50: card {card_s:.2f} s, "
+        f"CPU {cpu_s:.2f} s (host clock, first call); min n.n' card vs "
+        f"CPU {dots.min():.9f} [{smi}]")
+
+
+def _apps_profiling(smi, slice_lat, total):
+    """``utils.profiling.device_loop_stats`` around one full-width serving
+    request (iters 5, trials 3), then one ``trace()`` of two requests
+    between marker kernels, whose Chrome trace must name K1-K4."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.profiling import (annotate,
+                                                 device_loop_stats, trace)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    cfg = Config.ycb()
+    step = make_inference_step(cfg, build_model(cfg.model, 0),
+                               stacked_mesh_kps(), stacked_class_radii())
+    batch = synthetic_batch(cfg, batch_size=1, seed=0)
+    stats, launches = _counted(lambda: device_loop_stats(
+        lambda i: step(batch)["poses"].sum() + 0.0 * i, iters=5, trials=3))
+    _add_counts(total, launches)
+    log("apps", f"device_loop_stats of a full-width request (iters 5, "
+        f"trials 3, CUDA events): {stats['s_per_iter'] * 1e3:.2f} ms a "
+        f"request, trials {stats['trials_s']} s, stalls "
+        f"{stats['rejected_stall_s']}, spread {stats['spread']}, suspect "
+        f"{stats['suspect']}; [slice] by the host clock "
+        + ", ".join(f"{t:.2f}" for t in slice_lat) + f" ms [{smi}]")
+
+    logdir = os.path.join(APPS_DIR, "trace")
+
+    def traced():
+        with trace(logdir):
+            for _ in range(_MARKERS):
+                torch.cuda._sleep(1000)
+            for _ in range(2):
+                with annotate("request"):
+                    step(batch)
+            for _ in range(_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+    _, launches = _counted(traced)
+    _add_counts(total, launches)
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+             if f.endswith(".pt.trace.json")]
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(n in name for name in kernels)
+             for k, n in _TRACE_NAMES.items()}
+    requests = sum(e.get("name") == "request" for e in events)
+    if len(files) != 1 or min(named.values()) < 1 or requests < 2:
+        raise AssertionError(f"apps: trace(): files {files}, kernels named "
+                             f"{named}, request ranges {requests}")
+    log("apps", f"trace() of 2 requests: {os.path.basename(files[0])}, "
+        f"{len(kernels)} kernel records, K1-K4 named {named}, request "
+        f"ranges {requests}")
+
+
+def phase_apps(smi: str, slice_lat=(), occ_frames: int = 4,
+               demo_frames: int = 2):
+    """The apps' and tools' surface on trees written here (see the
+    module docstring).  Returns the launch counts of its runs.
+
+    ``occ_frames`` annotated frames an ``--occ`` evaluation and
+    ``demo_frames`` a demo run (see the module docstring)."""
+    import gc
+    t0 = time.perf_counter()
+    trees = _apps_trees(occ_frames, demo_frames)
+    total = {}
+    _apps_occ(smi, trees, total, occ_frames)
+    _apps_demo(smi, trees, total, demo_frames)
+    _apps_trunk(smi, trees, total)
+    _apps_tools(smi, trees)
+    _apps_profiling(smi, slice_lat, total)
+    if any(total.get(k, 0) < 1 for k in ("fps", "query", "interp",
+                                         "interp_bwd", "winner")):
+        raise AssertionError(f"apps: launches {total}")
+    log("apps", f"phase done in {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    return {k.name: total.get(k.name, 0) for k in KERNELS}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     rng = np.random.RandomState(0)
     rec = phase_kernels(rng)
     phase_edge_cases(rng)
-    launches, _ = phase_slice()
+    launches, slice_lat = phase_slice()
     raw_launches = phase_raw(smi)
     icp_launches, k4_icp = phase_icp(smi)
     phase_reference()
@@ -2718,6 +3169,7 @@ def main() -> int:
     modes_rec, modes_launches = phase_modes(smi)
     rec.update({k: v for k, v in modes_rec.items() if k != "query"})
     disk_launches = phase_disk(smi)
+    apps_launches = phase_apps(smi, slice_lat)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -2726,11 +3178,12 @@ def main() -> int:
         # Launches: over the serving slice's three requests, the raw
         # path's three requests, one raw request with ICP in both modes,
         # the training path's three steps, three requests in each of
-        # the [modes] phase's deployment modes and the [disk] phase's app
-        # runs, each counted from 0.
+        # the [modes] phase's deployment modes, the [disk] phase's app
+        # runs and the [apps] phase's, each counted from 0.
         total = (launches[k.name] + raw_launches[k.name]
                  + icp_launches[k.name] + train_launches[k.name]
-                 + modes_launches[k.name] + disk_launches[k.name])
+                 + modes_launches[k.name] + disk_launches[k.name]
+                 + apps_launches[k.name])
         if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
@@ -2744,6 +3197,7 @@ def main() -> int:
             "launches_training": train_launches[k.name],
             "launches_modes": modes_launches[k.name],
             "launches_disk": disk_launches[k.name],
+            "launches_apps": apps_launches[k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})

@@ -8,10 +8,16 @@ and defaults but ``--device cuda|cpu`` for ``--platform``:
       --data_root /path/ycb --checkpoint_dir runs/ycb [--icp]
   python -m pvn3d_tpu_torch.apps.evaluate --dataset linemod --cls ape \\
       --data_root /path/Linemod_preprocessed --checkpoint_dir runs/ape
+  python -m pvn3d_tpu_torch.apps.evaluate --dataset linemod --cls ape \\
+      --occ --data_root /path/OCCLUSION_LINEMOD \\
+      --lm_root /path/Linemod_preprocessed --checkpoint_dir runs/ape
 
 Frames come from the loader (host-built), from raw frames built on the
 card (``--device_preprocess``: ``make_raw_inference_step``) or from
-packed shards (``--packed_dir``); ``--icp`` refines the poses
+packed shards (``--packed_dir``).  ``--occ`` reads the Occlusion-LineMOD
+test split (``data/occlusion_linemod.py``); a LineMOD object is scored
+against its own mesh, ``models/obj_XX.ply`` of ``--lm_root`` (with
+``--occ``) or ``--data_root``.  ``--icp`` refines the poses
 (``make_icp_refine_fn``, the full-res depth scene where the batch holds
 one).  ``--dense_cnn`` is the port's only graph.  It runs on the card
 unless ``--device cpu`` is given; flags whose machinery the port lacks
@@ -45,9 +51,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--icp", action="store_true",
                    help="refine poses with batched ICP (eval_icp parity)")
     p.add_argument("--occ", action="store_true",
-                   help="not ported (ROADMAP.md queue A, item 5)")
+                   help="evaluate the Occlusion-LineMOD split: --data_root "
+                        "is an OCCLUSION_LINEMOD checkout (reference "
+                        "-test_occ, train_linemod_pvn3d.py:97-99, whose "
+                        "OCC_LM_Dataset is undefined upstream)")
     p.add_argument("--lm_root", default="",
-                   help="with --occ: not ported")
+                   help="with --occ: Linemod_preprocessed checkout for "
+                        "object meshes (defaults to --data_root)")
     p.add_argument("--no_fill_depth", action="store_true")
     p.add_argument("--device_preprocess", action="store_true",
                    help="run depth completion / normals / point sampling "
@@ -98,6 +108,8 @@ def main(argv=None) -> dict:
     check_ported(args)
     if not args.torch_ckpt and not args.checkpoint_dir:
         raise SystemExit("need --checkpoint_dir or --torch_ckpt")
+    if args.occ and args.dataset != "linemod":
+        raise SystemExit("--occ requires --dataset linemod")
     from pvn3d_tpu_torch.data.loader import DataLoader
     from pvn3d_tpu_torch.inference.evaluator import PoseEvaluator
     from pvn3d_tpu_torch.inference.pipeline import (make_inference_step,
@@ -116,14 +128,17 @@ def main(argv=None) -> dict:
 
     if is_lm:
         # Row 1 is this object: its keypoints and center, and its mesh
-        # (models/obj_XX.ply of its own id).
+        # (models/obj_XX.ply of its own id; an occ checkout's meshes may
+        # come from a Linemod_preprocessed one).
         from pvn3d_tpu_torch.utils.assets import get_ctr, get_kps
         row = np.concatenate([get_kps(args.cls, ds_type="linemod"),
                               get_ctr(args.cls, ds_type="linemod")[None]])
         kps = np.stack([np.zeros_like(row), row])
         radii = stacked_class_radii("linemod", 2)
+        mesh_root = ((args.lm_root or args.data_root) if args.occ
+                     else args.data_root)
         mesh_pts, mesh_valid = stacked_mesh_points(
-            args.data_root, "linemod", n_cls=2, max_points=2000,
+            mesh_root, "linemod", n_cls=2, max_points=2000,
             cls_ids=[obj_id])
     else:
         kps = stacked_mesh_kps(n_cls)

@@ -13,9 +13,11 @@ Batches come from ``data/loader.py::DataLoader`` (spawned workers) through
 ``prefetch_to_device`` into ``train/trainer.py::Trainer.fit``.  With
 ``--device_preprocess`` the host only decodes and the card augments,
 fills, samples and builds the targets (``data/device_frame.py::
-build_train_batch_device``), from a generator per (seed, step).  It runs
-on the card unless ``--device cpu`` is given.  Flags whose machinery the
-port lacks exit naming their ``ROADMAP.md`` item.
+build_train_batch_device``), from a generator per (seed, step).
+``--pretrained_trunk`` seeds the image trunk from a local torchvision
+ResNet-34 state dict (``utils/torch_convert.py``) before the first step.
+It runs on the card unless ``--device cpu`` is given.  Flags whose
+machinery the port lacks exit naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -29,11 +31,6 @@ from pvn3d_tpu_torch.train.trainer import Trainer
 
 # Flags of the JAX app whose machinery the port lacks: (flag, item).
 NOT_PORTED = {
-    "occ": "--occ: the Occlusion-LineMOD dataset (ROADMAP.md queue A, "
-           "item 5)",
-    "pretrained_trunk": "--pretrained_trunk: the torchvision ResNet34 "
-                        "converter utils/torch_convert.py (ROADMAP.md "
-                        "queue A, item 8)",
     "sparse_cnn": "--sparse_cnn: the sparse CNN tail among the eval "
                   "restructures (ROADMAP.md queue A, item 12)",
     "remat": "--remat / --remat_policy: rematerialisation (ROADMAP.md "
@@ -90,7 +87,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--pretrained_trunk", default="",
-                   help="not ported (ROADMAP.md queue A, item 8)")
+                   help="torchvision ResNet34 state dict (.pth) seeding "
+                        "the image trunk (utils/torch_convert.py)")
     p.add_argument("--torch_ckpt", default="",
                    help="full reference PVN3D .pth.tar to start from "
                         "(utils/weights.py::load_torch_state_dict)")
@@ -156,6 +154,13 @@ def make_dataset_factory(args, split: str, cfg: Config):
                                  spec=spec, seed=args.seed,
                                  fill_depth=not args.no_fill_depth,
                                  file_list=getattr(args, "file_list", ""))
+    if getattr(args, "occ", False):
+        from pvn3d_tpu_torch.data.occlusion_linemod import \
+            OcclusionLineMODDataset
+        return functools.partial(
+            OcclusionLineMODDataset, args.data_root, cls_type=args.cls,
+            split=split, spec=spec, seed=args.seed,
+            lm_root=getattr(args, "lm_root", "") or None)
     from pvn3d_tpu_torch.data.linemod import LineMODDataset
     return functools.partial(LineMODDataset, args.data_root,
                              cls_type=args.cls, split=split, spec=spec,
@@ -199,6 +204,11 @@ def main(argv=None) -> Trainer:
         state.model.load_state_dict(load_torch_state_dict(args.torch_ckpt),
                                     strict=True)
         print(f"loaded reference checkpoint {args.torch_ckpt}", flush=True)
+    elif args.pretrained_trunk:
+        from pvn3d_tpu_torch.utils.torch_convert import load_resnet34_into
+        load_resnet34_into(state.model, args.pretrained_trunk)
+        print(f"seeded image trunk from {args.pretrained_trunk}",
+              flush=True)
     print(f"params: {param_count(state.model) / 1e6:.2f}M  device: {dev}  "
           f"batch: {batch_size}", flush=True)
 

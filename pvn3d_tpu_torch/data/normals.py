@@ -1,22 +1,67 @@
-"""Surface normals of an organized depth map, on the host.
+"""Surface normals: of an organized depth map on the host, and PCA
+normals of an unorganized cloud.
 
-Port of the numpy arm of the JAX package's ``data/normals.py``
-(``normals_from_depth_map``, ``:53-123``).  The reference runs PCL
+Port of the JAX package's ``data/normals.py``.  The reference runs PCL
 NormalEstimation with KSearch(50) per frame on the unorganized cloud
 (ycb_dataset.py:147-157); normals only feed the network as 3 input
-features, so the replacement is judged by feature quality: smooth the
-unprojected 3-D map, take central-difference tangents, cross them, and
-orient the normal toward the camera.
+features, so the replacement is judged by feature quality.
 
-The JAX function's ``impl="auto"`` prefers a native C++ twin
-(``pvn3d_tpu/native/``); that host code and the scikit-learn
-``knn_normals`` oracle are not ported (``ROADMAP.md`` queue A, items 9
-and 10).  The
-on-card twin is ``ops/preprocess.py::normals_from_depth_map``.
+  * ``normals_from_depth_map`` (the numpy arm of JAX ``:53-123``):
+    smooth the unprojected 3-D map, take central-difference tangents,
+    cross them, and orient the normal toward the camera.  The JAX
+    function's ``impl="auto"`` prefers a native C++ twin
+    (``pvn3d_tpu/native/``), not ported (``ROADMAP.md`` queue A, item
+    9).  The on-card twin is ``ops/preprocess.py::normals_from_depth_map``.
+  * ``knn_normals`` (JAX ``:26``, scikit-learn's ``NearestNeighbors``):
+    PCA normals over each point's k nearest neighbours, the closest match
+    to PCL's semantics; exact k-NN in torch, on the CPU or the card.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from pvn3d_tpu_torch.utils.device import resolve_device
+
+
+def knn_normals(points, k: int = 50, viewpoint=(0.0, 0.0, 0.0),
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """(n, 3) float32 PCA plane normals of each point's k-NN, oriented to
+    the viewpoint, computed on ``device`` (the card unless the CPU is
+    asked for).
+
+    Semantics of PCL NormalEstimation + KSearch(k) and of the JAX
+    function: the k nearest neighbours (the point itself included) by
+    exact float64 direct-form d^2 and ``topk``, in chunks of rows; the
+    smallest eigenvector of their float64 covariance
+    (``torch.linalg.eigh``), flipped so n . (viewpoint - p) >= 0; rows
+    whose normal is not finite get 0.
+    """
+    dev = resolve_device(device)
+    pts = torch.as_tensor(np.asarray(points), dtype=torch.float64,
+                          device=dev)
+    n = len(pts)
+    if n == 0:
+        return np.zeros((0, 3), np.float32)
+    k = min(k, n)
+    rows = max(1, (1 << 22) // n)
+    idx = torch.empty((n, k), dtype=torch.int64, device=dev)
+    for s in range(0, n, rows):
+        diff = pts[s:s + rows, None, :] - pts[None, :, :]
+        sq = diff * diff
+        d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+        idx[s:s + rows] = torch.topk(d2, k, dim=1, largest=False).indices
+    nbrs = pts[idx]                                   # (n, k, 3)
+    centered = nbrs - nbrs.mean(dim=1, keepdim=True)
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / k
+    normals = torch.linalg.eigh(cov).eigenvectors[:, :, 0]
+    to_view = torch.as_tensor(viewpoint, dtype=torch.float64,
+                              device=dev)[None, :] - pts
+    flip = (normals * to_view).sum(dim=1) < 0
+    normals = torch.where(flip[:, None], -normals, normals)
+    normals = torch.where(torch.isfinite(normals).all(dim=1, keepdim=True),
+                          normals, torch.zeros_like(normals))
+    return normals.float().cpu().numpy()
 
 
 def _box_blur(x: np.ndarray, r: int) -> np.ndarray:

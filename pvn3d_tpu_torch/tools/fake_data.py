@@ -1,17 +1,19 @@
-"""Write fake LineMOD- and YCB-Video-layout checkouts for smoke runs.
+"""Write fake LineMOD-, Occlusion-LineMOD- and YCB-Video-layout
+checkouts for smoke runs.
 
 Port of the JAX package's ``tools/fake_data.py`` (``make_fake_linemod``,
-``make_fake_ycb``), written with ``data/png.py`` and without PIL or
-PyYAML: for the same arguments the trees decode to the same arrays and
-metadata as the JAX tool's.  ``gt.yml`` is written in real LineMOD's form
-(flow lists of numbers), which ``data/lm_yaml.py`` and ``yaml.safe_load``
-both read.  With ``n_renders`` > 0 the LineMOD tree also holds render and
-fuse items (pickled dicts under ``renders/<obj>/`` and ``fuse/<obj>/``,
-listed in their ``file_list.txt``), drawn from a stream of their own so
-the rest of the tree is unchanged.
+``make_fake_occlusion_linemod``, ``make_fake_ycb``), written with
+``data/png.py`` and without PIL or PyYAML: for the same arguments the
+trees decode to the same arrays and metadata as the JAX tool's.
+``gt.yml`` is written in real LineMOD's form (flow lists of numbers),
+which ``data/lm_yaml.py`` and ``yaml.safe_load`` both read.  With
+``n_renders`` > 0 the LineMOD tree also holds render and fuse items
+(pickled dicts under ``renders/<obj>/`` and ``fuse/<obj>/``, listed in
+their ``file_list.txt``), drawn from a stream of their own so the rest
+of the tree is unchanged.
 
   python -m pvn3d_tpu_torch.tools.fake_data --root /tmp/fake --ycb \\
-      --n_frames 16 --n_renders 4
+      --occ --n_frames 16 --n_renders 4
 """
 from __future__ import annotations
 
@@ -130,6 +132,59 @@ def make_fake_linemod(root: str, n_frames: int = 6, cls_id: int = 1,
     return lm_root
 
 
+def make_fake_occlusion_linemod(root: str, n_frames: int = 6,
+                                cls_type: str = "ape", seed: int = 0,
+                                h: int = 480, w: int = 640,
+                                with_masks: bool = False) -> str:
+    """OCCLUSION_LINEMOD-layout checkout (Brachmann):
+    ``RGB-D/{rgb,depth}_noseg``, ``poses/<ObjName>/info_*.txt``,
+    ``models/obj_XX.ply`` and, ``with_masks``, ``masks/<cls_type>/N.png``.
+    Each object box has a 0.6 m occluder strip in front of its left
+    20 columns; frame ``n_frames - 1`` is left unannotated (no info
+    file).  Returns the ``OCCLUSION_LINEMOD`` path."""
+    from pvn3d_tpu_torch.data.occlusion_linemod import OCC_POSE_DIRS
+    occ_root = os.path.join(root, "OCCLUSION_LINEMOD")
+    cls_id = C.LM_OBJ_DICT[cls_type]
+    rgb_dir = os.path.join(occ_root, "RGB-D", "rgb_noseg")
+    dep_dir = os.path.join(occ_root, "RGB-D", "depth_noseg")
+    pose_dir = os.path.join(occ_root, "poses", OCC_POSE_DIRS[cls_type])
+    for d in (rgb_dir, dep_dir, pose_dir):
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    k = C.INTRINSICS["linemod"]
+    for i in range(n_frames):
+        name = f"{i:05d}"
+        depth = np.full((h, w), 1000, np.uint16)
+        r0 = 160 + (11 * i) % 120
+        c0 = 220 + (13 * i) % 160
+        depth[r0:r0 + 90, c0:c0 + 120] = 800
+        depth[r0:r0 + 90, c0:c0 + 20] = 600      # the occluder strip
+        rgb = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        write_png(f"{rgb_dir}/color_{name}.png", rgb)
+        write_png(f"{dep_dir}/depth_{name}.png", depth)
+        if i == n_frames - 1:
+            continue                             # unannotated frame
+        # the center projects into the object box at depth 0.8 m
+        cx = (c0 + 60 - k[0, 2]) * 0.8 / k[0, 0]
+        cy = (r0 + 45 - k[1, 2]) * 0.8 / k[1, 1]
+        with open(f"{pose_dir}/info_{name}.txt", "w") as f:
+            f.write(f"image size\n{w} {h}\n{cls_type}\nrotation:\n"
+                    "1 0 0\n0 1 0\n0 0 1\ncenter:\n"
+                    f"{cx:.6f} {cy:.6f} 0.8\nextent:\n0.06 0.08 0.07\n")
+        if with_masks:
+            mdir = os.path.join(occ_root, "masks", cls_type)
+            os.makedirs(mdir, exist_ok=True)
+            label = np.zeros((h, w), np.uint8)
+            label[r0:r0 + 90, c0 + 20:c0 + 120] = 255
+            write_png(f"{mdir}/{i}.png", label)
+
+    os.makedirs(os.path.join(occ_root, "models"), exist_ok=True)
+    pts = rng.uniform(-30, 30, (500, 3))                  # mm
+    _write_ply(os.path.join(occ_root, "models", "obj_%02d.ply" % cls_id),
+               pts)
+    return occ_root
+
+
 def make_fake_ycb(root: str, n_frames: int = 4, seed: int = 0,
                   h: int = 480, w: int = 640,
                   cls_ids=(1, 5, 9, 14, 21), items=None,
@@ -194,6 +249,8 @@ def main(argv=None):
     p.add_argument("--root", required=True)
     p.add_argument("--n_frames", type=int, default=6)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--occ", action="store_true",
+                   help="also write an OCCLUSION_LINEMOD-layout checkout")
     p.add_argument("--ycb", action="store_true",
                    help="also write a YCB-Video-layout checkout")
     p.add_argument("--n_renders", type=int, default=0,
@@ -201,6 +258,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     print(make_fake_linemod(args.root, args.n_frames, seed=args.seed,
                             n_renders=args.n_renders))
+    if args.occ:
+        print(make_fake_occlusion_linemod(args.root, args.n_frames,
+                                          seed=args.seed))
     if args.ycb:
         print(make_fake_ycb(args.root, args.n_frames, seed=args.seed))
 

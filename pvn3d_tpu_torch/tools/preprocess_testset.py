@@ -11,6 +11,9 @@ frames pack into compressed npz shards of whole batches, loadable with
 
   python -m pvn3d_tpu_torch.tools.preprocess_testset --dataset ycb \
       --data_root /path/ycb --out packed/ycb_test --shard_size 64
+  python -m pvn3d_tpu_torch.tools.preprocess_testset --dataset linemod \
+      --cls ape --occ --data_root /path/OCCLUSION_LINEMOD \
+      --lm_root /path/Linemod_preprocessed --out packed/occ_ape
 """
 from __future__ import annotations
 
@@ -21,9 +24,6 @@ import os
 import numpy as np
 
 from pvn3d_tpu_torch.data.frame import collate
-
-OCC_NOT_PORTED = ("--occ: the Occlusion-LineMOD dataset is not ported yet "
-                  "(ROADMAP.md queue A, item 5)")
 
 
 def pack_dataset(dataset, out_dir: str, shard_size: int = 64,
@@ -127,15 +127,25 @@ def main(argv=None):
     p.add_argument("--compress", action="store_true",
                    help="deflate shards (smaller, slower to read)")
     p.add_argument("--occ", action="store_true",
-                   help="the Occlusion-LineMOD split: not ported")
-    p.add_argument("--lm_root", default="")
+                   help="pack the Occlusion-LineMOD test split: "
+                        "--data_root is an OCCLUSION_LINEMOD checkout "
+                        "(evaluate the shards with apps.evaluate "
+                        "--packed_dir)")
+    p.add_argument("--lm_root", default="",
+                   help="with --occ: Linemod_preprocessed checkout for "
+                        "object meshes (defaults to --data_root)")
     args = p.parse_args(argv)
-    if args.occ:
-        raise SystemExit(OCC_NOT_PORTED)
+    if args.occ and args.dataset != "linemod":
+        raise SystemExit("--occ requires --dataset linemod")
     if args.dataset == "ycb":
         from pvn3d_tpu_torch.data.ycb import YCBDataset
         ds = YCBDataset(args.data_root, split="test",
                         fill_depth=not args.no_fill_depth)
+    elif args.occ:
+        from pvn3d_tpu_torch.data.occlusion_linemod import \
+            OcclusionLineMODDataset
+        ds = OcclusionLineMODDataset(args.data_root, cls_type=args.cls,
+                                     lm_root=args.lm_root or None)
     else:
         from pvn3d_tpu_torch.data.linemod import LineMODDataset
         ds = LineMODDataset(args.data_root, cls_type=args.cls, split="test")

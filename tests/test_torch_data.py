@@ -842,5 +842,5 @@ def test_packed_shards_read_by_both_packages(trees, tmp_path,
     tail = list(pack.iter_packed_batches(pa, 3))
     want = list(jax_pack.iter_packed_batches(pb, 3))
     assert tail[-1]["_n_valid"] == want[-1]["_n_valid"] == 1
-    with pytest.raises(SystemExit, match="item 5"):
+    with pytest.raises(SystemExit, match="--occ requires --dataset linemod"):
         pack.main(["--data_root", ycb, "--out", pa, "--occ"])
