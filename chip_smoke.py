@@ -44,7 +44,23 @@ that fails):
                with every launch count set to 0 just before and read just
                after; poses finite, some class present, every kernel
                launched.
-6. raw       — raw RGB-D frames at full width (``synth_sensor_frame``,
+6. eval_graph — the eval graph at full width, batch 1, seeded random
+               weights, bf16 and float32: one request through the
+               default graph (the sparse CNN tail, the fused upsample
+               stages, the split heads, the SA/FP precompute) and through
+               the literal one (``sparse_cnn=False``, the four fields
+               off); the outputs within 0.05 (bf16) / 1e-4 (float32) x
+               max(1, |ref|) of the literal graph's and the seg argmax
+               agreeing on > 95% / 99.9% (the tolerances of
+               tests/test_torch_eval_graph.py), the pose difference
+               logged; in bf16 the two graphs' request latency (host
+               clock, 50 requests each, alternating in ABBA order:
+               median, p10, p90), each one's forward (events), device
+               time and launches (a CUDA-only trace); then K3 at the
+               eval graph's widths (fp3 .. fp0 blending W0 =
+               512/512/256/128 channels) against its plain version,
+               timed and bounded per level.
+7. raw       — raw RGB-D frames at full width (``synth_sensor_frame``,
                480x640) through ``make_raw_inference_step``: three
                requests with every launch count set to 0 just before and
                read just after (fps 1, query 4, interp 4, winner 3 a
@@ -58,7 +74,7 @@ that fails):
                branch (ADD / ADD-S) on the card against the CPU within
                1e-5 m; then ``apps.serve.main`` in this process (20
                frames after 3 of warm-up), its JSON line logged.
-7. icp       — ICP after a raw request at full width (seeded random
+8. icp       — ICP after a raw request at full width (seeded random
                weights, 22 meshes of 2000 points): the raw step's filled
                depth through ``make_icp_step`` in full-resolution mode,
                then the same frame in sampled mode, each timed (events,
@@ -81,11 +97,11 @@ that fails):
                ``--icp``, its JSON record complete and finite, and K4 held
                bit for bit and timed on its prefilter calls (a trained
                network's classes, captured as above).
-8. reference — the same code on the card (kernels) and on the CPU
+9. reference — the same code on the card (kernels) and on the CPU
                (plain versions): a small frame's forward within 2e-3, and
                the full-width pose stage on labelled votes (several
                classes present) within 1e-4.
-9. train     — the training path at full width (``Config.ycb()``, bf16,
+10. train    — the training path at full width (``Config.ycb()``, bf16,
                batch 4, ``grad_accum`` 1): ``create_train_state`` ->
                ``make_train_step`` -> ``Trainer.fit``, one warm-up step,
                then three steps with every launch count set to 0 just
@@ -102,9 +118,9 @@ that fails):
                in global L2 (the float32 conditioning floor of a
                batch-statistics gradient is ~1e-2:
                ``tests/test_torch_train.py``); and the same backward with
-               BN on its running statistics, every leaf within
-               2e-3 * max|g|.
-10. modes    — the JAX package's neighbour and sampling modes: K2's
+               BN on its running statistics (the literal eval graph, as
+               that test holds it), every leaf within 2e-3 * max|g|.
+11. modes    — the JAX package's neighbour and sampling modes: K2's
                capacity (query_mode "pallas"), expanded ("approx") and
                bf16 instances bit for bit against their plain versions at
                the four serving levels (and on an adversarial cloud whose
@@ -121,7 +137,7 @@ that fails):
                and read just after, each mode's kernel instances launched,
                median latency beside the exact mode's; and each mode on a
                small frame card against CPU (forward 2e-3, poses 1e-4).
-11. disk     — the dataset path through the apps at full width, from
+12. disk     — the dataset path through the apps at full width, from
                trees written here by ``tools/fake_data.py`` (under
                ``build/disk``): a YCB tree at 480x640 (8 real frames named
                as the vendored test list's first, 8 synthetic) and a
@@ -146,7 +162,18 @@ that fails):
                and are too few for rates: those come from the phase
                alone at 20 steps and 32 frames (``phase_disk(smi,
                steps=20, frames=32)``).
-12. apps     — the apps' and tools' surface, on 480x640 trees written
+13. native   — the host's C++ twins (``pvn3d_tpu_torch/native``, built
+               by g++ from the checkout into ``build/native``): on a
+               synthetic 480x640 frame the fill twin against the torch
+               fill (within 2e-3, 1e-5 off the 2-pixel border) and the
+               normals twin against the numpy normals (the same zero
+               pixels, cos >= 0.999), each timed (median of 5), the FPS
+               twin's indices equal to the numpy version's; then the
+               host frame build's stages apart (decode, augmentation,
+               fill, normals, sampling) and the loader's frames/s at 0
+               workers, with the twins and with the plain versions, on
+               [disk]'s YCB tree.
+14. apps     — the apps' and tools' surface, on 480x640 trees written
                here (under ``build/apps``): ``apps.evaluate --occ`` for
                ape at batch 4 on an Occlusion-LineMOD tree (4 annotated
                frames and an unannotated one) with synthesised labels,
@@ -171,12 +198,14 @@ that fails):
                and 2 demo frames check the paths and are too few for
                rates: those come from the phase alone at 32 and 8
                (``phase_apps(smi, lat, occ_frames=32, demo_frames=8)``).
-13. a JSON line per kernel and kernel instance (launches on the serving
-   slice, the raw requests, the ICP request, the training steps, the
+15. a JSON line per kernel and kernel instance (launches on the serving
+   slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
    mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
    error, times, bound; K2's
    instances and K3 forward and backward also per level, the backward on
-   both clouds; K4 also per pass on both inputs and at the ICP shape),
+   both clouds, K3 forward also at the eval graph's widths
+   (``eval_graph``); K4 also per pass on both inputs and at the ICP
+   shape),
    the ``nvidia-smi`` line again, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
@@ -574,11 +603,67 @@ def _k2_tests(outs, nsamples, npts) -> float:
     return float(tests.sum())
 
 
+def _k3_forward_levels(rng, levels, known_c, phase: str):
+    """K3 forward at batch 1 on the serving path's level clouds
+    (``levels``: xyz, then each SA level's points) with random known
+    features of widths ``known_c`` (fp0 .. fp3), fp3 first: each level
+    held against its plain version (indices exact, out/dist within 1e-5),
+    timed by events and on the device beside its plain version and
+    cdist + topk + gather, with its grid and bound.  Returns (per-level
+    records, max error)."""
+    from pvn3d_tpu_torch.ops.kernels import interp
+    dev = levels[0].device
+    per_level = []
+    err = 0.0
+    for li in range(3, -1, -1):
+        unk, kn = levels[li], levels[li + 1]
+        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
+        feats = torch.tensor(rng.randn(1, nk, c).astype(np.float32),
+                             device=dev)
+        got = interp.three_interpolate_fused(unk, kn, feats)
+        want = interp.three_interpolate_plain(unk, kn, feats)
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError(f"K3 interp fp{li} C={c}: indices differ")
+        e = _err(got[:2], want[:2])
+        if e > 1e-5:
+            raise AssertionError(f"K3 interp fp{li} C={c}: max abs err {e}")
+        err = max(err, e)
+
+        def kernel():
+            return interp.three_interpolate_fused(unk, kn, feats)
+
+        def library():
+            d, i = torch.topk(torch.cdist(unk, kn), 3, largest=False)
+            w = 1.0 / (d + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            g = feats[0][i[0]]
+            return (g * w[0, :, :, None]).sum(1)
+        rows, warps, blocks = interp.forward_grid(1, nu)
+        n_bytes = nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
+        flops = nu * nk * (D2_FLOPS + 1) + nu * c * 5
+        lvl = dict(level=f"fp{li}", n=nu, m=nk, C=c, blocks=blocks,
+                   rows_per_warp=rows, warps_per_block=warps,
+                   ms=time_ms(kernel), device_ms=device_ms(kernel),
+                   plain_ms=time_ms(lambda: interp.three_interpolate_plain(
+                       unk, kn, feats), reps=1),
+                   library_ms=time_ms(library), n_bytes=n_bytes,
+                   flops=flops)
+        lvl["bound_ms"], lvl["bound_by"] = bound_ms(n_bytes, flops)
+        per_level.append(lvl)
+        log(phase, f"K3 interp fp{li} n={nu} m={nk} C={c}: grid "
+            f"{blocks} blocks of {warps} warps, {rows} row(s) a warp; idx "
+            f"equal, max err {e:.2e}; {lvl['ms']:.4f} ms, on the device "
+            f"{lvl['device_ms']:.4f} ms, bound {lvl['bound_ms']:.4f} ms "
+            f"({lvl['bound_by']}); plain {lvl['plain_ms']:.3f}, "
+            f"cdist+topk+gather {lvl['library_ms']:.4f}")
+    return per_level, err
+
+
 def phase_kernels(rng):
     """Every kernel against its plain version at the serving path's
     shapes.  Returns {name: record} with the timing and error fields."""
     from pvn3d_tpu_torch.config import Config
-    from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
+    from pvn3d_tpu_torch.ops.kernels import fps, query
     cfg = Config.ycb().model
     pcfg = cfg.pointnet2
     dev = torch.device("cuda")
@@ -652,53 +737,13 @@ def phase_kernels(rng):
         f"(plain {plain:.3f}, cdist+where+topk {lib:.3f})")
 
     # K3: four launches per frame (fp3 .. fp0), known features of the
-    # dense graph's widths; each level timed, traced and bounded alone.
+    # literal graph's widths (the training path's); the eval graph's
+    # widths are held in [eval_graph].  Each level timed, traced and
+    # bounded alone.
     widths = [sum(m[-1] for m in lvl.mlps) for lvl in pcfg.sa_levels]
     known_c = [cfg.pointnet2.fp_mlps[i + 1][-1] if i < 3 else widths[3]
                for i in range(4)]
-    per_level = []
-    err = 0.0
-    for li in range(3, -1, -1):
-        unk, kn = levels[li], levels[li + 1]
-        nu, nk, c = unk.shape[1], kn.shape[1], known_c[li]
-        feats = torch.tensor(rng.randn(1, nk, c).astype(np.float32),
-                             device=dev)
-        got = interp.three_interpolate_fused(unk, kn, feats)
-        want = interp.three_interpolate_plain(unk, kn, feats)
-        if not torch.equal(got[2], want[2]):
-            raise AssertionError(f"K3 interp fp{li}: indices differ")
-        e = _err(got[:2], want[:2])
-        if e > 1e-5:
-            raise AssertionError(f"K3 interp fp{li}: max abs err {e}")
-        err = max(err, e)
-
-        def kernel():
-            return interp.three_interpolate_fused(unk, kn, feats)
-
-        def library():
-            d, i = torch.topk(torch.cdist(unk, kn), 3, largest=False)
-            w = 1.0 / (d + 1e-8)
-            w = w / w.sum(-1, keepdim=True)
-            g = feats[0][i[0]]
-            return (g * w[0, :, :, None]).sum(1)
-        rows, warps, blocks = interp.forward_grid(1, nu)
-        n_bytes = nu * 12 + nk * 12 + nk * c * 4 + nu * c * 4 + nu * 24
-        flops = nu * nk * (D2_FLOPS + 1) + nu * c * 5
-        lvl = dict(level=f"fp{li}", n=nu, m=nk, C=c, blocks=blocks,
-                   rows_per_warp=rows, warps_per_block=warps,
-                   ms=time_ms(kernel), device_ms=device_ms(kernel),
-                   plain_ms=time_ms(lambda: interp.three_interpolate_plain(
-                       unk, kn, feats), reps=1),
-                   library_ms=time_ms(library), n_bytes=n_bytes,
-                   flops=flops)
-        lvl["bound_ms"], lvl["bound_by"] = bound_ms(n_bytes, flops)
-        per_level.append(lvl)
-        log("kernels", f"K3 interp fp{li} n={nu} m={nk} C={c}: grid "
-            f"{blocks} blocks of {warps} warps, {rows} row(s) a warp; idx "
-            f"equal, max err {e:.2e}; {lvl['ms']:.4f} ms, on the device "
-            f"{lvl['device_ms']:.4f} ms, bound {lvl['bound_ms']:.4f} ms "
-            f"({lvl['bound_by']}); plain {lvl['plain_ms']:.3f}, "
-            f"cdist+topk+gather {lvl['library_ms']:.4f}")
+    per_level, err = _k3_forward_levels(rng, levels, known_c, "kernels")
     rec["interp"] = _level_record(
         per_level, err, "indices exact, out/dist 1e-5",
         "pvn3d_tpu/ops/pallas/interp.py:162")
@@ -1064,6 +1109,154 @@ def _winner_cases():
     cases["K=1001, scalar label stores"] = _winner_votes(rng, 9, 1001) + (
         0.08,)
     return cases
+
+
+def literal_model_config(mcfg):
+    """``mcfg`` with the four eval restructures off (the sparse CNN tail
+    at batch 1, the fused upsample, the split heads, the SA/FP
+    precompute): its eval graph is the literal dense one."""
+    import dataclasses
+    return dataclasses.replace(
+        mcfg, sparse_cnn_eval=False, head_split_global=False,
+        cnn=dataclasses.replace(mcfg.cnn, fuse_upsample=False),
+        pointnet2=dataclasses.replace(mcfg.pointnet2,
+                                      sa_precompute_first=False,
+                                      fp_precompute_first=False))
+
+
+# [eval_graph] tolerances, those of tests/test_torch_eval_graph.py: each
+# output within tol * max(1, |ref|) of the literal graph's, the seg
+# argmax agreeing on more than the share given.
+EVAL_GRAPH_TOL = {"float32": (1e-4, 0.999), "bfloat16": (0.05, 0.95)}
+# [eval_graph]'s latency window: requests a graph, the two interleaved.
+EVAL_GRAPH_REQUESTS = 50
+
+
+def phase_eval_graph(smi: str, rng, seed: int = 0):
+    """The eval graph at full width (``Config.ycb()``, seeded random
+    weights, batch 1): one request through the default graph (the sparse
+    CNN tail, the fused upsample, the split heads, the SA/FP precompute)
+    and through the literal one (``sparse_cnn=False``, the four fields
+    off), in bf16 and float32.  Logs the outputs' largest differences,
+    the seg argmax agreement and the poses' difference, and fails above
+    ``EVAL_GRAPH_TOL``; in bf16 the two graphs' request latency (host
+    clock, ``EVAL_GRAPH_REQUESTS`` each, alternating ABBA so that drift of
+    the shared host falls on both), each one's device time and launches
+    (a CUDA-only trace); then K3 at the eval graph's widths (fp3 .. fp0
+    blending W0 channels) against its plain version.  Returns (K3's record there, the launch counts of
+    the requests, each counted from 0)."""
+    import dataclasses
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.models.pvn3d import PVN3D
+    from pvn3d_tpu_torch.ops.kernels import KERNELS, fps
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    base = Config.ycb()
+    batch = synthetic_batch(base, batch_size=1, seed=7)
+    args = [torch.as_tensor(batch[k], device=dev)
+            for k in ("pointcloud", "rgb", "choose")]
+    kps, radii = stacked_mesh_kps(), stacked_class_radii()
+    launches = {k.name: 0 for k in KERNELS}
+    for dtype in ("bfloat16", "float32"):
+        mcfg = dataclasses.replace(base.model, compute_dtype=dtype)
+        auto = build_model(mcfg, seed)
+        literal = PVN3D(literal_model_config(mcfg), sparse_cnn=False)
+        literal.load_state_dict(auto.state_dict(), strict=True)
+        graphs = {"auto": auto, "literal": literal}
+        steps = {name: make_inference_step(
+            dataclasses.replace(base, model=m.cfg), m, kps, radii,
+            device=dev) for name, m in graphs.items()}
+        with torch.inference_mode():
+            outs = {name: m(*args) for name, m in graphs.items()}
+        if tuple(outs["auto"]["rgb_seg"].shape) != (
+                1, mcfg.n_sample_points, mcfg.n_classes):
+            raise AssertionError(f"eval_graph: the auto graph's rgb_seg is "
+                                 f"{tuple(outs['auto']['rgb_seg'].shape)},"
+                                 f" not the sparse tail's")
+        tol, min_agree = EVAL_GRAPH_TOL[dtype]
+        diffs = {}
+        for key in ("seg_logits", "kp_offsets", "ctr_offsets"):
+            a, b = outs["auto"][key], outs["literal"][key]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"eval_graph {dtype}: {key} not finite")
+            scale = max(1.0, float(b.abs().max()))
+            diffs[key] = (float((a - b).abs().max()), scale)
+        agree = float((outs["auto"]["seg_logits"].argmax(-1)
+                       == outs["literal"]["seg_logits"].argmax(-1)
+                       ).float().mean())
+        res = {name: step(batch) for name, step in steps.items()}
+        both = res["auto"]["present"] & res["literal"]["present"]
+        pose_diff = float((res["auto"]["poses"] - res["literal"]["poses"])
+                          [both].abs().max()) if bool(both.any()) else 0.0
+        present = (int(res["auto"]["present"].sum()),
+                   int(res["literal"]["present"].sum()))
+        log("eval_graph", f"{dtype}, 480x640 + 12288 points, batch 1, auto "
+            f"graph vs literal: max abs diff " + ", ".join(
+                f"{k} {d:.3e} (|ref| {sc:.3g})" for k, (d, sc) in
+                diffs.items())
+            + f"; seg argmax agreement {agree:.5f}; present classes "
+            f"{present[0]} / {present[1]}, pose max abs diff on the "
+            f"{int(both.sum())} present in both {pose_diff:.3e} "
+            f"(random weights: logged, not held) [{smi}]")
+        bad = [k for k, (d, sc) in diffs.items() if d > tol * sc]
+        if bad or agree <= min_agree:
+            raise AssertionError(f"eval_graph {dtype}: {bad} above "
+                                 f"{tol} * max(1, |ref|), or agreement "
+                                 f"{agree} <= {min_agree}")
+        if dtype != "bfloat16":
+            continue
+        lat = {name: [] for name in steps}
+        for i in range(EVAL_GRAPH_REQUESTS):
+            order = ("auto", "literal") if i % 2 == 0 else ("literal",
+                                                            "auto")
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[name](batch)
+                torch.cuda.synchronize()
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        for name, step in steps.items():
+            _, counts = _counted(lambda: step(batch))
+            for k, v in counts.items():
+                launches[k] += v
+            q = np.percentile(lat[name], [10, 50, 90])
+            trace = _device_trace(lambda: step(batch), min_kernels=10)
+            with torch.inference_mode():
+                fwd = time_ms(lambda: graphs[name](*args), reps=1)
+            log("eval_graph", f"bf16 {name} graph: request median "
+                f"{q[1]:.2f} ms, p10 {q[0]:.2f}, p90 {q[2]:.2f} (host "
+                f"clock, {len(lat[name])} requests alternating with the "
+                f"other graph's), forward alone {fwd:.2f} ms (events); on "
+                f"the device {trace['device_ms']:.2f} ms, "
+                f"{trace['kernels']} kernel and {trace['copies']} copy "
+                f"launches; K1-K4 launches "
+                f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+        del graphs, steps, auto, literal, outs
+        torch.cuda.empty_cache()
+
+    # K3 on the eval graph's main path: each FP level blends its first
+    # layer's output, W0 channels.
+    pcfg = base.model.pointnet2
+    xyz = args[0][..., :3].contiguous()
+    m0 = pcfg.sa_levels[0].npoint
+    pts = xyz[0, fps.fps(xyz, m0)[0].long()][None]
+    levels = [xyz] + [pts[:, :lvl.npoint].contiguous()
+                      for lvl in pcfg.sa_levels]
+    w0 = [pcfg.fp_mlps[i][0] for i in range(4)]
+    per_level, err = _k3_forward_levels(rng, levels, w0, "eval_graph")
+    rec = _level_record(per_level, err, "indices exact, out/dist 1e-5",
+                        "pvn3d_tpu/ops/pallas/interp.py:162")
+    log("eval_graph", f"K3 interp x4 levels at C = "
+        f"{'/'.join(str(w0[i]) for i in range(3, -1, -1))} (fp3 .. fp0): "
+        f"{rec['ms']:.4f} ms, on the device {rec['device_ms']:.4f} ms, "
+        f"bound {rec['bound'][0]:.4f} ms (plain {rec['plain_ms']:.3f}, "
+        f"cdist+topk+gather {rec['library_ms']:.4f}) [{smi}]")
+    return rec, launches
 
 
 def phase_slice(seed: int = 0):
@@ -1884,7 +2077,10 @@ def train_reference(seed: int) -> None:
     from pvn3d_tpu_torch.train.state import create_train_state
     from pvn3d_tpu_torch.train.step import (compute_losses, make_train_step,
                                             to_device)
-    mcfg = small_model_config()
+    # The eval restructures off: train mode never takes them, and the
+    # running-statistics backward is held on the literal graph, as
+    # tests/test_torch_train.py holds it against the JAX package.
+    mcfg = literal_model_config(small_model_config())
     mcfg = dataclasses.replace(mcfg, cnn=dataclasses.replace(
         mcfg.cnn, dropout_psp=0.0, dropout_up=0.0,
         backbone_layers=(1, 1, 1, 1)))
@@ -3128,6 +3324,177 @@ def _apps_profiling(smi, slice_lat, total):
         f"ranges {requests}")
 
 
+class _StageClock:
+    """Host-clock time spent in named functions, summed per stage: each
+    ``wrap`` replaces ``owner.name`` by a timed call until ``restore``."""
+
+    def __init__(self):
+        self.ms, self._undo = {}, []
+
+    def wrap(self, owner, name: str, stage: str) -> None:
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms[stage] = (self.ms.get(stage, 0.0)
+                                  + (time.perf_counter() - t0) * 1e3)
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo = []
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``reps`` calls after one warm-up call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _host_stages(smi, ycb: str, plain: bool, steps: int = 3) -> dict:
+    """YCB train frames built on the host at 0 workers (``steps`` batches
+    of 4) with the stages timed apart: decode (PNG and .mat reads, the
+    pasted backgrounds' too), augmentation, fill, normals, sampling (the
+    rest of ``build_frame``: sampling, gathers, targets) and other.  With
+    ``plain``, the fill and the normals take their plain versions (torch
+    fill, numpy normals) instead of the C++ twins.  Returns ms a frame
+    per stage and the frames/s over the batches after the first."""
+    import functools
+
+    from pvn3d_tpu_torch.apps.train import build_argparser as train_args
+    from pvn3d_tpu_torch.apps.train import make_dataset_factory, train_config
+    from pvn3d_tpu_torch.data import augment, frame, ycb as ycb_mod
+    from pvn3d_tpu_torch.data.depth_completion import fill_missing
+    from pvn3d_tpu_torch.data.loader import DataLoader
+    from pvn3d_tpu_torch.data.normals import normals_from_depth_map
+    clock = _StageClock()
+    saved = (ycb_mod.fill_missing, frame.normals_from_depth_map)
+    if plain:
+        ycb_mod.fill_missing = functools.partial(fill_missing, impl="torch")
+        frame.normals_from_depth_map = functools.partial(
+            normals_from_depth_map, impl="numpy")
+    try:
+        clock.wrap(ycb_mod.YCBDataset, "get_item", "total")
+        clock.wrap(ycb_mod.YCBDataset, "_load_raw", "decode")
+        for fn in ("color_jitter", "rgb_add_noise_ycb", "add_real_back"):
+            clock.wrap(augment, fn, "augmentation")
+        clock.wrap(ycb_mod, "fill_missing", "fill")
+        clock.wrap(frame, "normals_from_depth_map", "normals")
+        clock.wrap(ycb_mod, "build_frame", "build_frame")
+        args = train_args().parse_args(["--data_root", ycb, "--file_list",
+                                        os.path.join(ycb, "image_list.txt")])
+        factory = make_dataset_factory(args, "train", train_config(args))
+        it = iter(DataLoader(factory, 4, num_workers=0, steps=steps))
+        n = len(next(it)["labels"])
+        t0 = time.perf_counter()
+        rest = sum(len(b["labels"]) for b in it)
+        rate = rest / (time.perf_counter() - t0)
+        n += rest
+    finally:
+        clock.restore()
+        ycb_mod.fill_missing, frame.normals_from_depth_map = saved
+    ms = {k: v / n for k, v in clock.ms.items()}
+    ms["sampling"] = ms.pop("build_frame") - ms.get("normals", 0.0)
+    ms["other"] = ms["total"] - sum(ms.get(k, 0.0) for k in (
+        "decode", "augmentation", "fill", "normals", "sampling"))
+    label = "plain (torch fill, numpy normals)" if plain else "C++ twins"
+    log("native", f"host build, YCB train frames at 0 workers, {label}: "
+        f"{rate:.2f} frames/s over {rest} frames after the first batch; ms "
+        f"a frame over {n}: " + ", ".join(
+            f"{k} {ms.get(k, 0.0):.1f}" for k in (
+                "decode", "augmentation", "fill", "normals", "sampling",
+                "other", "total")) + f" [{smi}]")
+    return {"frames_per_s": rate, "ms": ms}
+
+
+def phase_native(smi: str, ycb: str = ""):
+    """The host's C++ twins on the card machine's host: built from the
+    checkout's sources (``g++ -O3 -fopenmp -shared -fPIC`` into
+    ``build/native``); on a synthetic 480x640 sensor frame the fill twin
+    against the torch fill and the normals twin against the numpy normals
+    (ms a frame, median of 5; max abs difference, zero masks equal); the
+    FPS twin's indices against the numpy plain version; then the host
+    frame build's stages apart and the loader's frames/s at 0 workers,
+    with the twins and with the plain versions (``_host_stages``), on the
+    [disk] phase's YCB tree (written anew when it is missing)."""
+    from pvn3d_tpu_torch import native
+    from pvn3d_tpu_torch.data import depth_completion as dc
+    from pvn3d_tpu_torch.data.normals import normals_from_depth_map
+    from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
+    t0 = time.perf_counter()
+    for name in ("preprocess", "fps"):
+        native.load_library(name)
+    log("native", f"twins built and loaded in {time.perf_counter() - t0:.1f}"
+        f" s ({native.CXX} {' '.join(native.CXX_FLAGS)}; "
+        f"PVN3D_NATIVE_THREADS={os.environ.get('PVN3D_NATIVE_THREADS', '1')}"
+        f", torch CPU threads {torch.get_num_threads()})")
+    _, depth, k = synth_sensor_frame(480, 640, seed=3)
+    depth_mm = depth[0] * 1000.0
+    fill = {impl: dc.fill_missing(depth_mm, 1000.0, impl=impl) / 1000.0
+            for impl in ("auto", "torch")}
+    fill_ms = {impl: _median_ms(lambda: dc.fill_missing(
+        depth_mm, 1000.0, impl=impl)) for impl in ("auto", "torch")}
+    ferr = np.abs(fill["auto"] - fill["torch"])
+    if ferr.max() > 2e-3 or ferr[2:-2, 2:-2].max() > 1e-5:
+        raise AssertionError(f"native fill: twin vs torch {ferr.max()} "
+                             f"(inside the border {ferr[2:-2, 2:-2].max()})")
+    nrm = {impl: normals_from_depth_map(fill["auto"], k[0], impl=impl)
+           for impl in ("auto", "numpy")}
+    nrm_ms = {impl: _median_ms(lambda: normals_from_depth_map(
+        fill["auto"], k[0], impl=impl)) for impl in ("auto", "numpy")}
+    # At 480x640 the numpy version's float32 running-sum box blur (row
+    # sums up to ~800 m) carries up to ~2e-2 of error into the normals, the
+    # twin's double window sums ~1e-4 (against a float64 evaluation of the
+    # same formula): held as JAX's twin test holds directions, the same
+    # zero pixels and cos >= 0.999 on the others.
+    nerr = float(np.abs(nrm["auto"] - nrm["numpy"]).max())
+    zero = {i: (n == 0).all(-1) for i, n in nrm.items()}
+    live = ~zero["auto"]
+    cos = float((nrm["auto"] * nrm["numpy"]).sum(-1)[live].min())
+    if not np.array_equal(zero["auto"], zero["numpy"]) or cos < 0.999:
+        raise AssertionError(f"native normals: zero pixels differ, or "
+                             f"min cos {cos} < 0.999 (max abs diff {nerr})")
+    log("native", f"480x640 frame: fill twin {fill_ms['auto']:.2f} ms vs "
+        f"torch {fill_ms['torch']:.2f} ms a frame (median of 5), max abs "
+        f"diff {ferr.max():.3e} m ({ferr[2:-2, 2:-2].max():.3e} off the "
+        f"2-pixel border); normals twin {nrm_ms['auto']:.2f} ms vs numpy "
+        f"{nrm_ms['numpy']:.2f} ms, max abs diff {nerr:.3e}, min cos "
+        f"{cos:.6f}, zero pixels equal [{smi}]")
+    rng = np.random.RandomState(5)
+    cloud = (rng.rand(20000, 3) * [0.2, 0.1, 0.05]).astype(np.float32)
+    fps_ms = {}
+    for impl in ("auto", "numpy"):
+        for center in (False, True):
+            got = native.fps_indices(cloud, 64, init_center=center,
+                                     impl=impl)
+            if impl == "numpy" and not np.array_equal(
+                    got, native.fps_indices(cloud, 64, init_center=center)):
+                raise AssertionError(f"native fps: twin indices differ "
+                                     f"(init_center={center})")
+        fps_ms[impl] = _median_ms(lambda: native.fps_indices(
+            cloud, 64, impl=impl))
+    log("native", f"FPS of 64 from 20000 points: twin indices equal numpy's"
+        f" in both start modes; twin {fps_ms['auto']:.2f} ms vs numpy "
+        f"{fps_ms['numpy']:.2f} ms [{smi}]")
+    if not ycb or not os.path.isdir(ycb):
+        ycb, _ = _disk_trees(8)
+    rates = {plain: _host_stages(smi, ycb, plain) for plain in (False, True)}
+    log("native", f"loader at 0 workers: {rates[False]['frames_per_s']:.2f} "
+        f"frames/s with the twins, {rates[True]['frames_per_s']:.2f} with "
+        f"the plain versions [{smi}]")
+    return rates
+
+
 def phase_apps(smi: str, slice_lat=(), occ_frames: int = 4,
                demo_frames: int = 2):
     """The apps' and tools' surface on trees written here (see the
@@ -3162,6 +3529,7 @@ def main() -> int:
     rec = phase_kernels(rng)
     phase_edge_cases(rng)
     launches, slice_lat = phase_slice()
+    k3_eval, eval_launches = phase_eval_graph(smi, rng)
     raw_launches = phase_raw(smi)
     icp_launches, k4_icp = phase_icp(smi)
     phase_reference()
@@ -3169,18 +3537,21 @@ def main() -> int:
     modes_rec, modes_launches = phase_modes(smi)
     rec.update({k: v for k, v in modes_rec.items() if k != "query"})
     disk_launches = phase_disk(smi)
+    phase_native(smi, os.path.join(DISK_DIR, "ycb"))
     apps_launches = phase_apps(smi, slice_lat)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
         r = rec[k.name]
         bound, by = r["bound"]
-        # Launches: over the serving slice's three requests, the raw
+        # Launches: over the serving slice's three requests, [eval_graph]'s
+        # two (the default graph's and the literal one's), the raw
         # path's three requests, one raw request with ICP in both modes,
         # the training path's three steps, three requests in each of
         # the [modes] phase's deployment modes, the [disk] phase's app
         # runs and the [apps] phase's, each counted from 0.
-        total = (launches[k.name] + raw_launches[k.name]
+        total = (launches[k.name] + eval_launches[k.name]
+                 + raw_launches[k.name]
                  + icp_launches[k.name] + train_launches[k.name]
                  + modes_launches[k.name] + disk_launches[k.name]
                  + apps_launches[k.name])
@@ -3192,6 +3563,7 @@ def main() -> int:
             "replaces": r["replaces"],
             "launches": total,
             "launches_serving": launches[k.name],
+            "launches_eval_graph": eval_launches[k.name],
             "launches_raw": raw_launches[k.name],
             "launches_icp": icp_launches[k.name],
             "launches_training": train_launches[k.name],
@@ -3211,6 +3583,16 @@ def main() -> int:
             line[-1].update(device_ms=r["device_ms"], passes=r["passes"],
                             icp=k4_icp, max_abs_err=max(
                                 r["max_abs_err"], k4_icp["max_abs_err"]))
+        if k.name == "interp":
+            # K3 at the eval graph's widths (fp3 .. fp0 blend W0 channels),
+            # the serving path's shapes since the FP restructure.
+            eb, eby = k3_eval["bound"]
+            line[-1]["eval_graph"] = {
+                "ms": k3_eval["ms"], "device_ms": k3_eval["device_ms"],
+                "plain_ms": k3_eval["plain_ms"],
+                "library_ms": k3_eval["library_ms"], "bound_ms": eb,
+                "bound_by": eby, "max_abs_err": k3_eval["max_abs_err"],
+                "levels": k3_eval["levels"]}
         if k.name == "interp_bwd":
             t = rec["interp_bwd_train"]
             line[-1].update(index_add_ms=r["index_add_ms"],

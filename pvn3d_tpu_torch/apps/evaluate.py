@@ -19,7 +19,9 @@ test split (``data/occlusion_linemod.py``); a LineMOD object is scored
 against its own mesh, ``models/obj_XX.ply`` of ``--lm_root`` (with
 ``--occ``) or ``--data_root``.  ``--icp`` refines the poses
 (``make_icp_refine_fn``, the full-res depth scene where the batch holds
-one).  ``--dense_cnn`` is the port's only graph.  It runs on the card
+one).  The model runs the eval graph of ``models/pvn3d.py``: the sparse
+CNN tail at batch 1, the dense one otherwise; ``--sparse_cnn`` /
+``--dense_cnn`` force the tail, as the JAX app's do.  It runs on the card
 unless ``--device cpu`` is given; flags whose machinery the port lacks
 exit naming their ``ROADMAP.md`` item.
 """
@@ -64,9 +66,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "on the device (host workers only decode images)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sparse_cnn", action="store_true",
-                   help="not ported (ROADMAP.md queue A, item 12)")
+                   help="force the sparse CNN tail (the eval default at "
+                        "batch 1; models/pspnet.py)")
     p.add_argument("--dense_cnn", action="store_true",
-                   help="the dense CNN tail + gather: the port's only graph")
+                   help="force the dense CNN tail + gather (the eval "
+                        "default above batch 1)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--packed_dir", default="",
@@ -125,6 +129,8 @@ def main(argv=None) -> dict:
     n_cls = cfg.model.n_classes
     obj_id = C.LM_OBJ_DICT[args.cls] if is_lm else 0
     model = _load_model(args, cfg, dev)
+    model.sparse_cnn = (True if args.sparse_cnn
+                        else (False if args.dense_cnn else None))
 
     if is_lm:
         # Row 1 is this object: its keypoints and center, and its mesh

@@ -31,8 +31,6 @@ from pvn3d_tpu_torch.train.trainer import Trainer
 
 # Flags of the JAX app whose machinery the port lacks: (flag, item).
 NOT_PORTED = {
-    "sparse_cnn": "--sparse_cnn: the sparse CNN tail among the eval "
-                  "restructures (ROADMAP.md queue A, item 12)",
     "remat": "--remat / --remat_policy: rematerialisation (ROADMAP.md "
              "queue A, item 13)",
     "distributed": "--distributed: multi-process training (ROADMAP.md "

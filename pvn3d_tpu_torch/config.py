@@ -2,12 +2,15 @@
 
 The dataclasses, defaults and ``Config.ycb()`` are field-for-field the JAX
 package's (``tests/test_torch_weights.py::test_config_copy_matches`` holds
-``dataclasses.asdict`` of both equal), so one config describes both.
-Knobs that only shape the TPU program (``fps_mode``, ``resize_method``,
-``fuse_upsample``, ``sparse_cnn_eval``, ``head_split_global``, the
-``*_precompute_first`` restructures) are kept as fields; the port runs the
-dense reference graph, which those restructures equal up to summation
-order.  ``fusion_dim`` is documentation only: the fusion and the heads
+``dataclasses.asdict`` of both equal), so one config describes both.  The
+eval restructures run as in the JAX package, each in eval mode only and
+on by default: ``sparse_cnn_eval`` (the sparse CNN tail at batch 1,
+``models/pvn3d.py``), ``fuse_upsample`` (``models/pspnet.py``),
+``head_split_global`` and ``sa/fp_precompute_first``
+(``models/pointnet2.py``); ``tests/test_torch_eval_graph.py`` holds each
+against the JAX package's.  Knobs that only shape the TPU program
+(``fps_mode``, ``resize_method``) are kept as fields and have no effect
+here.  ``fusion_dim`` is documentation only: the fusion and the heads
 take their widths from the two branches (``models/pvn3d.py``).
 
 The neighbour and sampling modes run as in the JAX package, each through

@@ -6,12 +6,13 @@ NormalEstimation with KSearch(50) per frame on the unorganized cloud
 (ycb_dataset.py:147-157); normals only feed the network as 3 input
 features, so the replacement is judged by feature quality.
 
-  * ``normals_from_depth_map`` (the numpy arm of JAX ``:53-123``):
-    smooth the unprojected 3-D map, take central-difference tangents,
-    cross them, and orient the normal toward the camera.  The JAX
-    function's ``impl="auto"`` prefers a native C++ twin
-    (``pvn3d_tpu/native/``), not ported (``ROADMAP.md`` queue A, item
-    9).  The on-card twin is ``ops/preprocess.py::normals_from_depth_map``.
+  * ``normals_from_depth_map`` (JAX ``:53-123``): smooth the unprojected
+    3-D map, take central-difference tangents, cross them, and orient the
+    normal toward the camera.  ``impl="auto"`` runs the C++ twin
+    (``native/preprocess.cpp``), as the JAX function does; its plain
+    version is the numpy arm (``impl="numpy"``), within 2e-3 of it with
+    the same zero mask.  The on-card counterpart is
+    ``ops/preprocess.py::normals_from_depth_map``.
   * ``knn_normals`` (JAX ``:26``, scikit-learn's ``NearestNeighbors``):
     PCA normals over each point's k nearest neighbours, the closest match
     to PCL's semantics; exact k-NN in torch, on the CPU or the card.
@@ -79,13 +80,23 @@ def _box_blur(x: np.ndarray, r: int) -> np.ndarray:
 
 def normals_from_depth_map(depth: np.ndarray, k: np.ndarray,
                            cam_scale: float = 1.0, smooth: int = 2,
-                           depth_jump: float = 0.05) -> np.ndarray:
+                           depth_jump: float = 0.05,
+                           impl: str = "auto") -> np.ndarray:
     """(H, W, 3) float32 unit normals of an (H, W) depth map.
 
     Central differences of the smoothed 3-D map give the tangents, their
     cross product the normal, oriented so n . p <= 0.  Invalid pixels and
     differences across depth jumps over ``depth_jump`` m give 0.
+    ``impl``: "auto" (the C++ twin) or "numpy".
     """
+    if impl == "auto":
+        from pvn3d_tpu_torch.native.preprocess import \
+            normals_from_depth_map_native
+        return normals_from_depth_map_native(
+            np.asarray(depth).reshape(depth.shape[:2]),
+            np.asarray(k, np.float32), cam_scale, smooth, depth_jump)
+    if impl != "numpy":
+        raise ValueError(f"impl {impl!r}: 'auto' (the C++ twin) or 'numpy'")
     h, w = depth.shape[:2]
     z = np.float32(depth).reshape(h, w) / cam_scale
     valid = z > 1e-6

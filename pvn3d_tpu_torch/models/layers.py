@@ -15,6 +15,7 @@ the BN-momentum schedule is an argument of the forward, not module state.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import Sequence
 
@@ -89,13 +90,25 @@ class Conv1x1BN(nn.Module):
         self.normlayer.bn = BatchNorm(c_out)
 
     def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
-        return F.relu(self.normlayer.bn(linear(x, self.conv.weight),
-                                        bn_momentum))
+        return self.finish(linear(x, self.conv.weight), bn_momentum)
+
+    def finish(self, y: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        """BN + ReLU of the pre-activation ``y`` (``x`` times the conv
+        weight, however the caller contracted it)."""
+        return F.relu(self.normlayer.bn(y, bn_momentum))
 
 
 class SharedMLP(nn.Module):
     """Per-point Dense + BN + ReLU stack on the trailing axis; keys
-    ``layer{k}.conv.weight`` / ``layer{k}.normlayer.bn.*``."""
+    ``layer{k}.conv.weight`` / ``layer{k}.normlayer.bn.*``.
+
+    ``precompute_first`` / ``precompute_leading`` and the
+    ``first_precomputed`` argument are the JAX package's eval
+    restructures (``layers.py:137-176``): layer 0's input is a concat of
+    two blocks, so its product splits as ``x_a @ K[a] + x_b @ K[b]``; the
+    caller contracts one block before a gather or an interpolation (on
+    fewer rows) and passes the result in, and ``x`` then carries the
+    other block, starting at channel ``x_offset`` of layer 0's input."""
 
     def __init__(self, c_in: int, widths: Sequence[int]):
         super().__init__()
@@ -104,10 +117,43 @@ class SharedMLP(nn.Module):
             c_in = w
         self.n_layers = len(widths)
 
-    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+    def _k0(self) -> torch.Tensor:
+        """Layer 0's weight as ``(O, I)``: ``K0`` transposed."""
+        w = self.layer0.conv.weight
+        return w.reshape(w.shape[0], w.shape[1])
+
+    def forward(self, x: torch.Tensor, bn_momentum=0.1,
+                first_precomputed: torch.Tensor | None = None,
+                x_offset: int = 0) -> torch.Tensor:
+        """``first_precomputed``: the already contracted part of layer 0,
+        ``(..., widths[0])`` in ``x.dtype``; ``x`` is then the rest of
+        layer 0's input, channels ``x_offset .. x_offset + x.shape[-1]``."""
         for k in range(self.n_layers):
-            x = getattr(self, f"layer{k}")(x, bn_momentum)
+            layer = getattr(self, f"layer{k}")
+            if k == 0 and first_precomputed is not None:
+                a = x.shape[-1]
+                w = self._k0()[:, x_offset:x_offset + a].to(x.dtype)
+                x = layer.finish(F.linear(x, w)
+                                 + first_precomputed.to(x.dtype), bn_momentum)
+            else:
+                x = layer(x, bn_momentum)
         return x
+
+    def precompute_first(self, feats: torch.Tensor, n_lead: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+        """``feats @ K0[n_lead:]`` in ``dtype``: layer 0's trailing
+        block (the SA restructure: per source point, before the
+        neighbourhood gather)."""
+        return F.linear(feats.to(dtype), self._k0()[:, n_lead:].to(dtype))
+
+    def precompute_leading(self, feats: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+        """``feats @ K0[:C]`` in ``dtype``, C = ``feats.shape[-1]``: layer
+        0's leading block (the FP restructure: IDW interpolation is a
+        pointwise blend, so it commutes with the product, which then runs
+        on the m known rows instead of the n interpolated ones)."""
+        return F.linear(feats.to(dtype),
+                        self._k0()[:, :feats.shape[-1]].to(dtype))
 
 
 class ConvBnRelu(nn.Module):
@@ -185,6 +231,40 @@ def _resize_matrix(src: int, dst: int, align_corners: bool) -> np.ndarray:
         out[i, lo] += 1.0 - frac
         out[i, hi] += frac
     return out
+
+
+def shifted_resize_matrix(src: int, dst: int,
+                          align_corners: bool) -> np.ndarray:
+    """(dst, 3*src) stacked bilinear matrices for resize-into-conv fusion
+    (``layers.py:279`` of the JAX package).
+
+    Column block ``i`` (the conv tap, 0..2) holds the resize matrix with
+    its rows shifted by ``i - 1``: ``out[r, i*src + j] = R[r + i - 1, j]``
+    for the plain (dst, src) matrix ``R``, rows outside ``[0, dst)`` zero
+    (the conv's zero padding of the resized map).  Applied to
+    tap-contracted features it computes ``sum_i shift_{i-1}(resize(z_i))``
+    in one matmul (``models/pspnet.py::PSPUpsample.fused``)."""
+    r = _resize_matrix(src, dst, align_corners)
+    out = np.zeros((dst, 3 * src), np.float32)
+    for i in range(3):
+        d = i - 1
+        lo = max(0, -d)
+        hi = min(dst, dst - d)
+        out[lo:hi, i * src:(i + 1) * src] = r[lo + d:hi + d]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_resize_tensor(src: int, dst: int, align_corners: bool,
+                          dtype: torch.dtype,
+                          device: torch.device) -> torch.Tensor:
+    """``shifted_resize_matrix`` as a tensor of ``dtype`` on ``device``,
+    built once per shape, dtype and device.  Made outside inference mode,
+    so a later forward that records a graph may use it too."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            shifted_resize_matrix(src, dst, align_corners),
+            device=device).to(dtype)
 
 
 def _adaptive_pool_matrix(src: int, dst: int) -> np.ndarray:

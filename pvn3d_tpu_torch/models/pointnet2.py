@@ -14,10 +14,14 @@ level 0.  Every level's ball query is kernel K2 in the config's
 does), every FP blend kernel K3 in its ``interp_mode``, whose backward
 kernel carries the gradient to the known features in train mode (K1 and
 K2 return indices and need none).  ``bn_momentum`` is passed down to every
-BN.  The eval restructures ``sa/fp_precompute_first`` equal this graph up
-to summation order and are not ported.  Module names give the reference
-checkpoint's ``pointnet2.SA_modules.{i}.mlps.{j}`` / ``FP_modules.{i}.mlp``
-keys.
+BN.  In eval mode the JAX package's restructures run where the config
+sets them (``sa_precompute_first`` / ``fp_precompute_first``, both True
+by default): SA contracts layer 0's feature block per source point before
+the neighbourhood gather (``pointnet2.py:111-116``), FP contracts layer
+0's known block before the K3 blend, so K3 blends W0 channels
+(``:185-193``).  Train mode keeps the literal graph.  Module names give
+the reference checkpoint's ``pointnet2.SA_modules.{i}.mlps.{j}`` /
+``FP_modules.{i}.mlp`` keys.
 """
 from __future__ import annotations
 
@@ -61,10 +65,12 @@ class SetAbstractionMSG(nn.Module):
     def __init__(self, level: SALevelConfig, c_in: int, use_xyz: bool = True,
                  fps_prefix: bool = False, fps_groups: int = 1,
                  fps_slab_sorted: bool = False, query_mode: str = "auto",
-                 query_compute: str = "f32", query_capacity: int = 2):
+                 query_compute: str = "f32", query_capacity: int = 2,
+                 precompute_first: bool = True):
         super().__init__()
         self.level = level
         self.use_xyz = use_xyz
+        self.precompute_first = precompute_first
         self.fps_prefix = fps_prefix
         self.fps_groups = fps_groups
         self.fps_slab_sorted = fps_slab_sorted
@@ -89,9 +95,19 @@ class SetAbstractionMSG(nn.Module):
                                      xyz, new_xyz, mode=mode,
                                      compute_dtype=self.query_compute,
                                      capacity=self.query_capacity)
+        # Eval-only gather-after-matmul: layer 0's feature term per
+        # source point (N rows), gathered in W0 channels.
+        fast = (self.precompute_first and not self.training
+                and self.use_xyz and features is not None)
         outs = []
         for g_idx, mlp in zip(scale_idx, self.mlps):
             grouped = group_points(xyz, g_idx) - new_xyz[:, :, None, :]
+            if fast:
+                pre = group_points(mlp.precompute_first(features, 3, dtype),
+                                   g_idx)
+                outs.append(mlp(grouped.to(dtype), bn_momentum,
+                                first_precomputed=pre).amax(dim=2))
+                continue
             if features is not None:
                 feat = group_points(features, g_idx)
                 grouped = (torch.cat([grouped, feat.to(grouped.dtype)], -1)
@@ -107,19 +123,36 @@ class FeaturePropagation(nn.Module):
     ``interp_mode`` as the JAX package resolves it (pointnet2.py:159-175):
     "pallas", and "auto" (which there becomes "pallas" on a TPU or under
     ``query_mode="pallas"``) run the fused kernel's direct d^2; "exact"
-    and "approx" run the XLA ``three_nn`` arm's expanded d^2."""
+    and "approx" run the XLA ``three_nn`` arm's expanded d^2.
 
-    def __init__(self, c_in: int, widths, interp_mode: str = "auto"):
+    ``precompute_first`` (eval mode, with skip features): layer 0's known
+    block is contracted on the m known rows in ``dtype``, K3 blends that
+    (W0 channels, in float32 as JAX's ``_interp`` does), and the blend
+    enters layer 0 beside the skip features."""
+
+    def __init__(self, c_in: int, widths, interp_mode: str = "auto",
+                 precompute_first: bool = True):
         super().__init__()
         self.mlp = SharedMLP(c_in, widths)
         self.expanded = interp_expanded(interp_mode)
+        self.precompute_first = precompute_first
+
+    def _interp(self, unknown_xyz, known_xyz, feats, dtype):
+        interp, _, _ = three_interpolate_fused(unknown_xyz, known_xyz,
+                                               feats.float(),
+                                               expanded=self.expanded)
+        return interp.to(dtype)
 
     def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
                 dtype: torch.dtype, bn_momentum=0.1) -> torch.Tensor:
-        interp, _, _ = three_interpolate_fused(unknown_xyz, known_xyz,
-                                               known_feats.float(),
-                                               expanded=self.expanded)
-        interp = interp.to(dtype)
+        if (self.precompute_first and not self.training
+                and unknown_feats is not None):
+            pre = self.mlp.precompute_leading(known_feats, dtype)
+            return self.mlp(unknown_feats.to(dtype), bn_momentum,
+                            first_precomputed=self._interp(
+                                unknown_xyz, known_xyz, pre, dtype),
+                            x_offset=known_feats.shape[-1])
+        interp = self._interp(unknown_xyz, known_xyz, known_feats, dtype)
         if unknown_feats is not None:
             interp = torch.cat([interp, unknown_feats.to(dtype)], dim=-1)
         return self.mlp(interp, bn_momentum)
@@ -141,7 +174,8 @@ class PointNet2MSG(nn.Module):
                 fps_groups=cfg.fps_groups,
                 fps_slab_sorted=grouped and li > 0,
                 query_mode=cfg.query_mode, query_compute=cfg.query_compute,
-                query_capacity=cfg.query_capacity))
+                query_capacity=cfg.query_capacity,
+                precompute_first=cfg.sa_precompute_first))
             c_in = sum(w[-1] for w in level.mlps)
             skips.append(c_in)
         self.SA_modules = nn.ModuleList(sa)
@@ -152,7 +186,8 @@ class PointNet2MSG(nn.Module):
             # top) and concatenates level i's skip features.
             known = cfg.fp_mlps[i + 1][-1] if i < n - 1 else skips[i + 1]
             fp.append(FeaturePropagation(skips[i] + known, widths,
-                                         cfg.interp_mode))
+                                         cfg.interp_mode,
+                                         cfg.fp_precompute_first))
         self.FP_modules = nn.ModuleList(fp)
 
     def forward(self, pointcloud: torch.Tensor,

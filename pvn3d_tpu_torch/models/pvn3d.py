@@ -1,23 +1,28 @@
 """The full PVN3D model of the port: CNN + PointNet++ + DenseFusion + heads.
 
-Port of the JAX package's ``models/pvn3d.py`` on the dense reference
-graph (``PVN3D(cfg, sparse_cnn=False)``), in eval mode (the state a new
-model is in) and, after ``model.train()``, in train mode: the image
-branch's embedding map gathered at each point's ``choose`` pixel
-(pvn3d.py:172-178), the point branch, DenseFusion with the literal
-global-feature concat, and the three heads.  ``head_split_global`` and the
-sparse CNN tail give the same outputs up to summation order and are not
-ported.  Module names are the reference checkpoint's top-level keys
-(``cnn.model``, ``pointnet2``, ``rgbd_feat``, ``SEG_layer``,
-``KpOF_layer``, ``CtrOf_layer``), so ``state_dict()`` loads a reference
-checkpoint and ``utils.weights.from_jax_variables`` maps JAX weights in.
-The fusion and the heads take their input widths from the two branches'
-(``cnn.embedding_dim``, ``fp_mlps[0][-1]``), not from ``fusion_dim``, as
-the JAX package's modules infer them.
+Port of the JAX package's ``models/pvn3d.py``, in eval mode (the state a
+new model is in) and, after ``model.train()``, in train mode: the image
+branch's embeddings at each point's ``choose`` pixel (pvn3d.py:172-178),
+the point branch, DenseFusion and the three heads.
+
+In eval mode it runs the JAX package's restructured graph where the
+config sets it (every restructure is on by default): the sparse CNN tail
+(``sparse_cnn``, JAX's rule), the fused upsample stages, the SA/FP
+precompute-first point branch and, with ``head_split_global``, the
+fusion's global context kept apart (``DenseFusion(split_global)``), so
+each head's first layer multiplies it once a frame (``_split_dense``).
+Train mode keeps the literal dense graph.  Module names and the
+parameters are the same in both graphs and are the reference
+checkpoint's top-level keys (``cnn.model``, ``pointnet2``, ``rgbd_feat``,
+``SEG_layer``, ``KpOF_layer``, ``CtrOf_layer``), so ``state_dict()``
+loads a reference checkpoint and ``utils.weights.from_jax_variables``
+maps JAX weights in.  The fusion and the heads take their input widths
+from the two branches' (``cnn.embedding_dim``, ``fp_mlps[0][-1]``), not
+from ``fusion_dim``, as the JAX package's modules infer them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -75,8 +80,12 @@ class DenseFusion(nn.Module):
         self.conv4 = nn.Conv1d(512, 1024, 1)
         self.out_dim = emb_rgb + emb_cld + 2 * 256 + 1024
 
-    def forward(self, rgb_emb: torch.Tensor,
-                cld_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, rgb_emb: torch.Tensor, cld_emb: torch.Tensor,
+                split_global: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """The (B, N, out_dim) fused features, or with ``split_global``
+        the pair (local (B, N, out_dim - 1024), global (B, 1, 1024))
+        without the broadcast and concat (JAX ``:29-65``)."""
         feat_1 = torch.cat([rgb_emb, cld_emb], dim=-1)
         rgb = F.relu(linear(rgb_emb, self.conv2_rgb.weight,
                             self.conv2_rgb.bias))
@@ -84,8 +93,21 @@ class DenseFusion(nn.Module):
                             self.conv2_cld.bias))
         rgbd = F.relu(linear(feat_1, self.conv3.weight, self.conv3.bias))
         rgbd = F.relu(linear(rgbd, self.conv4.weight, self.conv4.bias))
-        glob = rgbd.mean(dim=1, keepdim=True).expand_as(rgbd)
-        return torch.cat([feat_1, rgb, cld, glob], dim=-1)
+        glob = rgbd.mean(dim=1, keepdim=True)
+        if split_global:
+            return torch.cat([feat_1, rgb, cld], dim=-1), glob
+        return torch.cat([feat_1, rgb, cld, glob.expand_as(rgbd)], dim=-1)
+
+
+def _split_dense(weight: torch.Tensor, local: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    """A head's first 1x1 conv on the split fusion output: ``local @ K[:d]
+    + g @ K[d:]`` (JAX ``_SplitDense``, ``:68-90``), the global term once
+    a frame.  The conv has no bias (the JAX one is folded into the BN's
+    running mean, ``utils/weights.py``)."""
+    w = weight.reshape(weight.shape[0], weight.shape[1]).to(local.dtype)
+    d = local.shape[-1]
+    return F.linear(local, w[:, :d]) + F.linear(g, w[:, d:])
 
 
 class PredictionHead(nn.Module):
@@ -102,9 +124,16 @@ class PredictionHead(nn.Module):
         self.add_module(str(len(widths)), out)
         self.n_hidden = len(widths)
 
-    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+    def forward(self, x, bn_momentum=0.1) -> torch.Tensor:
+        """``x``: (B, N, C), or DenseFusion's (local, global) pair, which
+        the first layer takes through ``_split_dense``."""
         for k in range(self.n_hidden):
-            x = getattr(self, str(k))(x, bn_momentum)
+            layer = getattr(self, str(k))
+            if k == 0 and isinstance(x, tuple):
+                x = layer.finish(_split_dense(layer.conv.weight, *x),
+                                 bn_momentum)
+            else:
+                x = layer(x, bn_momentum)
         out = getattr(self, str(self.n_hidden)).conv
         return linear(x, out.weight, out.bias)
 
@@ -118,12 +147,18 @@ class PVN3D(nn.Module):
     ``forward(pointcloud (B, N, 9), rgb (B, H, W, 3), choose (B, N))``
     returns ``seg_logits`` (B, N, n_classes), ``kp_offsets``
     (B, n_kps, N, 3), ``ctr_offsets`` (B, 1, N, 3), all float32, and the
-    auxiliary ``rgb_seg`` (B, H, W, n_classes) log-probabilities.
+    auxiliary ``rgb_seg`` log-probabilities: (B, H, W, n_classes) from the
+    dense CNN tail, (B, N, n_classes) from the sparse one.
+
+    ``sparse_cnn`` (an attribute, JAX ``:165-167``): True or False forces
+    the CNN tail; None takes the sparse one exactly when the model is in
+    eval mode, ``cfg.sparse_cnn_eval`` is set and the batch is 1.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, sparse_cnn: Optional[bool] = None):
         super().__init__()
         self.cfg = cfg
+        self.sparse_cnn = sparse_cnn
         self.dtype = check_supported(cfg)
         cc = cfg.cnn
         self.cnn = nn.Module()
@@ -132,7 +167,7 @@ class PVN3D(nn.Module):
             psp_features=cc.psp_features, psp_out=cc.psp_out,
             up_channels=cc.up_channels, embedding_dim=cc.embedding_dim,
             backbone_layers=cc.backbone_layers, dropout_psp=cc.dropout_psp,
-            dropout_up=cc.dropout_up)
+            dropout_up=cc.dropout_up, fuse_up=cc.fuse_upsample)
         self.pointnet2 = PointNet2MSG(cfg.pointnet2)
         self.rgbd_feat = DenseFusion(cc.embedding_dim,
                                      cfg.pointnet2.fp_mlps[0][-1])
@@ -143,20 +178,33 @@ class PVN3D(nn.Module):
         self.CtrOf_layer = PredictionHead(fused, cfg.ctr_head, 3)
         self.eval()
 
+    def uses_sparse_tail(self, batch: int) -> bool:
+        """Whether a forward of ``batch`` frames takes the sparse CNN
+        tail (``sparse_cnn``'s rule)."""
+        if self.sparse_cnn is not None:
+            return self.sparse_cnn
+        return not self.training and self.cfg.sparse_cnn_eval and batch == 1
+
     def forward(self, pointcloud: torch.Tensor, rgb: torch.Tensor,
                 choose: torch.Tensor, bn_momentum=0.1,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         b, n, _ = pointcloud.shape
-        emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype), bn_momentum,
-                                          generator)
-        h, w, di = emb_map.shape[1:]
-        rgb_emb = torch.gather(
-            emb_map.reshape(b, h * w, di), 1,
-            choose.long()[..., None].expand(-1, -1, di))
+        if self.uses_sparse_tail(b):
+            rgb_emb, rgb_seg = self.cnn.model(rgb.to(self.dtype), bn_momentum,
+                                              generator, choose=choose)
+        else:
+            emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype),
+                                              bn_momentum, generator)
+            h, w, di = emb_map.shape[1:]
+            rgb_emb = torch.gather(
+                emb_map.reshape(b, h * w, di), 1,
+                choose.long()[..., None].expand(-1, -1, di))
         cld_emb = self.pointnet2(pointcloud, self.dtype, bn_momentum)
-        fused = self.rgbd_feat(rgb_emb, cld_emb)
+        fused = self.rgbd_feat(
+            rgb_emb, cld_emb,
+            split_global=not self.training and cfg.head_split_global)
         seg = self.SEG_layer(fused, bn_momentum)
         kp = self.KpOF_layer(fused, bn_momentum).reshape(
             b, n, cfg.n_keypoints, 3)

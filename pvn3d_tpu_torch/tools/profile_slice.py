@@ -180,22 +180,28 @@ def main(argv=None) -> int:
     step(batch)
 
     with torch.inference_mode():
-        dtype = model.dtype
-        emb, _ = model.cnn.model(rgb.to(dtype))
+        # The stages of the eval graph a batch-1 request takes: the
+        # sparse CNN tail and the split heads where the model takes them.
+        dtype, mcfg = model.dtype, cfg.model
+        at = choose if model.uses_sparse_tail(1) else None
+
+        def image():
+            return model.cnn.model(rgb.to(dtype), choose=at)
+        emb, _ = image()
         cld = model.pointnet2(pc, dtype)
-        rgb_emb = torch.gather(
+        rgb_emb = emb if at is not None else torch.gather(
             emb.reshape(1, -1, emb.shape[-1]), 1,
             choose.long()[..., None].expand(-1, -1, emb.shape[-1]))
         out = model(pc, rgb, choose)
         seg = torch.argmax(out["seg_logits"], -1).to(torch.int32)
 
         def heads():
-            fused = model.rgbd_feat(rgb_emb, cld)
+            fused = model.rgbd_feat(rgb_emb, cld,
+                                    split_global=mcfg.head_split_global)
             return [m(fused) for m in (model.SEG_layer, model.KpOF_layer,
                                        model.CtrOf_layer)]
         stages = {
-            "image branch (ResNet34 + PSP + 3 upsamples)":
-                lambda: model.cnn.model(rgb.to(dtype)),
+            "image branch (ResNet34 + PSP + 3 upsamples)": image,
             "point branch (PointNet++ 4 SA + 4 FP)":
                 lambda: model.pointnet2(pc, dtype),
             "fusion + 3 heads": heads,

@@ -35,6 +35,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from pvn3d_tpu_torch.apps import evaluate, train  # noqa: E402
+from pvn3d_tpu_torch.data import frame as port_frame  # noqa: E402
+from pvn3d_tpu_torch.data import normals as port_normals  # noqa: E402
 from pvn3d_tpu_torch.config import (ASSETS_DIR, Config,  # noqa: E402
                                     small_model_config)
 from pvn3d_tpu_torch.inference import evaluator  # noqa: E402
@@ -163,6 +165,9 @@ def test_evaluate_matches_jax(ycb_tree, small, tmp_path, monkeypatch,
     monkeypatch.setattr(jax_frame, "normals_from_depth_map",
                         functools.partial(jax_normals.normals_from_depth_map,
                                           impl="numpy"))
+    monkeypatch.setattr(port_frame, "normals_from_depth_map",
+                        functools.partial(port_normals.normals_from_depth_map,
+                                          impl="numpy"))
 
     mesh_pts, mesh_valid = jax_assets.stacked_mesh_points(ycb_tree, "ycb",
                                                           22)
@@ -187,7 +192,7 @@ def test_evaluate_matches_jax(ycb_tree, small, tmp_path, monkeypatch,
     monkeypatch.setattr(evaluator, "PoseEvaluator", Capture)
     evaluate.main(["--data_root", ycb_tree, "--torch_ckpt", ckpt,
                    "--device", "cpu", "--workers", "0", "--batch_size", "2",
-                   "--no_fill_depth"])
+                   "--no_fill_depth", "--dense_cnn"])
     ev = made[0]
     assert n == 2
     for got, want in ((ev.cls_add_dis, jev.cls_add_dis),

@@ -368,10 +368,11 @@ def test_normals_match_jax_numpy_arm():
     k = np.array([[572.4, 0, 80.0], [0, 573.5, 60.0], [0, 0, 1]],
                  np.float32)
     np.testing.assert_array_equal(
-        normals_from_depth_map(d, k),
+        normals_from_depth_map(d, k, impl="numpy"),
         jax_normals.normals_from_depth_map(d, k, impl="numpy"))
     np.testing.assert_array_equal(
-        normals_from_depth_map(d * 1000, k, cam_scale=1000.0, smooth=0),
+        normals_from_depth_map(d * 1000, k, cam_scale=1000.0, smooth=0,
+                               impl="numpy"),
         jax_normals.normals_from_depth_map(d * 1000, k, cam_scale=1000.0,
                                            smooth=0, impl="numpy"))
 
@@ -379,14 +380,15 @@ def test_normals_match_jax_numpy_arm():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_fill_missing_matches_the_cv2_arm(seed):
     d = _holey_depth(seed)
-    got = fill_missing(d, 10000.0)
+    got = fill_missing(d, 10000.0, impl="torch")
     want = jax_dc.fill_missing(d, 10000.0, 1.0, impl="numpy")
     assert got.dtype == np.float32 and got.shape == want.shape
     err = np.abs(got - want) / 10000.0
     assert err.max() <= 2e-3
     assert (err <= 1e-4).mean() > 0.99
-    with pytest.raises(NotImplementedError, match="fast"):
-        fill_missing(d, fill_type="fast")
+    # The default, the C++ twin, at the JAX package's twin tolerance.
+    np.testing.assert_allclose(fill_missing(d, 10000.0) / 10000.0,
+                               want / 10000.0, atol=1e-4)
 
 
 def _image(seed, h=48, w=128):
@@ -517,6 +519,8 @@ def test_build_frame_matches_jax(spec, monkeypatch):
     monkeypatch.setattr(jax_frame, "normals_from_depth_map",
                         functools.partial(jax_normals.normals_from_depth_map,
                                           impl="numpy"))
+    monkeypatch.setattr(frame, "normals_from_depth_map", functools.partial(
+        normals_from_depth_map, impl="numpy"))
     rng = np.random.RandomState(2)
     depth = _holey_depth(2) / 10000.0
     label = np.zeros(depth.shape, np.uint8)
@@ -556,9 +560,13 @@ def trees(tmp_path_factory):
 
 @pytest.fixture
 def jax_numpy_arms(monkeypatch):
+    """Both packages' host builds on their numpy normals; the JAX fill on
+    cv2 (the port's default fill is its C++ twin, within 1e-4 of it)."""
     monkeypatch.setattr(jax_frame, "normals_from_depth_map",
                         functools.partial(jax_normals.normals_from_depth_map,
                                           impl="numpy"))
+    monkeypatch.setattr(frame, "normals_from_depth_map", functools.partial(
+        normals_from_depth_map, impl="numpy"))
     monkeypatch.setattr(jax_ycb, "fill_missing", functools.partial(
         jax_dc.fill_missing, impl="numpy"))
 

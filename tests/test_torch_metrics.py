@@ -282,7 +282,7 @@ def test_inference_step_metrics_match_jax(scored, jax_pallas_winner):
     jstep = jax_pipeline.make_inference_step(
         jcfg, JaxPVN3D(cfg=jcfg.model, train=False, sparse_cnn=False),
         variables, mesh_kps, radii, mesh_pts, mesh_valid)
-    model = PVN3D(to_port(jcfg.model))
+    model = PVN3D(to_port(jcfg.model), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     step = pipeline.make_inference_step(to_port(jcfg), model, mesh_kps,
                                         radii, mesh_pts, mesh_valid,

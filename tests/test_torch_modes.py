@@ -387,7 +387,7 @@ def small():
                              * 0.5], -1),
              (rng.randn(1, h, w, 3) * 0.3).astype(np.float32),
              rng.choice(h * w, size=(1, n), replace=False).astype(np.int32)]
-    model = PVN3D(to_port(base))
+    model = PVN3D(to_port(base), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     with torch.inference_mode():
         exact = model(*(torch.tensor(x) for x in batch))
@@ -404,7 +404,7 @@ def test_forward_matches_in_mode(small, name):
     cfg = _mode_cfg(base, name)
     want = jax.jit(JaxPVN3D(cfg=cfg, train=False, sparse_cnn=False).apply)(
         variables, *(jnp.asarray(x) for x in batch))
-    model = PVN3D(to_port(cfg))
+    model = PVN3D(to_port(cfg), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     with torch.inference_mode():
         got = model(*(torch.tensor(x) for x in batch))
@@ -493,7 +493,7 @@ def test_fusion_widths_follow_the_branches():
     want = jax.jit(jmodel.apply)(jax.tree_util.tree_map(jnp.asarray,
                                                         variables),
                                  *(jnp.asarray(x) for x in batch))
-    model = PVN3D(pcfg)
+    model = PVN3D(pcfg, sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     with torch.inference_mode():
         got = model(*(torch.tensor(x) for x in batch))

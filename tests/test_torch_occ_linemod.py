@@ -38,6 +38,7 @@ Image = pytest.importorskip("PIL.Image")
 
 from pvn3d_tpu_torch.apps import evaluate, train  # noqa: E402
 from pvn3d_tpu_torch.data import frame  # noqa: E402
+from pvn3d_tpu_torch.data import normals as port_normals  # noqa: E402
 from pvn3d_tpu_torch.data import occlusion_linemod as occ  # noqa: E402
 from pvn3d_tpu_torch.data.png import read_png  # noqa: E402
 from pvn3d_tpu_torch.inference import evaluator  # noqa: E402
@@ -69,6 +70,8 @@ def jax_numpy_normals(monkeypatch):
     monkeypatch.setattr(jax_frame, "normals_from_depth_map",
                         functools.partial(jax_normals.normals_from_depth_map,
                                           impl="numpy"))
+    monkeypatch.setattr(frame, "normals_from_depth_map", functools.partial(
+        port_normals.normals_from_depth_map, impl="numpy"))
 
 
 _INFO = {
@@ -241,7 +244,7 @@ def test_evaluate_occ_matches_jax(occ_trees, small_lm, tmp_path,
     made = _capture(monkeypatch)
     common = ["--dataset", "linemod", "--cls", "ape", "--occ",
               "--data_root", root, "--torch_ckpt", ckpt, "--device", "cpu",
-              "--batch_size", "2"]
+              "--batch_size", "2", "--dense_cnn"]
     evaluate.main(common + ["--workers", "0"])
     # The packer's command line packs at the full point budget; the
     # frames evaluated here are packed at the small model's.

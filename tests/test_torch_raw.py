@@ -255,7 +255,7 @@ def test_raw_step_matches_jax(jax_pallas_winner):
         mesh_kps, radii, mesh_pts, mesh_valid)
     want = jstep({kk: jnp.asarray(v) for kk, v in batch.items()}, key)
 
-    model = PVN3D(to_port(cfg))
+    model = PVN3D(to_port(cfg), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     step = make_raw_inference_step(to_port(jcfg), model, mesh_kps, radii,
                                    mesh_pts, mesh_valid, device="cpu")

@@ -343,8 +343,7 @@ def test_apps_raise_without_cuda(monkeypatch, tmp_path):
 @pytest.mark.parametrize("app,flags,item", [
     ("train", ["--distributed"], "item 14"),
     ("train", ["--remat"], "item 13"),
-    ("train", ["--remat_policy", "dots"], "item 13"),
-    ("evaluate", ["--sparse_cnn"], "item 12")])
+    ("train", ["--remat_policy", "dots"], "item 13")])
 def test_unported_flags_exit_naming_their_roadmap_item(app, flags, item,
                                                        tmp_path):
     """A JAX app flag whose machinery the port lacks exits before any
@@ -357,9 +356,49 @@ def test_unported_flags_exit_naming_their_roadmap_item(app, flags, item,
 
 
 def test_not_ported_holds_only_the_missing_machinery():
-    """``--occ`` (Occlusion-LineMOD) and ``--pretrained_trunk`` (the
-    torchvision trunk) are ported; the apps refuse only the flags whose
-    machinery is still missing."""
+    """``--occ`` (Occlusion-LineMOD), ``--pretrained_trunk`` (the
+    torchvision trunk) and ``--sparse_cnn`` (the eval restructures) are
+    ported; the apps refuse only the flags whose machinery is still
+    missing."""
     from pvn3d_tpu_torch.apps import train
-    assert sorted(train.NOT_PORTED) == ["distributed", "remat",
-                                        "sparse_cnn"]
+    assert sorted(train.NOT_PORTED) == ["distributed", "remat"]
+
+
+@pytest.fixture(scope="module")
+def tiny_ycb_tree(tmp_path_factory):
+    from pvn3d_tpu_torch.tools.fake_data import make_fake_ycb
+    with open(os.path.join(port_config.ASSETS_DIR, "ycb_config",
+                           "test_data_list.txt")) as f:
+        items = [ln.strip() for ln in f if ln.strip()][:2]
+    return make_fake_ycb(str(tmp_path_factory.mktemp("tiny")), h=120,
+                         w=160, cls_ids=(1,), items=items,
+                         mesh_ids=range(1, 22))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("flag", ["", "--sparse_cnn", "--dense_cnn"])
+def test_evaluate_cnn_flags_take_the_jax_tail(flag, batch, tiny_ycb_tree,
+                                              tmp_path, monkeypatch):
+    """``evaluate --sparse_cnn`` / ``--dense_cnn`` run on a tiny fake tree
+    on the CPU and take the CNN tail the JAX app's flags select
+    (``pvn3d_tpu/apps/evaluate.py:106-109``): sparse when forced, dense
+    when forced, else sparse exactly at batch 1."""
+    from pvn3d_tpu_torch.apps import evaluate
+    from pvn3d_tpu_torch.models.pspnet import PSPUpsample
+    monkeypatch.setattr(evaluate, "base_config", lambda d, c: port_config
+                        .Config(model=port_config.small_model_config()))
+    calls = []
+    sparse = PSPUpsample.sparse
+
+    def counted(self, *a, **kw):
+        calls.append(a[0].shape[0])
+        return sparse(self, *a, **kw)
+    monkeypatch.setattr(PSPUpsample, "sparse", counted)
+    summary = evaluate.main(
+        ["--data_root", tiny_ycb_tree, "--checkpoint_dir", str(tmp_path),
+         "--device", "cpu", "--workers", "0", "--no_fill_depth",
+         "--batch_size", str(batch)] + ([flag] if flag else []))
+    assert summary["per_class"][1]["n"] == 2
+    want_sparse = {"--sparse_cnn": True, "--dense_cnn": False}.get(
+        flag, batch == 1)
+    assert calls == ([batch] * (2 // batch) if want_sparse else [])

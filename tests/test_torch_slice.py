@@ -70,7 +70,7 @@ def forward():
     apply = jax.jit(JaxPVN3D(cfg=cfg, train=False, sparse_cnn=False).apply)
     out = apply(variables, *(jnp.asarray(batch[k])
                              for k in ("pointcloud", "rgb", "choose")))
-    model = PVN3D(to_port(cfg))
+    model = PVN3D(to_port(cfg), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     return cfg, batch, {k: np.asarray(v) for k, v in out.items()}, model
 
@@ -216,7 +216,7 @@ def test_pvn3d_bfloat16_forward():
              rng.choice(h * w, size=(1, n), replace=False).astype(np.int32)]
     want = jax.jit(JaxPVN3D(cfg=cfg, train=False, sparse_cnn=False).apply)(
         variables, *(jnp.asarray(x) for x in batch))
-    model = PVN3D(to_port(cfg))
+    model = PVN3D(to_port(cfg), sparse_cnn=False)
     model.load_state_dict(port_sd, strict=True)
     with torch.inference_mode():
         got = model(*(torch.tensor(x) for x in batch))

@@ -35,6 +35,8 @@ cv2 = pytest.importorskip("cv2")
 
 from pvn3d_tpu_torch.apps import demo, train  # noqa: E402
 from pvn3d_tpu_torch.config import ASSETS_DIR  # noqa: E402
+from pvn3d_tpu_torch.data import frame as port_frame  # noqa: E402
+from pvn3d_tpu_torch.data import normals as port_normals  # noqa: E402
 from pvn3d_tpu_torch.data.png import read_png  # noqa: E402
 from pvn3d_tpu_torch.tools.fake_data import (make_fake_linemod,  # noqa: E402
                                              make_fake_ycb)
@@ -174,6 +176,9 @@ def test_demo_matches_jax(dataset, tmp_path, monkeypatch,
                         lambda *a: None)
     monkeypatch.setattr(jax_frame, "normals_from_depth_map",
                         functools.partial(jax_normals.normals_from_depth_map,
+                                          impl="numpy"))
+    monkeypatch.setattr(port_frame, "normals_from_depth_map",
+                        functools.partial(port_normals.normals_from_depth_map,
                                           impl="numpy"))
     monkeypatch.setattr(jax_config.Config, "ycb", staticmethod(lambda: jcfg))
     monkeypatch.setattr(jax_config.Config, "linemod",
