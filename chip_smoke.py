@@ -198,9 +198,52 @@ that fails):
                and 2 demo frames check the paths and are too few for
                rates: those come from the phase alone at 32 and 8
                (``phase_apps(smi, lat, occ_frames=32, demo_frames=8)``).
-15. a JSON line per kernel and kernel instance (launches on the serving
+15. parallel — data parallelism at full width, in two parts.  A world-1
+               NCCL group in this process (``initialize_distributed``
+               with a file store under ``build/parallel``; ``make_mesh``
+               takes a group of one rank for none, so the phase builds
+               the mesh that holds it): the mesh's
+               train step (synced BN, the summed gradient all-reduce, the
+               global metrics; ``Config.ycb()``, bf16, batch 4) in turns
+               with the plain step from the same weights and batch, three
+               of each: the loss and the running statistics bit for bit,
+               the gradient within ``SAME_GRAD_L2`` (3e-2) in global L2
+               beside two plain steps' distance,
+               the parameters bit for bit where two plain steps are (else
+               within 2 lr + 1e-6: the card's backward holds atomic
+               scatter-adds and Adam moves a rounding-noise entry by lr),
+               launches fps
+               1, query 4, interp 4, interp_bwd 4 a step, the step times,
+               and one mesh step's and one plain step's CUDA-only trace
+               (the NCCL kernels' share; the device records a late trace
+               lost, logged).  Then two ranks spawned on this card
+               (``chip_smoke.py --parallel-rank R 2 SEED``) over gloo
+               (NCCL refuses two ranks on one card), float32, dropout 0:
+               each rank's step on 2 of a global batch of 4 against one
+               process's step on the 4 (the ranks' losses equal; the loss
+               within 1e-5 relative, the gradient within 3e-2 in global
+               L2 beside two plain steps' distance, the parameters within
+               2 lr + 1e-6 + 1e-5 |p|: float32 reduction order and the
+               conditioning of a batch-statistics backward), then a
+               dp-sharded request of 4 frames (2 a
+               rank) against the unsharded one (poses 2e-4, seg equal:
+               the tolerances of tests/test_sharded_inference.py); each
+               rank's launches are read from its output.
+16. remat    — one full-width bf16 step at batch 4 from one state with
+               ``remat`` off, "full" and "dots" (and off again, the
+               run-to-run floor): the loss within 1e-6 / 3e-5 relative,
+               the gradient (dropout on: the replayed masks) within
+               ``SAME_GRAD_L2`` in global L2 beside two plain steps',
+               the parameters within 1e-6 / 1e-5 (plus 2 lr + 1e-6 where
+               two plain steps differ), the running statistics equal to the
+               plain step's (moved once), launches fps 2, query 8, interp
+               8, interp_bwd 4 a rematerialised step; the torch version;
+               then one step at batch 24 in each mode (after one
+               untimed), its time and peak memory.
+17. a JSON line per kernel and kernel instance (launches on the serving
    slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
    mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
+   the [parallel] and [remat] runs (``launches_parallel``),
    error, times, bound; K2's
    instances and K3 forward and backward also per level, the backward on
    both clouds, K3 forward also at the eval graph's widths
@@ -266,9 +309,10 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     """``reps`` calls of ``fn`` in one ``torch.profiler`` trace of CUDA
     activity alone: the device time in ms, the kernel and the copy/memset
     launches, the runtime's synchronisations (the trace's own closing one
-    not counted), the kernels whose names hold each of ``names``, and
-    whether the trace is complete: each kernel launch of ``fn`` that the
-    runtime recorded has its device record, matched by correlation id
+    not counted), the kernels whose names hold each of ``names`` and their
+    device time (``named_ms``), and whether the trace is complete: each
+    kernel launch of ``fn`` that the runtime recorded has its device
+    record, matched by correlation id
     (copies are not held so: a memset of no bytes leaves no record).  On
     an H100 a trace loses device records, never runtime calls: once
     earlier phases have run, those of its first launches (which the
@@ -307,6 +351,8 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
             "kernels": len(dev) - copies, "copies": copies,
             "syncs": syncs - 1,
             "named": {n: sum(n in e.name() for e in dev) for n in names},
+            "named_ms": {n: sum(e.duration_ns() for e in dev
+                                if n in e.name()) / 1e6 for n in names},
             "lost": sum(e.correlation_id() not in recorded for e in calls),
             "complete": len(dev) - copies == len(calls) and all(
                 e.correlation_id() in recorded for e in calls)}
@@ -3522,6 +3568,419 @@ def phase_apps(smi: str, slice_lat=(), occ_frames: int = 4,
     return {k.name: total.get(k.name, 0) for k in KERNELS}
 
 
+PARALLEL_DIR = os.path.join(ROOT, "build", "parallel")
+
+
+def _snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _max_diff(a: dict, b: dict, running: bool = False) -> float:
+    """The largest difference between two state dicts over the parameters
+    (or, with ``running``, the BN running statistics)."""
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a if ("running_" in k) == running
+               and "num_batches" not in k)
+
+
+def _timed_step(step, model, cfg, sd0, batch):
+    """One step from the weights ``sd0`` and a fresh optimizer: (metrics,
+    host ms to the step's end, the weights after, the step's gradients)."""
+    from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
+    model.load_state_dict(sd0)
+    state = TrainState(0, model, make_optimizer(cfg, model))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return (metrics, (time.perf_counter() - t0) * 1e3, _snapshot(model),
+            {k: p.grad.clone() for k, p in model.named_parameters()
+             if p.grad is not None})
+
+
+# Two gradients of the same arithmetic on the card (a mesh step of one
+# rank, a rematerialised step, against the plain step) part only by the
+# run-to-run rounding of the backward's atomic scatter-adds, which bf16
+# activations round up to their own epsilon: two plain bf16 steps at full
+# width part by ~8e-3 in global L2 on an H100 (two float32 ones by
+# ~6e-6).  The bound is [train]'s card-against-CPU one: other dropout
+# masks move the gradient by ~90% (the tiny CPU model), a seg term
+# without its 1 / world by ~10%.
+SAME_GRAD_L2 = 3e-2
+
+
+def _grad_l2(got: dict, want: dict) -> float:
+    """The global L2 distance of two gradient dicts, relative to
+    ``want``'s; both must hold the same parameters."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradients of {sorted(got.keys() ^ want.keys())}"
+                             f" on one side only")
+    num = sum(float((got[k] - w).double().pow(2).sum())
+              for k, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return float(np.sqrt(num / den))
+
+
+def _parallel_world_one(smi, seed: int):
+    """[parallel] part 1: a world-1 NCCL group in this process; one
+    full-width bf16 step at batch 4 through the mesh's step (synced BN,
+    gradient all-reduce, global metrics) against the plain step from the
+    same weights and batch.  Returns the mesh step's launch counts."""
+    import torch.distributed as dist
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from pvn3d_tpu_torch.parallel.multihost import initialize_distributed
+    from pvn3d_tpu_torch.train.schedule import lr_schedule
+    from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
+    from pvn3d_tpu_torch.train.step import make_train_step, to_device
+    from pvn3d_tpu_torch.utils.weights import build_model
+    store = os.path.join(PARALLEL_DIR, "store1")
+    initialize_distributed(f"file://{store}", 1, 0)
+    try:
+        # make_mesh takes a group of one rank for none (the plain step);
+        # this mesh holds the group, so the step runs every collective.
+        if make_mesh().group is not None:
+            raise AssertionError("parallel: make_mesh kept a 1-rank group")
+        mesh = Mesh(dp=1, rank=0, device=torch.device(
+            "cuda", torch.cuda.current_device()), group=dist.group.WORLD)
+        cfg = Config.ycb()
+        model = build_model(cfg.model, seed).to(mesh.device).train()
+        sd0 = _snapshot(model)
+        batch = to_device(synthetic_batch(cfg, batch_size=4, seed=seed),
+                          mesh.device)
+        steps = {"plain": make_train_step(cfg),
+                 "mesh": make_train_step(cfg, mesh=mesh)}
+        for name in steps:                                    # warm-up
+            _timed_step(steps[name], model, cfg, sd0, batch)
+        runs = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+            (m, t, sd, g), launches = _counted(
+                lambda: _timed_step(steps[name], model, cfg, sd0, batch))
+            runs[name].append((float(m["loss"]), sd, launches, t, g))
+        want = _expected_launches(fps=1, query=4, interp=4, interp_bwd=4)
+        if any(r[2] != want for r in runs["mesh"]):
+            raise AssertionError(f"parallel: mesh steps launched "
+                                 f"{[r[2] for r in runs['mesh']]}, "
+                                 f"expected {want} each")
+        (loss_p, sd_p, _, _, g_p), (loss_p2, sd_p2, _, _, g_p2) = \
+            runs["plain"][:2]
+        loss_m, sd_m, _, _, g_m = runs["mesh"][0]
+        floor = _max_diff(sd_p, sd_p2)
+        diff = _max_diff(sd_p, sd_m)
+        g_floor, g_diff = _grad_l2(g_p2, g_p), _grad_l2(g_m, g_p)
+        lr = lr_schedule(cfg.train)(0)
+        # A bias in front of a BN has a gradient of rounding noise: where
+        # the card's backward is not bit for bit run to run (atomic
+        # scatter-adds), Adam moves such an entry by up to lr either way
+        # (2 lr + 1e-6 apart: test_three_train_steps_match's bound).
+        bound = 0.0 if floor == 0.0 else 2.0 * lr + 1e-6
+        stats = _max_diff(sd_p, sd_m, running=True)
+        if (not np.isfinite(loss_m) or loss_m != loss_p or loss_p2 != loss_p
+                or diff > bound or stats != 0.0 or g_diff > SAME_GRAD_L2):
+            raise AssertionError(
+                f"parallel: world-1 mesh step: loss {loss_m!r} against "
+                f"{loss_p!r} and {loss_p2!r}, gradient {g_diff:.3g} in "
+                f"global L2 (plain against plain {g_floor:.3g}, bound "
+                f"{SAME_GRAD_L2:g}), parameters {diff:.3g} apart "
+                f"(plain against plain {floor:.3g}, bound {bound:.3g}), "
+                f"running statistics {stats:.3g} apart")
+        trace = {}
+        for name in ("plain", "mesh"):
+            model.load_state_dict(sd0)
+            state = TrainState(0, model, make_optimizer(cfg, model))
+            # One trace each, kept as it comes: after the earlier phases
+            # a trace may lose a few launches' device records (logged).
+            trace[name] = _cuda_trace(lambda: steps[name](state, batch), 1,
+                                      names=("nccl",))
+        tr = trace["mesh"]
+        ms = {k: ", ".join(f"{r[3]:.1f}" for r in v) for k, v in runs.items()}
+        log("parallel", f"world-1 NCCL group (file store), Config.ycb() "
+            f"bf16 batch 4: the mesh step's loss {loss_m!r} equals the plain "
+            f"step's bit for bit, running statistics equal bit for bit, "
+            f"gradient {g_diff:.3g} in global L2 (plain against plain "
+            f"{g_floor:.3g}), "
+            f"parameters {diff:.3g} apart (plain against plain {floor:.3g}); "
+            f"step ms mesh {ms['mesh']}, plain {ms['plain']} (in turns: "
+            f"plain, mesh, mesh, plain, plain, mesh); one mesh "
+            f"step's trace (CUDA only): device {tr['device_ms']:.2f} ms, "
+            f"NCCL kernels {tr['named']['nccl']} taking "
+            f"{tr['named_ms']['nccl']:.3f} ms "
+            f"({100 * tr['named_ms']['nccl'] / tr['device_ms']:.2f}%), "
+            f"{tr['kernels']} kernels and {tr['copies']} copies (a plain "
+            f"step's: device {trace['plain']['device_ms']:.2f} ms, "
+            f"{trace['plain']['kernels']} kernels and "
+            f"{trace['plain']['copies']} copies; device records lost "
+            f"{tr['lost']} and {trace['plain']['lost']}); launches a mesh "
+            f"step "
+            f"{runs['mesh'][0][2]} [{smi}]")
+        total = {}
+        for r in runs["mesh"]:
+            _add_counts(total, r[2])
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_rank(rank: int, world: int, seed: int) -> int:
+    """[parallel] part 2, one rank (``python3 chip_smoke.py --parallel-rank
+    R W SEED``): a data-parallel float32 step on its rows of a global
+    batch of 4, then a dp-sharded request of 4 frames; rank 0 also runs
+    the one-process step and request and compares.  Prints its record as
+    one ``[parallel-rank]`` JSON line."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.inference.pipeline import make_inference_step
+    from pvn3d_tpu_torch.parallel.mesh import (make_mesh, replicated,
+                                               shard_batch)
+    from pvn3d_tpu_torch.train.schedule import lr_schedule
+    from pvn3d_tpu_torch.train.step import make_train_step
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    torch.cuda.set_device(0)
+    # NCCL refuses two ranks on one card ("Duplicate GPU detected"); gloo
+    # takes CUDA tensors for broadcast and all_reduce (through the host),
+    # which is all the mesh's collectives use.
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(PARALLEL_DIR, 'store2')}",
+        rank=rank, world_size=world)
+    mesh = make_mesh()
+    c = Config.ycb()
+    cfg = dataclasses.replace(c, model=dataclasses.replace(
+        c.model, compute_dtype="float32", cnn=dataclasses.replace(
+            c.model.cnn, dropout_psp=0.0, dropout_up=0.0)))
+    model = build_model(cfg.model, seed).to(mesh.device).train()
+    replicated(mesh, model)
+    sd0 = _snapshot(model)
+    batch = synthetic_batch(cfg, batch_size=4, seed=seed)
+    (m, _, sd_m, grads), launches = _counted(lambda: _timed_step(
+        make_train_step(cfg, mesh=mesh), model, cfg, sd0,
+        shard_batch(mesh, batch)))
+    rec = {"rank": rank, "loss": float(m["loss"]),
+           "launches_train": launches}
+    if rank == 0:
+        plain = make_train_step(cfg)
+        floor = _timed_step(plain, model, cfg, sd0, batch)[3]
+        m1, _, sd_1, g_1 = _timed_step(plain, model, cfg, sd0, batch)
+        lr = lr_schedule(cfg.train)(0)
+        rec.update(
+            loss_1=float(m1["loss"]),
+            loss_rel=abs(rec["loss"] - float(m1["loss"]))
+            / abs(float(m1["loss"])),
+            grad_l2=_grad_l2(grads, g_1), grad_l2_plain=_grad_l2(floor, g_1),
+            params_outside=sum(int(((sd_m[k] - v).abs() > 2.0 * lr + 1e-6
+                                    + 1e-5 * v.abs()).sum())
+                               for k, v in sd_1.items()
+                               if v.is_floating_point() and "running_"
+                               not in k),
+            params_max=_max_diff(sd_m, sd_1))
+    model.load_state_dict(sd0)
+    request = synthetic_batch(cfg, batch_size=4, seed=seed + 1)
+    meshes = (stacked_mesh_kps(), stacked_class_radii())
+    out, rec["launches_serve"] = _counted(lambda: make_inference_step(
+        cfg, model, *meshes, mesh=mesh)(request))
+    if rank == 0:
+        want = make_inference_step(cfg, model, *meshes)(request)
+        rec["poses_err"] = _err(out["poses"], want["poses"])
+        rec["seg_equal"] = bool(torch.equal(out["seg"], want["seg"]))
+        rec["present_equal"] = bool(torch.equal(out["present"],
+                                                want["present"]))
+    rec["poses_shape"] = list(out["poses"].shape)
+    dist.destroy_process_group()
+    print("[parallel-rank] " + json.dumps(rec), flush=True)
+    return 0
+
+
+def _parallel_two_ranks(smi, seed: int):
+    """[parallel] part 2: two ranks spawned on this card over gloo.
+    Returns the ranks' launch counts, summed."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), "2", str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    recs = [json.loads(ln.split("[parallel-rank] ", 1)[1])
+            for out in outs for ln in out.splitlines()
+            if ln.startswith("[parallel-rank] ")]
+    if len(recs) != 2:
+        raise AssertionError(f"parallel: {len(recs)} rank records")
+    r0, r1 = sorted(recs, key=lambda r: r["rank"])
+    total = {}
+    want = _expected_launches(fps=1, query=4, interp=4, interp_bwd=4)
+    for r in (r0, r1):
+        if r["launches_train"] != want:
+            raise AssertionError(f"parallel: rank {r['rank']} step "
+                                 f"launched {r['launches_train']}")
+        if any(r["launches_serve"][k] < 1
+               for k in ("fps", "query", "interp", "winner")):
+            raise AssertionError(f"parallel: rank {r['rank']} request "
+                                 f"launched {r['launches_serve']}")
+        _add_counts(total, r["launches_train"])
+        _add_counts(total, r["launches_serve"])
+        if r["poses_shape"][0] != 4:
+            raise AssertionError(f"parallel: gathered poses {r}")
+    # float32 reduction order: two half-batch BN means against one whole
+    # (the loss within 1e-5 relative); the gradient within 3e-2 in global
+    # L2, the float32 conditioning of a batch-statistics backward that
+    # [train]'s card-against-CPU check allows (two plain steps on the card
+    # part by ~1e-2 already: atomic scatter-adds); parameters within
+    # 2 lr + 1e-6 + 1e-5 |p| (Adam moves a rounding-noise entry by lr).
+    if (r0["loss"] != r1["loss"] or r0["loss_rel"] > 1e-5
+            or r0["grad_l2"] > 3e-2 or r0["params_outside"]
+            or r0["poses_err"] > 2e-4 or not r0["seg_equal"]):
+        raise AssertionError(f"parallel: two ranks against one process: "
+                             f"{r0}; rank 1 loss {r1['loss']!r}")
+    log("parallel", f"two ranks on one card over gloo (spawned, "
+        f"{time.perf_counter() - t0:.1f} s), Config.ycb() float32, dropout "
+        f"0: each rank 2 of a global batch of 4; both ranks' loss "
+        f"{r0['loss']!r}; against the one-process batch-4 step "
+        f"{r0['loss_1']!r}: loss {r0['loss_rel']:.3g} relative, gradient "
+        f"{r0['grad_l2']:.3g} in global L2 (two plain steps "
+        f"{r0['grad_l2_plain']:.3g}), parameters {r0['params_max']:.3g}"
+        f" apart at most; dp-sharded request of 4 frames (2 a rank): poses "
+        f"{r0['poses_err']:.3g} from the unsharded request's, seg equal "
+        f"{r0['seg_equal']}, present equal {r0['present_equal']}; "
+        f"launches rank 0 step {r0['launches_train']}, request "
+        f"{r0['launches_serve']}; rank 1 step {r1['launches_train']}, "
+        f"request {r1['launches_serve']} [{smi}]")
+    return total
+
+
+def phase_parallel(smi: str, seed: int = 0) -> dict:
+    """[parallel] (see the module docstring).  Returns the launch counts
+    of its counted runs."""
+    import gc
+    import shutil
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)      # the file stores
+    os.makedirs(PARALLEL_DIR)
+    total = _parallel_world_one(smi, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add_counts(total, _parallel_two_ranks(smi, seed))
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return total
+
+
+def phase_remat(smi: str, seed: int = 0) -> dict:
+    """[remat] (see the module docstring).  Returns the launch counts of
+    its counted batch-4 steps."""
+    import dataclasses
+    import gc
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.train.schedule import lr_schedule
+    from pvn3d_tpu_torch.train.step import make_train_step, to_device
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    modes = {"off": (False, "full"), "full": (True, "full"),
+             "dots": (True, "dots")}
+    cfgs = {name: dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, remat=r, remat_policy=p)) for name, (r, p) in modes.items()}
+    model = build_model(cfg.model, seed).to(dev).train()
+    sd0 = _snapshot(model)
+    batch = to_device(synthetic_batch(cfg, batch_size=4, seed=seed), dev)
+    steps = {name: make_train_step(c) for name, c in cfgs.items()}
+    for name in steps:                                        # warm-up
+        _timed_step(steps[name], model, cfgs[name], sd0, batch)
+    runs, total = {}, {}
+    for name in ("off", "full", "dots", "off2"):
+        key = name.rstrip("2")
+        (m, t, sd, g), launches = _counted(lambda: _timed_step(
+            steps[key], model, cfgs[key], sd0, batch))
+        runs[name] = (float(m["loss"]), sd, t, launches, g)
+        if name != "off2":
+            _add_counts(total, launches)
+    loss0, sd_off, _, _, g_off = runs["off"]
+    floor = _max_diff(sd_off, runs["off2"][1])
+    g_floor = _grad_l2(runs["off2"][4], g_off)
+    lr = lr_schedule(cfg.train)(0)
+    parts = []
+    for name, loss_rtol, atol in (("full", 1e-6, 1e-6), ("dots", 3e-5, 1e-5)):
+        loss, sd, t, launches, g = runs[name]
+        g_diff = _grad_l2(g, g_off)
+        want = _expected_launches(fps=2, query=8, interp=8, interp_bwd=4)
+        if launches != want:
+            raise AssertionError(f"remat {name}: launched {launches}, "
+                                 f"expected {want}")
+        diff = _max_diff(sd_off, sd)
+        # Where the plain step is not bit for bit run to run (atomic
+        # scatter-adds in the backward), Adam moves a rounding-noise entry
+        # by up to lr either way: the bound then takes 2 lr.
+        bound = atol if floor == 0.0 else atol + 2.0 * lr + 1e-6
+        if (abs(loss - loss0) > loss_rtol * abs(loss0) or diff > bound
+                or _max_diff(sd_off, sd, running=True) != 0.0
+                or g_diff > SAME_GRAD_L2):
+            raise AssertionError(
+                f"remat {name}: loss {loss!r} against {loss0!r}, gradient "
+                f"{g_diff:.3g} in global L2 (bound {SAME_GRAD_L2:g}; plain "
+                f"against plain {g_floor:.3g}), parameters "
+                f"{diff:.3g} apart (bound {bound:.3g}; plain against plain "
+                f"{floor:.3g}), running statistics "
+                f"{_max_diff(sd_off, sd, running=True):.3g} apart")
+        rel = abs(loss - loss0) / abs(loss0)
+        parts.append(f"{name}: loss {loss!r} ({rel:.3g} relative), "
+                     f"gradient {g_diff:.3g} in global L2, "
+                     f"parameters {diff:.3g} apart, running "
+                     f"statistics equal, step {t:.1f} ms, launches "
+                     f"{launches}")
+    log("remat", f"torch {torch.__version__} (CUDA {torch.version.cuda}); "
+        f"Config.ycb() bf16 batch 4 from one state: off: loss {loss0!r}, "
+        f"step {runs['off'][2]:.1f} ms, launches {runs['off'][3]}; "
+        + "; ".join(parts) + f"; plain against plain: parameters "
+        f"{floor:.3g}, gradient {g_floor:.3g} [{smi}]")
+    # The batch-4 runs' weights and gradients would sit under the batch-24
+    # peaks.
+    del batch, runs, sd_off, g_off, sd, g
+    big = to_device(synthetic_batch(cfg, batch_size=24, seed=seed + 1), dev)
+    for name in modes:
+        for timed in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                m, t, _, _ = _timed_step(steps[name], model, cfgs[name],
+                                         sd0, big)
+            except torch.cuda.OutOfMemoryError as e:
+                model.zero_grad(set_to_none=True)
+                log("remat", f"batch 24, remat {name}: out of memory at "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                    f"({str(e).splitlines()[0][:100]})")
+                break
+            if timed:
+                if not np.isfinite(float(m["loss"])):
+                    raise AssertionError(f"remat {name}: batch 24 loss "
+                                         f"{float(m['loss'])}")
+                log("remat", f"batch 24, remat {name}: step {t:.1f} ms, "
+                    f"peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                    f"loss {float(m['loss']):.4f} [{smi}]")
+    del big, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -3539,6 +3998,8 @@ def main() -> int:
     disk_launches = phase_disk(smi)
     phase_native(smi, os.path.join(DISK_DIR, "ycb"))
     apps_launches = phase_apps(smi, slice_lat)
+    parallel_launches = phase_parallel(smi)
+    _add_counts(parallel_launches, phase_remat(smi))
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -3549,12 +4010,14 @@ def main() -> int:
         # path's three requests, one raw request with ICP in both modes,
         # the training path's three steps, three requests in each of
         # the [modes] phase's deployment modes, the [disk] phase's app
-        # runs and the [apps] phase's, each counted from 0.
+        # runs and the [apps] phase's, and the [parallel] and [remat]
+        # phases' steps and requests, each counted from 0.
         total = (launches[k.name] + eval_launches[k.name]
                  + raw_launches[k.name]
                  + icp_launches[k.name] + train_launches[k.name]
                  + modes_launches[k.name] + disk_launches[k.name]
-                 + apps_launches[k.name])
+                 + apps_launches[k.name]
+                 + parallel_launches.get(k.name, 0))
         if total < 1:
             raise AssertionError(f"{k.name}: launched on no main path")
         line.append({
@@ -3570,6 +4033,7 @@ def main() -> int:
             "launches_modes": modes_launches[k.name],
             "launches_disk": disk_launches[k.name],
             "launches_apps": apps_launches[k.name],
+            "launches_parallel": parallel_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})
@@ -3607,4 +4071,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(*map(int, sys.argv[2:5])))
     sys.exit(main())

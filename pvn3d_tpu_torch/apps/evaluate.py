@@ -22,8 +22,7 @@ against its own mesh, ``models/obj_XX.ply`` of ``--lm_root`` (with
 one).  The model runs the eval graph of ``models/pvn3d.py``: the sparse
 CNN tail at batch 1, the dense one otherwise; ``--sparse_cnn`` /
 ``--dense_cnn`` force the tail, as the JAX app's do.  It runs on the card
-unless ``--device cpu`` is given; flags whose machinery the port lacks
-exit naming their ``ROADMAP.md`` item.
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -33,8 +32,7 @@ import numpy as np
 import torch
 
 from pvn3d_tpu_torch import config as C
-from pvn3d_tpu_torch.apps.train import (base_config, check_ported,
-                                        make_dataset_factory)
+from pvn3d_tpu_torch.apps.train import base_config, make_dataset_factory
 from pvn3d_tpu_torch.inference.pipeline import accumulate_batches
 
 
@@ -109,7 +107,6 @@ def main(argv=None) -> dict:
     """Evaluate and return the summary (YCB AUCs, or LineMOD's
     0.1-diameter accuracy)."""
     args = build_argparser().parse_args(argv)
-    check_ported(args)
     if not args.torch_ckpt and not args.checkpoint_dir:
         raise SystemExit("need --checkpoint_dir or --torch_ckpt")
     if args.occ and args.dataset != "linemod":

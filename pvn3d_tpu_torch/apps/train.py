@@ -16,8 +16,17 @@ fills, samples and builds the targets (``data/device_frame.py::
 build_train_batch_device``), from a generator per (seed, step).
 ``--pretrained_trunk`` seeds the image trunk from a local torchvision
 ResNet-34 state dict (``utils/torch_convert.py``) before the first step.
-It runs on the card unless ``--device cpu`` is given.  Flags whose
-machinery the port lacks exit naming their ``ROADMAP.md`` item.
+It runs on the card unless ``--device cpu`` is given.
+
+``--distributed`` trains data-parallel over the ranks torchrun starts
+(one card each; ``--batch_size`` stays the global batch, and each rank
+builds and runs only its rows of it):
+
+  torchrun --nproc_per_node=4 -m pvn3d_tpu_torch.apps.train --distributed \\
+      --dataset ycb --data_root /path/ycb --checkpoint_dir runs/ycb
+
+Without torchrun's environment it runs in one process.  ``--remat``
+recomputes the forward in the backward (``--remat_policy full|dots``).
 """
 from __future__ import annotations
 
@@ -28,24 +37,6 @@ import functools
 
 from pvn3d_tpu_torch.config import Config
 from pvn3d_tpu_torch.train.trainer import Trainer
-
-# Flags of the JAX app whose machinery the port lacks: (flag, item).
-NOT_PORTED = {
-    "remat": "--remat / --remat_policy: rematerialisation (ROADMAP.md "
-             "queue A, item 13)",
-    "distributed": "--distributed: multi-process training (ROADMAP.md "
-                   "queue A, item 14)",
-}
-
-
-def check_ported(args) -> None:
-    """Exit naming the ``ROADMAP.md`` item of the first flag set whose
-    machinery the port lacks."""
-    for flag, msg in NOT_PORTED.items():
-        if getattr(args, flag, False) or (
-                flag == "remat" and getattr(args, "remat_policy", "")):
-            raise SystemExit(f"not ported: {msg}")
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -65,14 +56,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "depth fill, normals, sampling and GT targets on "
                         "the device (data/device_frame.py)")
     p.add_argument("--remat", action="store_true",
-                   help="not ported (ROADMAP.md queue A, item 13)")
+                   help="rematerialise the forward in the backward "
+                        "(torch.utils.checkpoint)")
     p.add_argument("--remat_policy", default="", choices=("", "full", "dots"),
-                   help="not ported (ROADMAP.md queue A, item 13)")
+                   help="what the rematerialised forward keeps: nothing "
+                        "(full, the default) or conv and matmul outputs "
+                        "(dots)")
     p.add_argument("--grad_accum", type=int, default=0,
                    help="micro-batches per optimizer step "
                         "(TrainConfig.grad_accum)")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (ROADMAP.md queue A, item 14)")
+                   help="data-parallel over torchrun's ranks (one process "
+                        "per card; single-process without torchrun)")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--file_list", default="",
@@ -113,6 +108,10 @@ def train_config(args) -> Config:
     """``base_config`` with the command line's TrainConfig overrides."""
     cfg = base_config(args.dataset, args.cls)
     overrides = {}
+    if args.remat:
+        overrides["remat"] = True
+    if args.remat_policy:
+        overrides["remat_policy"] = args.remat_policy
     if args.grad_accum > 1:
         overrides["grad_accum"] = args.grad_accum
     if args.base_lr > 0:
@@ -170,27 +169,45 @@ RAW_HOST_KEYS = ("is_syn", "do_jitter")
 
 
 class _PackedVal:
-    def __init__(self, packed_dir: str, batch_size: int):
+    """The packed shards' global batches, or a mesh rank's rows of each."""
+
+    def __init__(self, packed_dir: str, batch_size: int, mesh=None):
         self.packed_dir, self.batch_size = packed_dir, batch_size
+        self.mesh = mesh
 
     def __iter__(self):
+        import numpy as np
+
+        from pvn3d_tpu_torch.parallel.mesh import local_rows
         from pvn3d_tpu_torch.tools.preprocess_testset import \
             iter_packed_batches
-        return iter_packed_batches(self.packed_dir, self.batch_size)
+        for batch in iter_packed_batches(self.packed_dir, self.batch_size):
+            if self.mesh is not None:
+                rows = local_rows(self.mesh, len(batch["pointcloud"]))
+                batch = {k: v[rows] if isinstance(v, np.ndarray) else v
+                         for k, v in batch.items()}
+            yield batch
 
 
 def main(argv=None) -> Trainer:
     """Train and return the ``Trainer`` (its ``state`` is the last
     step's)."""
     args = build_argparser().parse_args(argv)
-    check_ported(args)
     from pvn3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from pvn3d_tpu_torch.parallel.mesh import make_mesh, replicated
+    from pvn3d_tpu_torch.parallel.multihost import initialize_distributed
     from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
     from pvn3d_tpu_torch.train.state import create_train_state, param_count
     from pvn3d_tpu_torch.train.step import make_eval_step, make_train_step
     from pvn3d_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.distributed:
+        initialize_distributed(device=dev)
+        mesh = make_mesh(device=dev)
+        dev = mesh.device
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.dp)
     cfg = train_config(args)
     batch_size = args.batch_size or cfg.train.mini_batch_size
     max_steps = args.max_steps or (
@@ -207,12 +224,16 @@ def main(argv=None) -> Trainer:
         load_resnet34_into(state.model, args.pretrained_trunk)
         print(f"seeded image trunk from {args.pretrained_trunk}",
               flush=True)
-    print(f"params: {param_count(state.model) / 1e6:.2f}M  device: {dev}  "
-          f"batch: {batch_size}", flush=True)
+    if mesh is not None:
+        replicated(mesh, state.model)
+    if rank == 0:
+        print(f"params: {param_count(state.model) / 1e6:.2f}M  device: "
+              f"{dev}  batch: {batch_size}  processes: {world}", flush=True)
 
     train_loader = DataLoader(
         make_dataset_factory(args, "train", cfg), batch_size,
-        num_workers=args.workers, seed=args.seed, steps=max_steps)
+        num_workers=args.workers, seed=args.seed, steps=max_steps,
+        rank=rank, world=world)
     # Validation always consumes host-built frames (no augmentation).
     if args.val_packed_dir:
         probe = next(iter(_PackedVal(args.val_packed_dir, batch_size)), None)
@@ -220,15 +241,16 @@ def main(argv=None) -> Trainer:
             raise SystemExit(
                 "--val_packed_dir shards lack the offset targets the val "
                 "losses need — pack with preprocess_testset --train_targets")
-        val_loader = _PackedVal(args.val_packed_dir, batch_size)
+        val_loader = _PackedVal(args.val_packed_dir, batch_size, mesh)
     else:
         val_args = copy.copy(args)
         val_args.device_preprocess = False
         val_loader = DataLoader(
             make_dataset_factory(val_args, "test", cfg), batch_size,
-            num_workers=max(args.workers // 2, 0), seed=args.seed)
+            num_workers=max(args.workers // 2, 0), seed=args.seed,
+            rank=rank, world=world)
 
-    train_step = make_train_step(cfg, dev)
+    train_step = make_train_step(cfg, dev, mesh)
     host_keys = ()
     if args.device_preprocess:
         from pvn3d_tpu_torch.data.device_frame import (
@@ -242,7 +264,7 @@ def main(argv=None) -> Trainer:
                 n_classes=cfg.model.n_classes,
                 # LineMOD never fills depth (linemod_dataset.py get_item)
                 fill=args.dataset == "ycb" and not args.no_fill_depth,
-                dataset=args.dataset)
+                dataset=args.dataset, rank=rank, world=world)
             return _base(state, batch, seed)
 
         train_step = train_step_raw
@@ -250,7 +272,7 @@ def main(argv=None) -> Trainer:
     trainer = Trainer(cfg, state, train_step, make_eval_step(cfg, dev),
                       checkpoint_manager=CheckpointManager(
                           args.checkpoint_dir),
-                      log_every=args.log_every)
+                      log_every=args.log_every, mesh=mesh)
     trainer.resume()
     trainer.fit(prefetch_to_device(iter(train_loader), dev,
                                    host_keys=host_keys),

@@ -211,7 +211,8 @@ def build_train_batch_device(raw: Dict, generator: torch.Generator,
                              n_sample: int, n_classes: int,
                              fill: bool = True,
                              dataset: str = "ycb", augment: bool = True,
-                             priorities: Optional[torch.Tensor] = None
+                             priorities: Optional[torch.Tensor] = None,
+                             rank: int = 0, world: int = 1
                              ) -> Dict[str, torch.Tensor]:
     """A training batch from raw frames, on the device ``raw["depth"]``
     lies on.
@@ -222,13 +223,19 @@ def build_train_batch_device(raw: Dict, generator: torch.Generator,
     host arrays (a tensor is read to the host).  LineMOD frames take the BGR
     flip after the jitter.  ``priorities`` (B, H*W) replace the drawn
     ones (tests pass the JAX package's).  Returns the host build's sample
-    fields: pointcloud, rgb, choose, labels and the targets."""
+    fields: pointcloud, rgb, choose, labels and the targets.
+
+    ``raw`` may be rank ``rank``'s rows of a global batch of ``world``
+    such: the generator then draws every frame's records of the global
+    batch (scalars) and this rank keeps its own, so the ranks' rows
+    together are the one-process build of the global batch."""
     depth = raw["depth"]
     dev = depth.device
     b, h, w = depth.shape
     is_syn = _host_bools(raw["is_syn"])
     do_jitter = _host_bools(raw.get("do_jitter", np.ones(b, bool)))
-    frames = [draw_train_frame(generator, dataset) for _ in range(b)]
+    frames = [draw_train_frame(generator, dataset)
+              for _ in range(b * world)][rank * b:(rank + 1) * b]
     rgbs, depths = [], []
     for i in range(b):
         rgb_i = raw["rgb"][i].float()

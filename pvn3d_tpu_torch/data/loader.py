@@ -24,16 +24,24 @@ import torch
 from pvn3d_tpu_torch.data.frame import collate
 
 _WORKER_DS = None
+# Seeds of different ranks' workers lie this far apart.
+RANK_STRIDE = 1 << 16
 
 
-def _init_worker(dataset_factory, seed):
+def worker_seed(seed: int, rank: int, wid: int) -> int:
+    """The augmentation stream of worker ``wid`` (0: the parent) of rank
+    ``rank``: ``seed + wid`` on rank 0, so ranks and workers draw apart."""
+    return seed + wid + RANK_STRIDE * rank
+
+
+def _init_worker(dataset_factory, seed, rank):
     global _WORKER_DS
     torch.set_num_threads(1)
     _WORKER_DS = dataset_factory()
-    # Decorrelate augmentation streams across workers.
+    # Decorrelate augmentation streams across workers and ranks.
     ident = mp.current_process()._identity
     wid = ident[0] if ident else 0
-    _WORKER_DS.rng = np.random.RandomState(seed + wid)
+    _WORKER_DS.rng = np.random.RandomState(worker_seed(seed, rank, wid))
 
 
 def _fetch(idx):
@@ -46,58 +54,105 @@ class DataLoader:
     ``dataset_factory`` must be picklable (a top-level class or a
     ``functools.partial`` of one) so each worker can build its own
     dataset.  With ``num_workers=0`` everything runs inline.
+
+    ``batch_size`` is the global batch.  Rank ``rank`` of ``world`` builds
+    only its rows of each: tickets ``[i*B + r*b, i*B + (r+1)*b)`` with
+    ``b = B / world``, and yields batches of ``b``; its workers (and, on a
+    rank above 0, its inline dataset) draw from ``worker_seed``.
     """
 
     def __init__(self, dataset_factory, batch_size: int,
                  num_workers: int = 0, seed: int = 0,
-                 steps: Optional[int] = None):
+                 steps: Optional[int] = None, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{world} processes")
         self.factory = dataset_factory
         self.batch_size = batch_size
+        self.local = batch_size // world
+        self.rank = rank
         self.num_workers = num_workers
         self.seed = seed
         # Epoch mode (steps=None): the final n % batch_size samples are
         # padded by repeating the last sample to keep one batch shape; the
         # batch carries "_n_valid" (a plain int) so consumers score only
-        # the real frames.  Training mode never produces a partial batch
-        # (the ticket stream is steps * batch_size long).
+        # the real frames.  Training mode (steps) yields exactly ``steps``
+        # full batches: a sample the dataset skips (None) is made up from
+        # further tickets, so every rank runs the same number of steps.
         self.steps = steps
 
-    def _indices(self, n: int) -> Iterator[int]:
-        if self.steps is not None:
-            # Training stream: the index is only a ticket — train-mode
-            # datasets sample their own item per call (the reference's
-            # real/syn generators, ycb_dataset.py:64-73).
-            for i in range(self.steps * self.batch_size):
-                yield i % n
-        else:
-            yield from range(n)
+    def _tickets(self, rounds: range, n: int) -> Iterator[int]:
+        """This rank's rows of the global batches ``rounds``.  Training
+        stream: the index is only a ticket -- train-mode datasets sample
+        their own item per call (the reference's real/syn generators,
+        ycb_dataset.py:64-73).  Epoch stream: rows past the end repeat the
+        last sample."""
+        b, lo, B = self.local, self.rank * self.local, self.batch_size
+        for i in rounds:
+            for j in range(i * B + lo, i * B + lo + b):
+                yield j % n if self.steps is not None else min(j, n - 1)
 
     def __iter__(self):
         ds = self.factory()
         n = len(ds)
-        idx_stream = self._indices(n)
         pool = None
         if self.num_workers <= 0:
-            sample_stream = (ds[i] for i in idx_stream)
+            if self.rank:
+                ds.rng = np.random.RandomState(
+                    worker_seed(self.seed, self.rank, 0))
+
+            def samples(tickets):
+                return (ds[i] for i in tickets)
         else:
             pool = mp.get_context("spawn").Pool(
-                self.num_workers, _init_worker, (self.factory, self.seed))
-            sample_stream = pool.imap(_fetch, idx_stream)
+                self.num_workers, _init_worker,
+                (self.factory, self.seed, self.rank))
+
+            def samples(tickets):
+                return pool.imap(_fetch, tickets)
         try:
             batch = []
-            for sample in sample_stream:
-                if sample is None:
-                    continue
-                batch.append(sample)
-                if len(batch) == self.batch_size:
-                    yield collate(batch)
-                    batch = []
-            if batch and self.steps is None:
-                n_valid = len(batch)
-                batch += [batch[-1]] * (self.batch_size - n_valid)
-                out = collate(batch)
-                out["_n_valid"] = n_valid
-                yield out
+            if self.steps is None:
+                rounds = -(-n // self.batch_size)
+                if self.local == self.batch_size:
+                    tickets = iter(range(n))
+                else:
+                    tickets = self._tickets(range(rounds), n)
+                for sample in samples(tickets):
+                    if sample is None:
+                        continue
+                    batch.append(sample)
+                    if len(batch) == self.local:
+                        yield collate(batch)
+                        batch = []
+                if batch:
+                    n_valid = len(batch)
+                    batch += [batch[-1]] * (self.local - n_valid)
+                    out = collate(batch)
+                    out["_n_valid"] = n_valid
+                    yield out
+                return
+            made, start = 0, 0
+            while made < self.steps:
+                # The global batches still missing, then as many more as
+                # skipped samples leave missing.
+                need = self.steps - made
+                drawn = 0
+                for sample in samples(self._tickets(
+                        range(start, start + need), n)):
+                    if sample is None:
+                        continue
+                    drawn += 1
+                    batch.append(sample)
+                    if len(batch) == self.local:
+                        yield collate(batch)
+                        batch = []
+                        made += 1
+                start += need
+                if not drawn:
+                    raise RuntimeError(
+                        f"the dataset returned no sample for "
+                        f"{need * self.local} tickets")
         finally:
             # Consumers may break out early (--max_frames): terminate so
             # the pool stops building the rest of the index stream.

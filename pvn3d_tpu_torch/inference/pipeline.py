@@ -9,7 +9,9 @@ post-refinement ``make_icp_step`` / ``make_icp_refine_fn`` (reference:
 eval_icp.py).  The JAX step is one jitted XLA program; here it runs
 eagerly in ``torch.inference_mode`` on one device, frame by frame for the
 pose stage and the ICP scenes, with every frame's ICP problems refined in
-one batch.
+one batch.  Under a data-parallel mesh (``parallel/mesh.py``) both
+serving steps run each rank's rows of the request and gather the global
+result on every rank, as the JAX step does on a dp-sharded batch.
 """
 from __future__ import annotations
 
@@ -19,13 +21,16 @@ import numpy as np
 import torch
 
 from pvn3d_tpu_torch.config import Config
-from pvn3d_tpu_torch.data.device_frame import build_inference_batch_device
+from pvn3d_tpu_torch.data.device_frame import (build_inference_batch_device,
+                                               draw_priorities)
 from pvn3d_tpu_torch.inference.evaluator import (PoseEvaluator,
                                                  eval_frame_metrics)
 from pvn3d_tpu_torch.inference.icp import (fullres_class_clouds,
                                            refine_frame_poses)
 from pvn3d_tpu_torch.inference.pose import (FramePoses, _select_class_points,
                                             cal_frame_poses)
+from pvn3d_tpu_torch.parallel.mesh import (Mesh, gather, local_rows,
+                                           shard_batch)
 from pvn3d_tpu_torch.utils.device import disable_tf32, resolve_device
 
 
@@ -69,8 +74,9 @@ def _make_serve(cfg: Config, model: torch.nn.Module, mesh_kps, radii,
         pts = torch.as_tensor(mesh_pts, dtype=torch.float32, device=dev)
         valid = torch.as_tensor(mesh_valid, device=dev).bool()
 
-    def serve(pointcloud, rgb, choose, batch) -> Dict[str, torch.Tensor]:
-        out = model(pointcloud, rgb, choose)
+    def serve(pointcloud, rgb, choose, batch,
+              global_batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        out = model(pointcloud, rgb, choose, global_batch=global_batch)
         seg = torch.argmax(out["seg_logits"], dim=-1).to(torch.int32)
         frame = pose_fn(pointcloud[..., :3], seg, out["ctr_offsets"],
                         out["kp_offsets"])
@@ -89,7 +95,8 @@ def make_inference_step(cfg: Config, model: torch.nn.Module,
                         mesh_pts: Optional[np.ndarray] = None,
                         mesh_valid: Optional[np.ndarray] = None,
                         refine_mask: Optional[bool] = None,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda",
+                        mesh: Optional[Mesh] = None):
     """Full serving step: ``step(batch) -> {poses, present, kps, seg}``.
 
     ``batch`` holds ``pointcloud`` (B, N, 9), ``rgb`` (B, H, W, 3) and
@@ -101,15 +108,24 @@ def make_inference_step(cfg: Config, model: torch.nn.Module,
     the card unless ``device="cpu"`` is asked for, and raises when CUDA is
     asked for and missing.  TF32 is switched off for convs and matmuls so
     float32 means float32 (``utils.device.disable_tf32``).
+
+    With a ``mesh``, every rank calls ``step`` on the same global batch,
+    runs its rows (``shard_batch``; the CNN tail is chosen on the global
+    batch) and returns the global result (``gather``).
     """
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
 
     @torch.inference_mode()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        return serve(torch.as_tensor(batch["pointcloud"], device=dev).float(),
-                     torch.as_tensor(batch["rgb"], device=dev).float(),
-                     torch.as_tensor(batch["choose"], device=dev), batch)
+        n = None
+        if mesh is not None:
+            n = len(batch["pointcloud"])
+            batch = shard_batch(mesh, batch)
+        out = serve(torch.as_tensor(batch["pointcloud"], device=dev).float(),
+                    torch.as_tensor(batch["rgb"], device=dev).float(),
+                    torch.as_tensor(batch["choose"], device=dev), batch, n)
+        return out if mesh is None else gather(mesh, out)
 
     return step
 
@@ -120,7 +136,8 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
                             mesh_valid: Optional[np.ndarray] = None,
                             fill_depth: bool = True, cam_scale: float = 1.0,
                             refine_mask: Optional[bool] = None,
-                            device: str | torch.device = "cuda"):
+                            device: str | torch.device = "cuda",
+                            mesh: Optional[Mesh] = None):
     """Sensor-to-pose step: ``step(batch, generator=None, priorities=None)``
     with ``batch`` holding ``rgb`` (B, H, W, 3) 0-255, ``depth`` (B, H, W)
     in native units (``cam_scale`` per metre) and ``cam_k`` (B, 3, 3).
@@ -133,6 +150,10 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
     seg, choose, pointcloud and depth_m, and add / adds when meshes are
     given and the batch holds GT slots.  Runs on the card unless
     ``device="cpu"``; raises when CUDA is asked for and missing.
+
+    With a ``mesh``, as ``make_inference_step``: the global
+    ``priorities`` (drawn for the global batch when not given) are
+    sharded with the batch.
     """
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
@@ -142,6 +163,13 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
     def step(batch: Dict, generator: Optional[torch.Generator] = None,
              priorities: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
+        n = None
+        if mesh is not None:
+            n, h, w = batch["depth"].shape
+            if priorities is None:
+                priorities = draw_priorities((n, h * w), dev, generator)
+            priorities = torch.as_tensor(priorities)[local_rows(mesh, n)]
+            batch = shard_batch(mesh, batch)
         rgb = torch.as_tensor(batch["rgb"], device=dev).float()
         built = build_inference_batch_device(
             rgb, torch.as_tensor(batch["depth"], device=dev),
@@ -149,9 +177,9 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
             cam_scale=cam_scale, fill=fill_depth, generator=generator,
             priorities=(None if priorities is None
                         else torch.as_tensor(priorities, device=dev)))
-        result = serve(built["pointcloud"], rgb, built["choose"], batch)
+        result = serve(built["pointcloud"], rgb, built["choose"], batch, n)
         result.update(built)
-        return result
+        return result if mesh is None else gather(mesh, result)
 
     return step
 

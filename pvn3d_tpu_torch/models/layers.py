@@ -21,8 +21,11 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from pvn3d_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -38,20 +41,40 @@ class BatchNorm(nn.BatchNorm2d):
     ``running <- (1 - m) * running + m * batch``, the running variance
     unbiased by ``n / (n - 1)``.  Plain tensor code, so autograd
     differentiates it; the buffers are updated in place outside the graph.
+
+    ``process_group`` (set by the train step under a data-parallel mesh)
+    makes the statistics global, as JAX's batch-axis mean over a
+    dp-sharded batch is: every rank's ``E[x]`` and ``E[x^2]``, weighted by
+    1 / world (ranks hold equal rows), are summed over the group in one
+    all-reduce that autograd differentiates, and ``n`` is the global
+    count.  At world 1 the weight is 1.0 and the result is bit for bit the
+    local one.  ``update_running`` False (a rematerialised forward) leaves
+    the running statistics where the first forward put them.
     """
+
+    process_group = None
+    update_running = True
 
     def _statistics(self, x: torch.Tensor, axes, momentum):
         if not self.training:
             return self.running_mean, self.running_var
         xf = x.float()
         mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-        with torch.no_grad():
-            n = x.numel() // mean.numel()
-            m = float(momentum)
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(
-                m * (var * (n / max(n - 1, 1))))
+        meansq = (xf * xf).mean(dim=axes)
+        n = x.numel() // mean.numel()
+        if self.process_group is not None:
+            world = dist.get_world_size(self.process_group)
+            mean, meansq = all_reduce_sum(
+                torch.stack([mean, meansq]) * (1.0 / world),
+                self.process_group).unbind()
+            n *= world
+        var = torch.clamp(meansq - mean * mean, min=0.0)
+        if self.update_running:
+            with torch.no_grad():
+                m = float(momentum)
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(
+                    m * (var * (n / max(n - 1, 1))))
         return mean, var
 
     def forward(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:

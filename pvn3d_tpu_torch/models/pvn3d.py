@@ -187,11 +187,15 @@ class PVN3D(nn.Module):
 
     def forward(self, pointcloud: torch.Tensor, rgb: torch.Tensor,
                 choose: torch.Tensor, bn_momentum=0.1,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                global_batch: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
+        """``global_batch``: the frames of the whole batch when these are
+        one rank's rows of it; the CNN tail is chosen on it, as JAX
+        chooses on the global shape."""
         cfg = self.cfg
         b, n, _ = pointcloud.shape
-        if self.uses_sparse_tail(b):
+        if self.uses_sparse_tail(global_batch or b):
             rgb_emb, rgb_seg = self.cnn.model(rgb.to(self.dtype), bn_momentum,
                                               generator, choose=choose)
         else:

@@ -4,7 +4,9 @@ Port of the JAX package's ``train/trainer.py`` (the reference Trainer,
 train_ycb_pvn3d.py:216-409): the step owns all scheduling (LR and BN
 momentum are functions of the step count), the loop feeds batches, logs
 interval means (CmdLineViz semantics, etw_pytorch_utils/viz.py:151-184)
-and checkpoints on the reference's eval cadence.
+and checkpoints on the reference's eval cadence.  Under a data-parallel
+mesh every rank runs the loop on its rows; rank 0 alone logs and saves
+while the others wait at a barrier.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from pvn3d_tpu_torch.config import Config
+from pvn3d_tpu_torch.parallel.mesh import Mesh
 from pvn3d_tpu_torch.train.state import TrainState
+from pvn3d_tpu_torch.train.step import global_metrics
 
 
 def eval_frequency(it: int) -> int:
@@ -40,8 +44,9 @@ class MeterLogger:
     transfer per log interval.
     """
 
-    def __init__(self, prefix: str = "train"):
+    def __init__(self, prefix: str = "train", printing: bool = True):
         self.prefix = prefix
+        self.printing = printing
         self.buf = collections.defaultdict(list)
         self.t0 = time.time()
 
@@ -62,7 +67,8 @@ class MeterLogger:
             means = dict(zip(keys, rows.tolist()))
             dt = time.time() - self.t0
             msg = "  ".join(f"{k}={v:.4f}" for k, v in sorted(means.items()))
-            print(f"[{self.prefix} it={it} {dt:.1f}s] {msg}", flush=True)
+            if self.printing:
+                print(f"[{self.prefix} it={it} {dt:.1f}s] {msg}", flush=True)
         self.buf.clear()
         self.t0 = time.time()
         return means
@@ -70,12 +76,15 @@ class MeterLogger:
 
 class Trainer:
     """``train_step`` / ``eval_step`` are what ``train.step.make_train_step``
-    / ``make_eval_step`` return; they move each batch to their device."""
+    / ``make_eval_step`` return; they move each batch to their device.
+    With a ``mesh`` whose group exists, every rank runs ``fit`` on its own
+    rows: ``train_step`` must be the mesh's, the validation means are the
+    global batches', and rank 0 alone prints and writes checkpoints."""
 
     def __init__(self, cfg: Config, state: TrainState, train_step: Callable,
                  eval_step: Optional[Callable] = None,
                  checkpoint_manager=None, seed: Optional[int] = None,
-                 log_every: int = 50):
+                 log_every: int = 50, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.state = state
         self.train_step = train_step
@@ -83,33 +92,52 @@ class Trainer:
         self.ckpt = checkpoint_manager
         self.seed = cfg.train.seed if seed is None else seed
         self.log_every = log_every
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.group
+        self.lead = mesh is None or mesh.rank == 0
 
     def resume(self) -> int:
-        """Restore the latest checkpoint if one exists; returns the step."""
+        """Restore the latest checkpoint if one exists (every rank loads
+        the same file); returns the step."""
         if self.ckpt is not None:
             restored = self.ckpt.restore(self.state)
             if restored is not None:
                 self.state = restored
-                print(f"resumed from step {self.state.step}", flush=True)
+                if self.lead:
+                    print(f"resumed from step {self.state.step}", flush=True)
         return self.state.step
 
+    def _save(self, it: int, val_loss=None) -> None:
+        if self.lead:
+            self.ckpt.save(it, self.state, val_loss=val_loss)
+        if self.group is not None:
+            torch.distributed.barrier(group=self.group)
+
     def eval_epoch(self, val_batches: Iterable) -> Dict[str, float]:
-        """Mean val losses (reference: Trainer.eval_epoch, :261-290)."""
-        logger = MeterLogger("val")
-        count = 0
+        """Mean val losses (reference: Trainer.eval_epoch, :261-290).
+        Under a mesh each rank sums its batches' metrics and the sums and
+        counts are all-reduced (``global_metrics``): the mean over the
+        global batches, whatever number of batches each rank had."""
+        logger = MeterLogger("val", printing=self.lead)
+        count, sums = 0, {}
         for batch in val_batches:
             # A padded final batch's duplicate frames weigh the interval
             # mean slightly; dropping them would bias it more.
             _, metrics = self.eval_step(self.state, batch)
-            logger.update(metrics)
+            if self.group is None:
+                logger.update(metrics)
+            else:
+                sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
             count += 1
+        if self.group is not None:
+            logger.update(global_metrics(self.cfg, self.mesh, sums, count))
         means = logger.flush(self.state.step)
         means["n_batches"] = count
         return means
 
     def fit(self, train_batches: Iterable, val_batches_fn=None,
             max_steps: Optional[int] = None) -> None:
-        logger = MeterLogger("train")
+        logger = MeterLogger("train", printing=self.lead)
         it = self.state.step
         for batch in train_batches:
             self.state, metrics = self.train_step(self.state, batch,
@@ -124,10 +152,10 @@ class Trainer:
                     val = self.eval_epoch(val_batches_fn())
                     val_loss = val.get("loss")
                 if self.ckpt is not None:
-                    self.ckpt.save(it, self.state, val_loss=val_loss)
+                    self._save(it, val_loss)
             if max_steps is not None and it >= max_steps:
                 break
         logger.flush(it)
         if self.ckpt is not None:
-            self.ckpt.save(it, self.state)
+            self._save(it)
             self.ckpt.wait()

@@ -36,9 +36,15 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    """The package, ``chip_smoke.py`` and the data-parallel tests' worker
+    (whose ranks run the port alone)."""
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pvn3d_tpu"}
+    paths = list(_port_sources()) + [
+        os.path.join(ROOT, "tests", "_torch_parallel_worker.py")]
+    for mod in ("__init__.py", "mesh.py", "multihost.py"):
+        assert os.path.join(ROOT, "pvn3d_tpu_torch", "parallel", mod) in paths
     seen = 0
-    for path in _port_sources():
+    for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -338,30 +344,6 @@ def test_apps_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--data_root", str(tmp_path), "--checkpoint_dir",
                        str(tmp_path), "--device", "cuda"])
-
-
-@pytest.mark.parametrize("app,flags,item", [
-    ("train", ["--distributed"], "item 14"),
-    ("train", ["--remat"], "item 13"),
-    ("train", ["--remat_policy", "dots"], "item 13")])
-def test_unported_flags_exit_naming_their_roadmap_item(app, flags, item,
-                                                       tmp_path):
-    """A JAX app flag whose machinery the port lacks exits before any
-    work, naming its ROADMAP.md item, instead of being ignored."""
-    from pvn3d_tpu_torch.apps import evaluate, train
-    main = train.main if app == "train" else evaluate.main
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue A, {item}\\)"):
-        main(["--data_root", str(tmp_path), "--checkpoint_dir",
-              str(tmp_path), "--device", "cpu"] + flags)
-
-
-def test_not_ported_holds_only_the_missing_machinery():
-    """``--occ`` (Occlusion-LineMOD), ``--pretrained_trunk`` (the
-    torchvision trunk) and ``--sparse_cnn`` (the eval restructures) are
-    ported; the apps refuse only the flags whose machinery is still
-    missing."""
-    from pvn3d_tpu_torch.apps import train
-    assert sorted(train.NOT_PORTED) == ["distributed", "remat"]
 
 
 @pytest.fixture(scope="module")

@@ -377,34 +377,48 @@ def test_eval_graph_backward_matches_jax(sides, batch_size, seed):
     _hold_eval_backward(jcfg, pcfg, variables, batch, model, None)
 
 
-def test_one_gradient_matches(sides):
-    jcfg, pcfg, variables, port_sd, batch = sides
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+def jax_train_gradient(jcfg, variables, batch, bn_momentum=0.9, mesh=None,
+                       remat_policy=None):
+    """JAX's training-mode loss, metrics, gradient and moved batch
+    statistics at ``variables`` (one train step's, before the update):
+    on the whole batch, or with ``mesh`` on a batch sharded over it; with
+    ``remat_policy`` the forward goes through ``jax.checkpoint`` under
+    that policy, as the JAX step's ``remat`` does."""
+    from pvn3d_tpu.parallel.mesh import replicated, shard_batch
+    from pvn3d_tpu.train.step import _remat_policy
     jmodel = JaxPVN3D(cfg=jcfg.model, train=True)
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
 
-    def loss_fn(params):
-        out, mut = jmodel.apply(
-            {"params": params, "batch_stats": stats}, jb["pointcloud"],
-            jb["rgb"], jb["choose"], 0.9, mutable=["batch_stats"],
+    def forward(params, pc, im, ch):
+        return jmodel.apply(
+            {"params": params, "batch_stats": stats}, pc, im, ch,
+            bn_momentum, mutable=["batch_stats"],
             rngs={"dropout": jax.random.PRNGKey(0)})
+    if remat_policy is not None:
+        forward = jax.checkpoint(forward,
+                                 policy=_remat_policy(remat_policy))
+
+    def loss_fn(params, jb):
+        out, mut = forward(params, jb["pointcloud"], jb["rgb"],
+                           jb["choose"])
         m = jax_compute_losses(jcfg, out, jb)
         return m["loss"], (mut["batch_stats"], m)
-    (_, (want_stats, want_m)), want_g = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(
-            jax.tree_util.tree_map(jnp.asarray, variables["params"]))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    if mesh is None:
+        (_, (st, m)), g = fn(params, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+    else:
+        with mesh:
+            (_, (st, m)), g = fn(jax.device_put(params, replicated(mesh)),
+                                 shard_batch(mesh, batch))
+    return m, _leaves(g), _leaves(st)
 
-    model = _port_model(pcfg, port_sd)
-    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
-    out = model(tb["pointcloud"], tb["rgb"], tb["choose"], 0.9)
-    m = compute_losses(pcfg, out, tb)
-    m["loss"].backward()
-    for k in ("loss", "loss_seg", "loss_kp", "loss_ctr", "acc_rgbd"):
-        np.testing.assert_allclose(float(m[k].detach()), float(want_m[k]),
-                                   rtol=1e-5, err_msg=k)
 
+def hold_train_gradient(model, want_g, want_s):
+    """``model``'s parameter gradients (its ``.grad``) and running
+    statistics against JAX's (``jax_train_gradient``)."""
     got_g = _port_grad_tree(model)
-    want_g = _leaves(want_g)
     assert set(got_g) == set(want_g)
     # A bias in front of a BN (the JAX heads' hidden Dense biases, which
     # the port does not have, and the upsample convs' biases) has an exact
@@ -432,13 +446,27 @@ def test_one_gradient_matches(sides):
                 <= 0.2 * np.linalg.norm(w) + 1e-5), key
 
     got_s = _leaves(to_jax_variables(model.state_dict())["batch_stats"])
-    want_s = _leaves(want_stats)
     # Forward rounding grows ~10x per branch (a 1e-6 input change moves
     # the outputs by 1e-5), so the deepest BN's batch variance agrees to
     # ~5e-5 relative, not to float32 epsilon.
     for key, w in want_s.items():
         np.testing.assert_allclose(got_s[key], w, rtol=2e-4, atol=1e-5,
                                    err_msg=key)
+
+
+def test_one_gradient_matches(sides):
+    jcfg, pcfg, variables, port_sd, batch = sides
+    want_m, want_g, want_s = jax_train_gradient(jcfg, variables, batch)
+
+    model = _port_model(pcfg, port_sd)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    out = model(tb["pointcloud"], tb["rgb"], tb["choose"], 0.9)
+    m = compute_losses(pcfg, out, tb)
+    m["loss"].backward()
+    for k in ("loss", "loss_seg", "loss_kp", "loss_ctr", "acc_rgbd"):
+        np.testing.assert_allclose(float(m[k].detach()), float(want_m[k]),
+                                   rtol=1e-5, err_msg=k)
+    hold_train_gradient(model, want_g, want_s)
 
 
 def test_three_train_steps_match(sides):
@@ -567,9 +595,117 @@ def test_grad_accum_rejects_indivisible_batch():
                                     synthetic_batch(cfg, batch_size=2))
 
 
-def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(_tiny_cfg(remat=True), "cpu")
+def _with_train(cfg, **kw):
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                              **kw))
+
+
+@pytest.mark.parametrize("policy,loss_rtol,param_atol", [
+    ("full", 1e-6, 1e-6), ("dots", 3e-5, 1e-5)])
+def test_remat_matches_the_plain_step_and_jax_remat(sides, policy,
+                                                    loss_rtol, param_atol):
+    """A rematerialised step against the port's plain step (JAX's
+    ``test_remat_matches_no_remat`` tolerances; the gradients equal bit
+    for bit; the running statistics equal, so the recompute moved them no
+    second time) and against JAX's ``remat`` gradient under the same
+    policy (``test_one_gradient_matches``' tolerances)."""
+    jcfg, pcfg, variables, port_sd, batch = sides
+    runs = []
+    for remat in (False, True):
+        cfg = _with_train(pcfg, remat=remat, remat_policy=policy)
+        model = _port_model(cfg, port_sd)
+        state = TrainState(0, model, make_optimizer(cfg, model))
+        _, m = make_train_step(cfg, "cpu")(state, batch, 0)
+        runs.append((float(m["loss"]), model.state_dict(),
+                     {k: p.grad for k, p in model.named_parameters()}))
+    (loss0, sd0, g0), (loss1, sd1, g1) = runs
+    np.testing.assert_allclose(loss1, loss0, rtol=loss_rtol)
+    for k, g in g0.items():
+        assert (g is None and g1[k] is None) or torch.equal(g1[k], g), k
+    for k, v in sd0.items():
+        if "running_" in k:
+            assert torch.equal(sd1[k], v), k
+            assert not torch.equal(v, port_sd[k]), k
+        else:
+            np.testing.assert_allclose(sd1[k].numpy(), v.numpy(),
+                                       atol=param_atol, err_msg=k)
+
+    # JAX's remat gradient: the loss, every gradient and the moved
+    # statistics, at test_one_gradient_matches' tolerances.
+    want_m, want_g, want_s = jax_train_gradient(
+        jcfg, variables, batch, schedule.bn_momentum_at(0, pcfg.train),
+        remat_policy=policy)
+    np.testing.assert_allclose(loss1, float(want_m["loss"]), rtol=1e-5)
+    hold_train_gradient(model, want_g, want_s)
+
+
+def test_remat_replays_the_dropout_masks():
+    """With dropout on, the recompute draws the first forward's masks
+    (the dropout generator is set back; checkpoint replays only the
+    default generators), so the gradients equal the plain step's; another
+    seed's masks give other gradients."""
+    cfg = _tiny_cfg()
+    assert cfg.model.cnn.dropout_psp > 0 and cfg.model.cnn.dropout_up > 0
+    batch = synthetic_batch(cfg, batch_size=2, seed=0)
+
+    def grads(c, seed=0):
+        state = create_train_state(c, 0, "cpu")
+        make_train_step(c, "cpu")(state, batch, seed)
+        return {k: p.grad for k, p in state.model.named_parameters()
+                if p.grad is not None}
+    want = grads(cfg)
+    for policy in ("full", "dots"):
+        got = grads(_with_train(cfg, remat=True, remat_policy=policy))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (policy, k)
+    other = grads(cfg, seed=1)
+    assert not torch.equal(other["cnn.model.final.0.weight"],
+                           want["cnn.model.final.0.weight"])
+
+
+def test_dots_saves_exactly_the_conv_and_matmul_outputs(monkeypatch):
+    """The "dots" policy marks MUST_SAVE exactly the forward's conv and
+    matmul ops (JAX's dot_general + conv_general_dilated), counted
+    through the policy against the ops a plain forward dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.checkpoint import CheckpointPolicy
+    from pvn3d_tpu_torch.train import step as step_mod
+    dots = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+    seen, real = [], step_mod.dots_policy
+
+    def recording(ctx, op, *args, **kwargs):
+        decision = real(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            seen.append((op, decision))
+        return decision
+    monkeypatch.setattr(step_mod, "dots_policy", recording)
+    cfg = _no_dropout(_tiny_cfg(remat=True, remat_policy="dots"))
+    batch = synthetic_batch(cfg, batch_size=2, seed=0)
+    state = create_train_state(cfg, 0, "cpu")
+    make_train_step(cfg, "cpu")(state, batch)
+    saved = [op for op, d in seen if d == CheckpointPolicy.MUST_SAVE]
+    assert saved and all(op in dots for op in saved)
+    assert all(d == CheckpointPolicy.PREFER_RECOMPUTE
+               for op, d in seen if op not in dots)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += func in dots
+            return func(*args, **(kwargs or {}))
+    model = create_train_state(cfg, 0, "cpu").model
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with Count():
+        model(tb["pointcloud"], tb["rgb"], tb["choose"], 0.9)
+    assert len(saved) == Count.n, (len(saved), Count.n)
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="unknown remat_policy 'convs'"):
+        make_train_step(_tiny_cfg(remat=True, remat_policy="convs"), "cpu")
 
 
 def test_weight_decay_is_coupled_l2():
