@@ -17,7 +17,11 @@ holds about one request's time plus the next submission's.
 ``--source dir`` reads <stem>-color.png / <stem>-depth.png pairs (YCB
 layout); ``--source synthetic`` serves the procedural sensor frame
 (``data.synthetic.synth_sensor_frame``).  ``--out poses.jsonl`` writes one
-JSON record per frame.  The service runs on the card unless
+JSON record per frame.  ``--trace_dir DIR`` then serves ``--trace_frames``
+more frames, each read back before the next, under the profiler
+(``utils.profiling.trace``) and writes their Chrome trace into DIR: the
+port's ``pvn3d.*`` spans (a request, its stages, its blocking reads) with
+the kernels each launched.  The service runs on the card unless
 ``--device cpu`` is given.  The last line of standard output is one JSON
 object: frames a second, latency percentiles in ms, and the device.
 """
@@ -59,6 +63,10 @@ def build_argparser():
     p.add_argument("--no_fill_depth", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
+    p.add_argument("--trace_dir", default="",
+                   help="write a Chrome trace of --trace_frames more frames "
+                        "here, after the timed ones")
+    p.add_argument("--trace_frames", type=int, default=5)
     return p
 
 
@@ -171,6 +179,14 @@ def main(argv=None, cfg: Optional[Config] = None) -> dict:
 
     lat_ms = np.asarray(sorted(lat)) * 1e3
     wall = time.perf_counter() - (t_start or time.perf_counter())
+    if args.trace_dir:
+        from pvn3d_tpu_torch.utils.profiling import trace
+        with trace(args.trace_dir):
+            for i in range(total, total + args.trace_frames):
+                rgb, depth, k = next(src)
+                step({"rgb": rgb[None], "depth": depth[None],
+                      "cam_k": k[None]},
+                     generator=frame_generator(i, dev))["poses"].cpu()
     record = {
         "metric": "serving_fps",
         "value": args.frames / wall if wall > 0 else 0.0,

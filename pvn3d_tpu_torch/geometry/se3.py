@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from pvn3d_tpu_torch.utils.profiling import annotate
+
 
 def best_fit_transform(src: torch.Tensor, dst: torch.Tensor,
                        weights: Optional[torch.Tensor] = None
@@ -37,7 +39,9 @@ def best_fit_transform(src: torch.Tensor, dst: torch.Tensor,
     src_c = src - c_src[..., None, :]
     dst_c = dst - c_dst[..., None, :]
     h = torch.einsum("...nc,...n,...nd->...cd", src_c, wn, dst_c)
-    u, _, vt = torch.linalg.svd(h)
+    # On the card the SVD checks its solver's status on the host: a read.
+    with annotate("pvn3d.read.svd"):
+        u, _, vt = torch.linalg.svd(h)
     # Reflection fix: flip the last singular vector when det(V U^T) < 0.
     det = torch.linalg.det(vt.transpose(-1, -2) @ u.transpose(-1, -2))
     sign = torch.sign(det)

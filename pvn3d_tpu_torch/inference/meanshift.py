@@ -22,6 +22,7 @@ import torch
 
 from pvn3d_tpu_torch.ops.kernels.common import sqdist
 from pvn3d_tpu_torch.ops.kernels.winner import winner_stats
+from pvn3d_tpu_torch.utils.profiling import annotate, host_read
 
 _SQRT_2PI = 2.5066282746310002
 # Shift steps between stopping-rule checks in winner mode: the JAX
@@ -45,9 +46,12 @@ def mean_shift_fit(points: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"mode {mode!r}: 'winner' or 'dense'")
 
     win, labels, counts = winner_stats(points, mask, bandwidth)
-    bw = torch.tensor(bandwidth, dtype=torch.float32, device=points.device)
+    # A copy from host memory: on the card it waits for the stream.
+    with annotate("pvn3d.read.meanshift_bandwidth"):
+        bw = torch.tensor(bandwidth, dtype=torch.float32,
+                          device=points.device)
     bw2 = bw * bw
-    stop = float(bw * 1e-3)
+    stop = host_read("meanshift_threshold", bw * 1e-3)
     wmask = mask.float()
     rows = torch.arange(points.shape[0], device=points.device)
     c = points[rows, win.long()]
@@ -66,16 +70,20 @@ def mean_shift_fit(points: torch.Tensor, mask: torch.Tensor,
             c = new_c
         it += _UNROLL
         # One host read per group of steps: the loop's stopping rule.
-        if it >= max_iter or float(shift.max()) < stop:
+        if it >= max_iter or host_read("meanshift_stop",
+                                       shift.max()) < stop:
             break
     return c, labels, counts
 
 
 def _fit_dense(points, mask, bandwidth, max_iter):
     """Every seed iterated to its own stop (the reference fixed point)."""
-    bw = torch.tensor(bandwidth, dtype=torch.float32, device=points.device)
+    # A copy from host memory: on the card it waits for the stream.
+    with annotate("pvn3d.read.meanshift_bandwidth"):
+        bw = torch.tensor(bandwidth, dtype=torch.float32,
+                          device=points.device)
     bw2 = bw * bw
-    stop = float(bw * 1e-3)
+    stop = host_read("meanshift_threshold", bw * 1e-3)
     inv_norm = 1.0 / (bw * _SQRT_2PI)
     wmask = mask.float()[:, None, :]
     c = points
@@ -87,7 +95,7 @@ def _fit_dense(points, mask, bandwidth, max_iter):
         shift = torch.where(mask, torch.linalg.vector_norm(new_c - c, dim=-1),
                             0.0)
         c = new_c
-        if float(shift.max()) < stop:
+        if host_read("meanshift_dense_stop", shift.max()) < stop:
             break
     in_bw = ((sqdist(points[:, :, None, :], points[:, None, :, :]) < bw2)
              & mask[:, None, :] & mask[:, :, None])

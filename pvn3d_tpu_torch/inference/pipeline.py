@@ -15,6 +15,7 @@ result on every rank, as the JAX step does on a dp-sharded batch.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +33,7 @@ from pvn3d_tpu_torch.inference.pose import (FramePoses, _select_class_points,
 from pvn3d_tpu_torch.parallel.mesh import (Mesh, gather, local_rows,
                                            shard_batch)
 from pvn3d_tpu_torch.utils.device import disable_tf32, resolve_device
+from pvn3d_tpu_torch.utils.profiling import annotate
 
 
 def make_pose_fn(cfg: Config, mesh_kps: np.ndarray, radii: np.ndarray,
@@ -48,14 +50,15 @@ def make_pose_fn(cfg: Config, mesh_kps: np.ndarray, radii: np.ndarray,
     cl = cfg.cluster
 
     def pose_fn(pcld, seg, ctr_of, kp_of) -> FramePoses:
-        frames = [cal_frame_poses(
-            pcld[i], seg[i], ctr_of[i], kp_of[i], mesh_kps_t, radii_t,
-            n_cls=cfg.model.n_classes, n_kps=cfg.model.n_keypoints,
-            k=cl.max_points_per_class, bandwidth=cl.bandwidth,
-            max_iter=cl.max_iter, use_ctr=cl.use_ctr,
-            use_ctr_clus_filter=cl.use_ctr_clus_filter,
-            refine_mask=refine_mask) for i in range(pcld.shape[0])]
-        return FramePoses(*(torch.stack(f) for f in zip(*frames)))
+        with annotate("pvn3d.pose_stage"):
+            frames = [cal_frame_poses(
+                pcld[i], seg[i], ctr_of[i], kp_of[i], mesh_kps_t, radii_t,
+                n_cls=cfg.model.n_classes, n_kps=cfg.model.n_keypoints,
+                k=cl.max_points_per_class, bandwidth=cl.bandwidth,
+                max_iter=cl.max_iter, use_ctr=cl.use_ctr,
+                use_ctr_clus_filter=cl.use_ctr_clus_filter,
+                refine_mask=refine_mask) for i in range(pcld.shape[0])]
+            return FramePoses(*(torch.stack(f) for f in zip(*frames)))
 
     return pose_fn
 
@@ -115,17 +118,22 @@ def make_inference_step(cfg: Config, model: torch.nn.Module,
     """
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
+    calls = itertools.count()
 
     @torch.inference_mode()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        n = None
-        if mesh is not None:
-            n = len(batch["pointcloud"])
-            batch = shard_batch(mesh, batch)
-        out = serve(torch.as_tensor(batch["pointcloud"], device=dev).float(),
-                    torch.as_tensor(batch["rgb"], device=dev).float(),
-                    torch.as_tensor(batch["choose"], device=dev), batch, n)
-        return out if mesh is None else gather(mesh, out)
+        with annotate("pvn3d.request", next(calls)):
+            n = None
+            if mesh is not None:
+                n = len(batch["pointcloud"])
+                batch = shard_batch(mesh, batch)
+            # Copies from host memory: each waits for the stream.
+            with annotate("pvn3d.read.frame_upload"):
+                inputs = [torch.as_tensor(batch[k], device=dev)
+                          for k in ("pointcloud", "rgb", "choose")]
+            out = serve(inputs[0].float(), inputs[1].float(), inputs[2],
+                        batch, n)
+            return out if mesh is None else gather(mesh, out)
 
     return step
 
@@ -158,28 +166,36 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
     n_sample = cfg.model.n_sample_points
+    calls = itertools.count()
 
     @torch.inference_mode()
     def step(batch: Dict, generator: Optional[torch.Generator] = None,
              priorities: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        n = None
-        if mesh is not None:
-            n, h, w = batch["depth"].shape
-            if priorities is None:
-                priorities = draw_priorities((n, h * w), dev, generator)
-            priorities = torch.as_tensor(priorities)[local_rows(mesh, n)]
-            batch = shard_batch(mesh, batch)
-        rgb = torch.as_tensor(batch["rgb"], device=dev).float()
-        built = build_inference_batch_device(
-            rgb, torch.as_tensor(batch["depth"], device=dev),
-            torch.as_tensor(batch["cam_k"], device=dev), n_sample,
-            cam_scale=cam_scale, fill=fill_depth, generator=generator,
-            priorities=(None if priorities is None
-                        else torch.as_tensor(priorities, device=dev)))
-        result = serve(built["pointcloud"], rgb, built["choose"], batch, n)
-        result.update(built)
-        return result if mesh is None else gather(mesh, result)
+        with annotate("pvn3d.request", next(calls)):
+            n = None
+            if mesh is not None:
+                n, h, w = batch["depth"].shape
+                if priorities is None:
+                    priorities = draw_priorities((n, h * w), dev, generator)
+                priorities = torch.as_tensor(priorities)[local_rows(mesh, n)]
+                batch = shard_batch(mesh, batch)
+            # Copies from host memory: each waits for the stream.
+            with annotate("pvn3d.read.frame_upload"):
+                rgb = torch.as_tensor(batch["rgb"], device=dev).float()
+                depth = torch.as_tensor(batch["depth"], device=dev)
+                cam_k = torch.as_tensor(batch["cam_k"], device=dev)
+                if priorities is not None:
+                    priorities = torch.as_tensor(priorities, device=dev)
+            with annotate("pvn3d.frame_build"):
+                built = build_inference_batch_device(
+                    rgb, depth, cam_k, n_sample, cam_scale=cam_scale,
+                    fill=fill_depth, generator=generator,
+                    priorities=priorities)
+            result = serve(built["pointcloud"], rgb, built["choose"], batch,
+                           n)
+            result.update(built)
+            return result if mesh is None else gather(mesh, result)
 
     return step
 

@@ -21,6 +21,7 @@ import torch
 
 from pvn3d_tpu_torch.geometry.se3 import best_fit_transform, identity_pose
 from pvn3d_tpu_torch.inference.meanshift import mean_shift_fit
+from pvn3d_tpu_torch.utils.profiling import annotate
 
 
 class FramePoses(NamedTuple):
@@ -48,8 +49,10 @@ def _select_class_points(mask: torch.Tensor, n_cls: int, k: int):
                         rounding_mode="floor")
     pos = torch.where(count[:, None] > k, strided, ar[None, :])
     sel = order[torch.clamp(offsets[:, None] + pos, 0, n - 1).long()]
-    valid = ar[None, :] < torch.minimum(count, torch.tensor(k, device=dev)
-                                        )[:, None]
+    # A copy from host memory: on the card it waits for the stream.
+    with annotate("pvn3d.read.class_cap"):
+        cap = torch.tensor(k, device=dev)
+    valid = ar[None, :] < torch.minimum(count, cap)[:, None]
     return sel, valid, count
 
 
@@ -76,8 +79,9 @@ def cal_frame_poses(pcld: torch.Tensor, mask: torch.Tensor,
     present = count > 0
 
     if refine_mask and use_ctr_clus_filter:
-        ctrs, _, _ = mean_shift_fit(pred_ctr[sel], valid, bandwidth,
-                                    max_iter=max_iter)
+        with annotate("pvn3d.meanshift.ctr_filter"):
+            ctrs, _, _ = mean_shift_fit(pred_ctr[sel], valid, bandwidth,
+                                        max_iter=max_iter)
         # Reassign foreground points to the nearest present class center
         # when within 0.8 * that class's radius (reference :59-72).
         d = torch.linalg.vector_norm(pred_ctr[:, None, :] - ctrs[None],
@@ -91,8 +95,9 @@ def cal_frame_poses(pcld: torch.Tensor, mask: torch.Tensor,
         mask = torch.where(update, closest_cls, mask)
         sel, valid, count = _select_class_points(mask, n_cls, k)
 
-    ctr_centers, ctr_labels, _ = mean_shift_fit(pred_ctr[sel], valid,
-                                                bandwidth, max_iter=max_iter)
+    with annotate("pvn3d.meanshift.ctr"):
+        ctr_centers, ctr_labels, _ = mean_shift_fit(
+            pred_ctr[sel], valid, bandwidth, max_iter=max_iter)
     # if ctr_labels.sum() < 1: ctr_labels[0] = 1  (reference :85-86)
     no_lab = ctr_labels.sum(dim=1) < 1
     ctr_labels = ctr_labels.clone()
@@ -100,10 +105,11 @@ def cal_frame_poses(pcld: torch.Tensor, mask: torch.Tensor,
 
     kp_valid = valid & ctr_labels if use_ctr_clus_filter else valid
     kp_votes = pred_kp[:, sel, :].permute(1, 0, 2, 3)   # (nf, n_kps, k, 3)
-    kp_centers, _, _ = mean_shift_fit(
-        kp_votes.reshape(nf * n_kps, k, 3),
-        kp_valid[:, None, :].expand(nf, n_kps, k).reshape(nf * n_kps, k),
-        bandwidth, max_iter=max_iter)
+    kp_mask = kp_valid[:, None, :].expand(nf, n_kps, k).reshape(nf * n_kps, k)
+    with annotate("pvn3d.meanshift.kp"):
+        kp_centers, _, _ = mean_shift_fit(kp_votes.reshape(nf * n_kps, k, 3),
+                                          kp_mask, bandwidth,
+                                          max_iter=max_iter)
     kp_centers = kp_centers.reshape(nf, n_kps, 3)
 
     cls_kps = (torch.cat([kp_centers, ctr_centers[:, None, :]], dim=1)

@@ -26,6 +26,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from pvn3d_tpu_torch.parallel.mesh import all_reduce_sum
+from pvn3d_tpu_torch.utils.profiling import annotate
+
+
+def _train_span(fn):
+    """``pvn3d.bn`` around each train-mode call of the method ``fn``."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        if not self.training:
+            return fn(self, *args, **kwargs)
+        with annotate("pvn3d.bn"):
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -77,12 +89,14 @@ class BatchNorm(nn.BatchNorm2d):
                     m * (var * (n / max(n - 1, 1))))
         return mean, var
 
+    @_train_span
     def forward(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
         mean, var = self._statistics(x, tuple(range(x.dim() - 1)), momentum)
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - mean) * inv + self.bias
         return y.to(x.dtype)
 
+    @_train_span
     def nchw(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
         """The same normalisation over axis 1 of an NCHW map."""
         mean, var = self._statistics(x, (0, 2, 3), momentum)
@@ -302,8 +316,11 @@ def _adaptive_pool_matrix(src: int, dst: int) -> np.ndarray:
 
 def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
                channels_last: bool) -> torch.Tensor:
-    wh_t = torch.as_tensor(wh, dtype=x.dtype, device=x.device)
-    ww_t = torch.as_tensor(ww, dtype=x.dtype, device=x.device)
+    # Copies from pageable host memory: on the card each waits for the
+    # stream to drain.
+    with annotate("pvn3d.read.separable_weights"):
+        wh_t = torch.as_tensor(wh, dtype=x.dtype, device=x.device)
+        ww_t = torch.as_tensor(ww, dtype=x.dtype, device=x.device)
     if channels_last:
         x = torch.einsum("oh,...hwc->...owc", wh_t, x)
         return torch.einsum("ow,...hwc->...hoc", ww_t, x)

@@ -34,6 +34,7 @@ from pvn3d_tpu_torch.models.pointnet2 import PointNet2MSG
 from pvn3d_tpu_torch.models.pspnet import PSPNetEmbedding
 from pvn3d_tpu_torch.ops.grouping import QUERY_COMPUTE, QUERY_MODES
 from pvn3d_tpu_torch.ops.interpolate import INTERP_MODES
+from pvn3d_tpu_torch.utils.profiling import annotate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -195,24 +196,27 @@ class PVN3D(nn.Module):
         chooses on the global shape."""
         cfg = self.cfg
         b, n, _ = pointcloud.shape
-        if self.uses_sparse_tail(global_batch or b):
-            rgb_emb, rgb_seg = self.cnn.model(rgb.to(self.dtype), bn_momentum,
-                                              generator, choose=choose)
-        else:
-            emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype),
-                                              bn_momentum, generator)
-            h, w, di = emb_map.shape[1:]
-            rgb_emb = torch.gather(
-                emb_map.reshape(b, h * w, di), 1,
-                choose.long()[..., None].expand(-1, -1, di))
-        cld_emb = self.pointnet2(pointcloud, self.dtype, bn_momentum)
-        fused = self.rgbd_feat(
-            rgb_emb, cld_emb,
-            split_global=not self.training and cfg.head_split_global)
-        seg = self.SEG_layer(fused, bn_momentum)
-        kp = self.KpOF_layer(fused, bn_momentum).reshape(
-            b, n, cfg.n_keypoints, 3)
-        ctr = self.CtrOf_layer(fused, bn_momentum).reshape(b, n, 1, 3)
+        with annotate("pvn3d.image_branch"):
+            if self.uses_sparse_tail(global_batch or b):
+                rgb_emb, rgb_seg = self.cnn.model(
+                    rgb.to(self.dtype), bn_momentum, generator, choose=choose)
+            else:
+                emb_map, rgb_seg = self.cnn.model(rgb.to(self.dtype),
+                                                  bn_momentum, generator)
+                h, w, di = emb_map.shape[1:]
+                rgb_emb = torch.gather(
+                    emb_map.reshape(b, h * w, di), 1,
+                    choose.long()[..., None].expand(-1, -1, di))
+        with annotate("pvn3d.point_branch"):
+            cld_emb = self.pointnet2(pointcloud, self.dtype, bn_momentum)
+        with annotate("pvn3d.heads"):
+            fused = self.rgbd_feat(
+                rgb_emb, cld_emb,
+                split_global=not self.training and cfg.head_split_global)
+            seg = self.SEG_layer(fused, bn_momentum)
+            kp = self.KpOF_layer(fused, bn_momentum).reshape(
+                b, n, cfg.n_keypoints, 3)
+            ctr = self.CtrOf_layer(fused, bn_momentum).reshape(b, n, 1, 3)
         return {
             "seg_logits": seg.float(),
             "kp_offsets": kp.permute(0, 2, 1, 3).float(),

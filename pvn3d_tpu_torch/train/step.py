@@ -15,6 +15,7 @@ in the backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -29,6 +30,7 @@ from pvn3d_tpu_torch.parallel.mesh import Mesh, all_reduce_gradients
 from pvn3d_tpu_torch.train.schedule import bn_momentum_at, lr_schedule
 from pvn3d_tpu_torch.train.state import TrainState
 from pvn3d_tpu_torch.utils.device import disable_tf32, resolve_device
+from pvn3d_tpu_torch.utils.profiling import annotate
 
 _INPUTS = ("pointcloud", "rgb", "choose")
 _TARGETS = ("labels", "kp_targ_ofst", "ctr_targ_ofst")
@@ -81,9 +83,10 @@ def global_metrics(cfg: Config, mesh: Mesh, metrics: Dict, count=1
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """The step's fields of ``batch`` (numpy arrays or tensors) as tensors
-    on ``device``."""
-    return {k: torch.as_tensor(batch[k], device=device)
-            for k in _INPUTS + _TARGETS if k in batch}
+    on ``device``; a copy from host memory waits for the stream."""
+    with annotate("pvn3d.read.batch_upload"):
+        return {k: torch.as_tensor(batch[k], device=device)
+                for k in _INPUTS + _TARGETS if k in batch}
 
 
 def dropout_seed(seed: int, step: int, micro: int) -> int:
@@ -195,7 +198,13 @@ def make_train_step(cfg: Config, device: str | torch.device = "cuda",
             return _rematerialised(model, policy, generator, *args)
         return model(*args)
 
+    calls = itertools.count()
+
     def train_step(state: TrainState, batch: Dict, seed: int = cfg.train.seed):
+        with annotate("pvn3d.step", next(calls)):
+            return _train_step(state, batch, seed)
+
+    def _train_step(state: TrainState, batch: Dict, seed: int):
         batch = to_device(batch, dev)
         b = batch["pointcloud"].shape[0]
         if b % accum:
@@ -215,11 +224,13 @@ def make_train_step(cfg: Config, device: str | torch.device = "cuda",
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             generator.manual_seed(dropout_seed(seed, state.step,
                                                rank * accum + i))
-            outputs = forward(model, micro, bn_m)
+            with annotate("pvn3d.forward"):
+                outputs = forward(model, micro, bn_m)
             m = compute_losses(cfg, outputs, micro)
             loss = (w[0] / (accum * world) * m["loss_seg"]
                     + w[1] * m["loss_kp"] + w[2] * m["loss_ctr"])
-            loss.backward()
+            with annotate("pvn3d.backward"):
+                loss.backward()
             micro_metrics.append({k: v.detach() for k, v in m.items()})
         if accum == 1:
             metrics = micro_metrics[0]
@@ -240,7 +251,8 @@ def make_train_step(cfg: Config, device: str | torch.device = "cuda",
             metrics = global_metrics(cfg, mesh, metrics)
         for group in state.optimizer.param_groups:
             group["lr"] = sched(state.step)
-        state.optimizer.step()
+        with annotate("pvn3d.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, dict(metrics, bn_momentum=bn_m)
 

@@ -1,20 +1,44 @@
-"""Tracing and step-timing instrumentation.
+"""Tracing and measurement instrumentation.
 
 Port of the JAX package's ``utils/profiling.py``:
 
   * ``trace(logdir)`` — context manager around ``torch.profiler`` (CPU
     and, where there is a card, CUDA activity) writing a Chrome trace
     into ``logdir`` (TensorBoard's profile plugin reads it too);
-  * ``annotate(name)`` — a labelled range for pipeline stages
-    (``torch.profiler.record_function``, and an NVTX range on CUDA);
-  * ``StepTimer`` — rolling wall-clock stats (mean/p50/p95) of whatever it
-    wraps, cheap enough to keep on in production loops;
+  * ``annotate(name)`` — a named host range for a stage of the port;
+  * ``host_read(site, x)`` — a blocking device-to-host read, named;
   * ``device_loop_stats`` / ``device_loop_time`` — the measurement
     harness: N >= 3 independently salted trials of T iterations each,
     timed by CUDA events (``perf_counter`` on the CPU); trials under a
     caller-supplied physics floor rejected as replays, stalls rejected by
     a robust median test, extra trials drawn on a > 2x spread, the MEDIAN
     reported with every trial on the record.
+
+The port's spans.  Every stage boundary of the serving and training
+steps opens an ``annotate`` range named ``pvn3d.<stage>``:
+``pvn3d.request#<n>`` (one serving call) holding ``pvn3d.frame_build``,
+``pvn3d.image_branch``, ``pvn3d.point_branch``, ``pvn3d.heads`` and
+``pvn3d.pose_stage`` (with ``pvn3d.meanshift.<fit>``), and
+``pvn3d.step#<n>`` (one training step) holding ``pvn3d.forward``,
+``pvn3d.backward``, ``pvn3d.optimizer`` and, in the train-mode forward,
+``pvn3d.bn``.  Every place where the host waits for the device's queue
+to drain opens ``pvn3d.read.<site>``: a read of a value (``host_read``),
+a copy from pageable host memory (which synchronises the stream), or a
+library call that reads.  A span's children are the ranges it holds on
+its thread.
+
+The ranges are host ranges on the profiler's own clock: kineto stamps
+them on the clock of the CUPTI device records, and each device record
+carries the correlation id of its launch, which lies on a host thread at
+a host time.  A device record belongs to the ranges on that thread that
+hold its launch, and an idle gap of the device to the range the host was
+in: dispatch within a stage, or a wait inside a ``pvn3d.read.*``.  They
+are function-scope ranges (``_RecordFunctionFast``), not user-scope
+ones, so the profiler writes no ``gpu_user_annotation`` copy of them on
+the device timeline, where it would read as device work.  With no
+profiler running ``annotate`` returns one shared null context: a flag
+check, no allocation.  There is no NVTX range: nothing in the port or
+its benchmark reads one.
 """
 from __future__ import annotations
 
@@ -22,10 +46,12 @@ import contextlib
 import os
 import random
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 from pvn3d_tpu_torch.utils.device import resolve_device
 
@@ -45,40 +71,25 @@ def trace(logdir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Label the block ``name`` in profiler traces (and, on CUDA, as an
-    NVTX range)."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+_OFF = contextlib.nullcontext()
 
 
-class StepTimer:
-    def __init__(self, window: int = 200):
-        self.window = window
-        self.samples: List[float] = []
-        self._t0 = None
+def annotate(name: str, index: Optional[int] = None):
+    """A host range named ``name`` (``name#index`` when ``index`` is
+    given) around the block, in profiler traces; with no profiler
+    running, one shared null context."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name if index is None else f"{name}#{index}")
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
 
-    def __exit__(self, *exc):
-        self.samples.append(time.perf_counter() - self._t0)
-        if len(self.samples) > self.window:
-            self.samples = self.samples[-self.window:]
-        return False
-
-    def stats(self) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        a = np.asarray(self.samples)
-        return {"mean_s": float(a.mean()), "p50_s": float(np.median(a)),
-                "p95_s": float(np.percentile(a, 95)), "n": len(a)}
+def host_read(site: str, x: torch.Tensor, to: Callable = float):
+    """``to(x)`` (``float``, ``bool``, ``int`` or ``torch.Tensor.cpu``),
+    a read that waits for the device, inside ``pvn3d.read.<site>``."""
+    if not _profiler_enabled():
+        return to(x)
+    with _RecordFunctionFast(f"pvn3d.read.{site}"):
+        return to(x)
 
 
 # Trial-spread threshold (max/min of plausible trials) above which extra

@@ -7,7 +7,8 @@ logic runs on injected trial times through the ``_timed`` hook, as
 JAX's cases do, and the same times give JAX's harness and the port's the
 same record; the real loop runs on the CPU (``perf_counter``); on the
 card its trials are CUDA-event times, which ``chip_smoke.py`` [apps]
-exercises.  Plus ``trace``, ``annotate`` and ``StepTimer`` on the CPU.
+exercises.  Plus ``trace`` and ``annotate`` on the CPU (the spans:
+``tests/test_torch_spans.py``).
 """
 import glob
 import json
@@ -156,14 +157,3 @@ def test_trace_writes_a_chrome_trace_naming_annotations(tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"stage_matmul", "stage_sum"} <= names
     assert any("mm" in (n or "") for n in names)
-
-
-def test_step_timer_matches_jax():
-    for mod in (prof, jax_prof):
-        t = mod.StepTimer(window=3)
-        assert t.stats() == {}
-        for _ in range(5):
-            with t:
-                pass
-        s = t.stats()
-        assert s["n"] == 3 and 0 <= s["p50_s"] <= s["p95_s"]

@@ -63,6 +63,21 @@ def test_serve_on_the_cpu_writes_records(tmp_path, capsys):
         assert np.isfinite(np.asarray(x["poses"], np.float64)).all()
 
 
+
+def test_serve_writes_a_trace_naming_the_port_spans(tmp_path):
+    """``--trace_dir``: one Chrome trace of ``--trace_frames`` frames after
+    the timed ones, holding a ``pvn3d.request#<n>`` per traced frame."""
+    logdir = tmp_path / "trace"
+    serve.main(["--device", "cpu", "--frames", "1", "--warmup", "0",
+                "--trace_dir", str(logdir), "--trace_frames", "1"],
+               small_config())
+    files = list(logdir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert sum(n.startswith("pvn3d.request#") for n in names) == 1
+    assert "pvn3d.pose_stage" in names
+
 def test_serve_loads_a_reference_checkpoint(tmp_path):
     path = str(tmp_path / "ref.pth.tar")
     sd = build_model(small_model_config(), 5).state_dict()
