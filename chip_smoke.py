@@ -7,9 +7,10 @@ that fails):
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all five CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
+2. build     — all six CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
                ``nvcc`` per source, all at once) into ``build/kernels``;
-               nine kernel instances with their own launch counts.
+               nine kernel instances and the five BatchNorm entry points,
+               each with its own launch count.
 3. kernels   — each kernel against its plain PyTorch version on the card
                at the shapes the serving path gives it (indices exact,
                floats within 1e-5), timed with CUDA events beside the
@@ -240,7 +241,30 @@ that fails):
                8, interp_bwd 4 a rematerialised step; the torch version;
                then one step at batch 24 in each mode (after one
                untimed), its time and peak memory.
-17. a JSON line per kernel and kernel instance (launches on the serving
+17. bn       — the train-mode BatchNorm pair (``csrc/bn.cu``, five entry
+               points) against its plain branch on the card at the
+               batch-24 step's shapes, bf16: the stem (24, 64, 240, 320)
+               and layer 4 (24, 512, 60, 80) in channels_last and NCHW
+               memory, ``up_3`` (24, 64, 480, 640) NCHW and channels_last,
+               an SA scale (24, 2048, 32, 128) and a head's rows
+               (24 * 12288 by 1024 and by 128), each with and without the
+               fused ReLU: statistics, values, running statistics, dx,
+               dweight and dbias (the dx of elements whose ReLU mask the
+               two sides' roundings flip counted apart), three launches a
+               forward and three a backward; events and device ms of each
+               pass beside its bytes bound at 3.35 TB/s, the plain
+               branch's, the autograd of the plain tensor code it
+               replaced, and ``F.batch_norm``'s (cuDNN, the library
+               yardstick).  Then a batch-24 ``Config.ycb()`` step (and
+               ``remat`` "full" and "dots") through the kernels against
+               the same step with the plain branch forced, from one state
+               and batch made on the CPU: the losses of three steps, the
+               first gradients' median leaf and the parameters' change
+               within the benchmark's train limits (0.003, 0.03, 0.2),
+               80 statistics and normalise launches a forward and 80
+               backward sets a step (twice the forward's under remat),
+               the layouts the BNs saw, step time and peak memory of each.
+18. a JSON line per kernel and kernel instance (launches on the serving
    slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
    mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
    the [parallel] and [remat] runs (``launches_parallel``),
@@ -257,6 +281,7 @@ every phase passed.  Times are the card's under its printed power limit.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -423,11 +448,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    from pvn3d_tpu_torch.ops.kernels import BN_KERNELS, KERNELS
     from pvn3d_tpu_torch.ops.kernels.common import build_all
     t0 = time.perf_counter()
-    logs = build_all(KERNELS)
-    for k in KERNELS:
+    kernels = KERNELS + BN_KERNELS
+    logs = build_all(kernels)
+    for k in kernels:
         k.load()
     dt = time.perf_counter() - t0
     for entry in logs:
@@ -435,8 +461,8 @@ def phase_build() -> None:
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 log("build", line.strip())
-    sources = len({k.source for k in KERNELS})
-    log("build", f"{len(KERNELS)} kernel instances of {sources} sources "
+    sources = len({k.source for k in kernels})
+    log("build", f"{len(kernels)} kernel instances of {sources} sources "
         f"ready in {dt:.1f} s")
 
 
@@ -3981,6 +4007,319 @@ def phase_remat(smi: str, seed: int = 0) -> dict:
     return total
 
 
+# The train-mode BatchNorms of the batch-24 step, bf16: (name, shape, memory
+# format); NCHW maps in both formats (the stem's input arrives in
+# channels_last memory, the upsamples' from the resize's products).
+BN_SHAPES = (
+    ("stem", (24, 64, 240, 320), "channels_last"),
+    ("stem", (24, 64, 240, 320), "nchw"),
+    ("layer4", (24, 512, 60, 80), "channels_last"),
+    ("layer4", (24, 512, 60, 80), "nchw"),
+    ("up_3", (24, 64, 480, 640), "nchw"),
+    ("up_3", (24, 64, 480, 640), "channels_last"),
+    ("sa", (24, 2048, 32, 128), "rows"),
+    ("head_1024", (24 * 12288, 1024), "rows"),
+    ("head_128", (24 * 12288, 128), "rows"))
+BN_EPS = 1e-5
+# The benchmark's train limits (perfbench/limits/train.json).
+TRAIN_LIMITS = {"loss_gap": 0.003, "grad_gap": 0.03, "update_gap": 0.2}
+
+
+def _bn_replaced(x, w, b, nchw, relu, dy):
+    """The plain tensor code the BatchNorm function replaced, forward and
+    autograd's backward (the timing yardstick of the old path)."""
+    axes = (0, 2, 3) if nchw else tuple(range(x.dim() - 1))
+    xg = x.detach().requires_grad_(True)
+    xf = xg.float()
+    mean = xf.mean(dim=axes)
+    var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + BN_EPS) * w
+    if nchw:
+        mean, inv, b = mean[:, None, None], inv[:, None, None], \
+            b[:, None, None]
+    y = ((xg.float() - mean) * inv + b).to(x.dtype)
+    y = torch.relu(y) if relu else y
+    if dy is not None:
+        torch.autograd.grad(y, xg, dy)
+    return y
+
+
+def _bn_library(x, w, b, rm, rv, nchw, relu, dy):
+    """cuDNN's train-mode batch norm through ``F.batch_norm`` (channels
+    last as (rows, C)), forward and, with ``dy``, autograd's backward."""
+    import torch.nn.functional as F
+    xg = x.detach().requires_grad_(dy is not None)
+    x4 = xg if nchw else xg.view(-1, x.shape[-1])
+    y = F.batch_norm(x4, rm, rv, w, b, True, 0.1, BN_EPS)
+    y = torch.relu(y) if relu else y
+    if dy is not None:
+        torch.autograd.grad(y, xg, dy.view_as(y))
+    return y
+
+
+def _bn_close(got, want, rel: float, flip=None) -> tuple:
+    """(largest |got - want| over elements outside ``flip``, elements
+    beyond rel * |want| + 0.01 rel * max|want| of tolerance)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    if flip is not None:
+        d = torch.where(flip, 0.0, d)
+    tol = rel * want.abs() + 1e-2 * rel * float(want.abs().max())
+    return float(d.max()), int((d > tol).sum())
+
+
+def _bn_case(name, shape, fmt, relu, seed):
+    """One BN shape on the card: kernels against the plain branch, then
+    each pass timed.  Returns the case's record."""
+    from pvn3d_tpu_torch.ops.kernels import bn as kbn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nchw = fmt != "rows"
+    c = shape[1] if nchw else shape[-1]
+
+    def make(scale, shift):
+        t = (torch.randn(shape, generator=gen, device=dev) * scale
+             + shift).to(torch.bfloat16)
+        return (t.to(memory_format=torch.channels_last)
+                if fmt == "channels_last" else t)
+    x, dy = make(2.0, 0.5), make(1.0, 0.0)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev)
+    rm0 = torch.randn(c, generator=gen, device=dev)
+    rv0 = torch.rand(c, generator=gen, device=dev) + 0.5
+    before = {k.name: k.launches for k in kbn.KERNELS}
+    rm, rv = rm0.clone(), rv0.clone()
+    y, st, n = kbn._forward_cuda(x, w, b, rm, rv, nchw, 0.1, BN_EPS, relu,
+                                 True, None)
+    dx, dw, db = kbn._backward_cuda(x, dy, b, st, nchw, relu, None, n)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches - before[k.name] for k in kbn.KERNELS}
+    want = {"bn_stats": 1, "bn_finish": 2, "bn_apply": 1,
+            "bn_bwd_reduce": 1, "bn_bwd_apply": 1}
+    if launches != want:
+        raise AssertionError(f"bn {name}: launched {launches}")
+    if y.stride() != x.stride() or dx.stride() != x.stride():
+        raise AssertionError(f"bn {name}: strides {y.stride()} / "
+                             f"{dx.stride()} against {x.stride()}")
+    rmp, rvp = rm0.clone(), rv0.clone()
+    yp, stp, _ = kbn.forward_plain(x, w, b, rmp, rvp, nchw, 0.1, BN_EPS,
+                                   relu, True, None)
+    dxp, dwp, dbp = kbn.backward_plain(x, dy, b, stp, nchw, relu, None, n)
+    std = torch.sqrt(1.0 / stp[1] ** 2)
+    stats_err = max(float(((st[0] - stp[0]).abs() / std).max()),
+                    float(((st[1] - stp[1]).abs() / stp[1]).max()),
+                    float((st[3] != stp[3]).sum()))
+    # A ReLU whose input rounds to 0 on one side only passes dy there.
+    flip = (y > 0) != (yp > 0) if relu else None
+    n_flip = 0 if flip is None else int(flip.sum())
+    y_err, y_bad = _bn_close(y, yp, 2 ** -7)
+    dx_err, dx_bad = _bn_close(dx, dxp, 2 ** -6, flip)
+    dw_err = float((dw - dwp).norm() / dwp.norm())
+    db_err = float((db - dbp).norm() / dbp.norm())
+    run_err = max(float((rm - rmp).abs().max()),
+                  float(((rv - rvp).abs() / rvp).max()))
+    if (stats_err > 1e-4 or y_bad or dx_bad or dw_err > 1e-3
+            or db_err > 1e-3 or run_err > 1e-5
+            or n_flip > 1e-5 * x.numel()):
+        raise AssertionError(
+            f"bn {name} {fmt} relu={relu}: statistics {stats_err:.3g}, y "
+            f"{y_err:.3g} ({y_bad} beyond), dx {dx_err:.3g} ({dx_bad} "
+            f"beyond, {n_flip} ReLU flips), dweight {dw_err:.3g}, dbias "
+            f"{db_err:.3g}, running {run_err:.3g}")
+    del yp, dxp, stp
+    es = x.element_size()
+    fwd_bytes, bwd_bytes = 3 * es * x.numel(), 5 * es * x.numel()
+
+    def fwd():
+        kbn._forward_cuda(x, w, b, rm, rv, nchw, 0.1, BN_EPS, relu, False,
+                          None)
+
+    def bwd():
+        kbn._backward_cuda(x, dy, b, st, nchw, relu, None, n)
+    rec = dict(
+        name=name, shape=list(shape), format=fmt, relu=relu,
+        layout="rows" if kbn.layout_of(x, nchw)[0] == kbn.ROWS else "nchw",
+        grid=dataclasses.asdict(kbn._grid_of(x, nchw)),
+        stats_err=stats_err, y_err=y_err, dx_err=dx_err, relu_flips=n_flip,
+        dweight_err=dw_err, dbias_err=db_err, running_err=run_err,
+        fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
+        fwd_device_ms=device_ms(fwd, reps=3),
+        bwd_device_ms=device_ms(bwd, reps=3),
+        fwd_bound_ms=bound_ms(fwd_bytes, 0)[0],
+        bwd_bound_ms=bound_ms(bwd_bytes, 0)[0],
+        plain_fwd_ms=time_ms(lambda: kbn.forward_plain(
+            x, w, b, rm, rv, nchw, 0.1, BN_EPS, relu, False, None)),
+        plain_bwd_ms=time_ms(lambda: kbn.backward_plain(
+            x, dy, b, st, nchw, relu, None, n)),
+        replaced_fwd_ms=time_ms(lambda: _bn_replaced(x, w, b, nchw, relu,
+                                                     None)),
+        replaced_fwd_bwd_ms=time_ms(lambda: _bn_replaced(x, w, b, nchw,
+                                                         relu, dy)),
+        library_fwd_ms=time_ms(lambda: _bn_library(x, w, b, rm, rv, nchw,
+                                                   relu, None)),
+        library_fwd_bwd_ms=time_ms(lambda: _bn_library(x, w, b, rm, rv,
+                                                       nchw, relu, dy)))
+    rec["fwd_roofline"] = rec["fwd_bound_ms"] / rec["fwd_device_ms"]
+    rec["bwd_roofline"] = rec["bwd_bound_ms"] / rec["bwd_device_ms"]
+    return rec
+
+
+def _bn_census():
+    """Wraps ``layout_of`` to count the (method, layout, shape) of each
+    train-mode BN call; returns the counter and the undo."""
+    import collections
+
+    from pvn3d_tpu_torch.ops.kernels import bn as kbn
+    seen = collections.Counter()
+    real = kbn.layout_of
+
+    def counted(x, nchw):
+        out = real(x, nchw)
+        seen[("nchw" if nchw else "last", "rows" if out[0] == kbn.ROWS
+              else "nchw", tuple(x.shape))] += 1
+        return out
+    kbn.layout_of = counted
+    return seen, lambda: setattr(kbn, "layout_of", real)
+
+
+@contextlib.contextmanager
+def _bn_plain_forced():
+    """The BatchNorm function's plain branch on CUDA tensors."""
+    from pvn3d_tpu_torch.ops.kernels import bn as kbn
+    saved = kbn._forward_cuda, kbn._backward_cuda
+    kbn._forward_cuda, kbn._backward_cuda = (kbn.forward_plain,
+                                             kbn.backward_plain)
+    try:
+        yield
+    finally:
+        kbn._forward_cuda, kbn._backward_cuda = saved
+
+
+def _bn_steps(cfg, sd0, batch, n_steps: int):
+    """``n_steps`` steps from ``sd0`` with a fresh optimizer: the losses,
+    the first step's gradient norms and the parameters' change norms by
+    leaf, the BN launches of the first step, its host ms and the peak
+    memory."""
+    import gc
+
+    from pvn3d_tpu_torch.ops.kernels import BN_KERNELS
+    from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
+    from pvn3d_tpu_torch.train.step import make_train_step
+    from pvn3d_tpu_torch.utils.weights import build_model
+    model = build_model(cfg.model, 0).to("cuda").train()
+    model.load_state_dict(sd0)
+    state = TrainState(0, model, make_optimizer(cfg, model))
+    step = make_train_step(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, grads, launches, ms = [], None, None, None
+    for i in range(n_steps):
+        before = {k.name: k.launches for k in BN_KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        if i == 0:
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k.name: k.launches - before[k.name]
+                        for k in BN_KERNELS}
+            grads = {k: float(p.grad.double().norm())
+                     for k, p in model.named_parameters()
+                     if p.grad is not None}
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    update = {k: float((p.detach().double() - sd0[k].double()).norm())
+              for k, p in model.named_parameters()}
+    del state, model, step
+    return losses, grads, update, launches, ms, peak
+
+
+def _bn_gaps(got, want) -> dict:
+    """The benchmark's three train checks (``perfbench/drivers/train.py::
+    compare``) between two runs of ``_bn_steps``: the worst relative gap
+    of the losses; of the leaves whose first gradient is at least a
+    thousandth of the median leaf's, the median gap of first-gradient
+    norms and the worst gap of the parameters' change norms, each against
+    the leaf's or the median leaf's norm, whichever is larger."""
+    med = statistics.median(want[1].values())
+    counted = [k for k, v in want[1].items() if v >= 1e-3 * med]
+
+    def gaps(p, r):
+        m = statistics.median(r[k] for k in counted)
+        return [abs(p[k] - r[k]) / max(r[k], m) for k in counted]
+    return {"loss_gap": max(abs(a - b) / abs(b)
+                            for a, b in zip(got[0], want[0])),
+            "grad_gap": statistics.median(gaps(got[1], want[1])),
+            "update_gap": max(gaps(got[2], want[2]))}
+
+
+def phase_bn(smi: str, seed: int = 0, shapes=BN_SHAPES) -> dict:
+    """[bn] (see the module docstring) on ``shapes`` (a subset of
+    ``BN_SHAPES`` for a quicker look).  Returns the record of the JSON
+    line."""
+    import dataclasses as dc
+    import gc
+
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.models.layers import BatchNorm
+    from pvn3d_tpu_torch.train.step import to_device
+    from pvn3d_tpu_torch.utils.weights import build_model
+    cases = []
+    for i, (name, shape, fmt) in enumerate(shapes):
+        for relu in (False, True):
+            rec = _bn_case(name, shape, fmt, relu, seed + 2 * i + relu)
+            cases.append(rec)
+            log("bn", json.dumps(rec))
+            gc.collect()
+            torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    model = build_model(cfg.model, seed)               # on the CPU
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    sd0 = {k: v.to(dev) for k, v in model.state_dict().items()}
+    del model
+    batch = to_device(synthetic_batch(cfg, batch_size=24, seed=seed), dev)
+    per_fwd = {"bn_stats": n_bn, "bn_apply": n_bn, "bn_bwd_reduce": n_bn,
+               "bn_bwd_apply": n_bn, "bn_finish": 2 * n_bn}
+    steps = {}
+    for mode, remat, policy in (("off", False, "full"),
+                                ("full", True, "full"),
+                                ("dots", True, "dots")):
+        c = dc.replace(cfg, train=dc.replace(cfg.train, remat=remat,
+                                             remat_policy=policy))
+        seen, undo = _bn_census()
+        try:
+            kern = _bn_steps(c, sd0, batch, 3)
+        finally:
+            undo()
+        with _bn_plain_forced():
+            plain = _bn_steps(c, sd0, batch, 3)
+        gaps = _bn_gaps(kern, plain)
+        want = dict(per_fwd)
+        if remat:
+            for name in ("bn_stats", "bn_apply", "bn_finish"):
+                want[name] += n_bn
+        if kern[3] != want or any(v > TRAIN_LIMITS[g] for g, v in
+                                  gaps.items()):
+            raise AssertionError(
+                f"bn step remat={mode}: launches {kern[3]} (expected "
+                f"{want}), gaps {gaps} (limits {TRAIN_LIMITS})")
+        steps[mode] = {"gaps": gaps, "losses": kern[0],
+                       "plain_losses": plain[0], "launches": kern[3],
+                       "step_ms": kern[4], "plain_step_ms": plain[4],
+                       "peak_gib": kern[5], "plain_peak_gib": plain[5],
+                       "layouts": sorted(f"{k[0]}:{k[1]}:{list(k[2])}x{v}"
+                                         for k, v in seen.items())}
+        log("bn", f"batch 24, remat {mode}: " + json.dumps(steps[mode])
+            + f" [{smi}]")
+        del kern, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"cases": cases, "steps": steps, "n_bn": n_bn}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -4000,6 +4339,7 @@ def main() -> int:
     apps_launches = phase_apps(smi, slice_lat)
     parallel_launches = phase_parallel(smi)
     _add_counts(parallel_launches, phase_remat(smi))
+    bn = phase_bn(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -4062,7 +4402,7 @@ def main() -> int:
             line[-1].update(index_add_ms=r["index_add_ms"],
                             device_ms_train=t["device_ms"], ms_train=t["ms"],
                             levels_train=t["levels"])
-    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"kernels": line, "bn": bn}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,16 +21,16 @@ from typing import Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from pvn3d_tpu_torch.parallel.mesh import all_reduce_sum
+from pvn3d_tpu_torch.ops.kernels.bn import batch_norm_train
 from pvn3d_tpu_torch.utils.profiling import annotate
 
 
 def _train_span(fn):
-    """``pvn3d.bn`` around each train-mode call of the method ``fn``."""
+    """``pvn3d.bn`` around each train-mode call of the method ``fn`` (the
+    normalisation and the fused ReLU)."""
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
         if not self.training:
@@ -43,67 +43,60 @@ def _train_span(fn):
 class BatchNorm(nn.BatchNorm2d):
     """Batch norm over the LAST axis with float32 statistics:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
-    back to the input dtype (``layers.py:29-69`` of the JAX package).
+    back to the input dtype (``layers.py:29-69`` of the JAX package);
+    ``relu=True`` applies a ReLU after it (the callers whose BN a ReLU
+    follows pass it, so train mode fuses it into the normalisation).
 
-    Eval mode reads the running statistics.  Train mode takes the batch
-    mean and the biased ``E[x^2] - E[x]^2`` (clamped at 0: it can round
-    negative for a large-mean, low-variance channel) over every axis but
-    the channel, normalises by them, and updates the running statistics
-    with the torch-convention ``momentum`` passed per call:
-    ``running <- (1 - m) * running + m * batch``, the running variance
-    unbiased by ``n / (n - 1)``.  Plain tensor code, so autograd
-    differentiates it; the buffers are updated in place outside the graph.
+    Eval mode reads the running statistics, in plain tensor code.  Train
+    mode takes the batch mean and the biased ``E[x^2] - E[x]^2`` (clamped
+    at 0: it can round negative for a large-mean, low-variance channel)
+    over every axis but the channel, normalises by them, and updates the
+    running statistics with the torch-convention ``momentum`` passed per
+    call: ``running <- (1 - m) * running + m * batch``, the running
+    variance unbiased by ``n / (n - 1)``.  It runs as one autograd
+    function (``ops/kernels/bn.py::batch_norm_train``): the hand-written
+    kernel pair on the card, its plain version on the CPU.
 
     ``process_group`` (set by the train step under a data-parallel mesh)
     makes the statistics global, as JAX's batch-axis mean over a
     dp-sharded batch is: every rank's ``E[x]`` and ``E[x^2]``, weighted by
     1 / world (ranks hold equal rows), are summed over the group in one
-    all-reduce that autograd differentiates, and ``n`` is the global
-    count.  At world 1 the weight is 1.0 and the result is bit for bit the
-    local one.  ``update_running`` False (a rematerialised forward) leaves
-    the running statistics where the first forward put them.
+    all-reduce, the backward's two channel sums in another, and ``n`` is
+    the global count.  At world 1 the weight is 1.0 and the result is bit
+    for bit the local one.  ``update_running`` False (a rematerialised
+    forward) leaves the running statistics where the first forward put
+    them.
     """
 
     process_group = None
     update_running = True
 
-    def _statistics(self, x: torch.Tensor, axes, momentum):
-        if not self.training:
-            return self.running_mean, self.running_var
-        xf = x.float()
-        mean = xf.mean(dim=axes)
-        meansq = (xf * xf).mean(dim=axes)
-        n = x.numel() // mean.numel()
-        if self.process_group is not None:
-            world = dist.get_world_size(self.process_group)
-            mean, meansq = all_reduce_sum(
-                torch.stack([mean, meansq]) * (1.0 / world),
-                self.process_group).unbind()
-            n *= world
-        var = torch.clamp(meansq - mean * mean, min=0.0)
-        if self.update_running:
-            with torch.no_grad():
-                m = float(momentum)
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(
-                    m * (var * (n / max(n - 1, 1))))
-        return mean, var
+    def _normalise(self, x: torch.Tensor, nchw: bool, momentum,
+                   relu: bool) -> torch.Tensor:
+        if self.training:
+            return batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, nchw=nchw, momentum=momentum,
+                eps=self.eps, relu=relu, update_running=self.update_running,
+                group=self.process_group)
+        mean, bias = self.running_mean, self.bias
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        if nchw:
+            mean, inv, bias = (t[:, None, None] for t in (mean, inv, bias))
+        y = ((x.float() - mean) * inv + bias).to(x.dtype)
+        return F.relu(y) if relu else y
 
     @_train_span
-    def forward(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
-        mean, var = self._statistics(x, tuple(range(x.dim() - 1)), momentum)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mean) * inv + self.bias
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, momentum=0.1,
+                relu: bool = False) -> torch.Tensor:
+        return self._normalise(x, False, momentum, relu)
 
     @_train_span
-    def nchw(self, x: torch.Tensor, momentum=0.1) -> torch.Tensor:
-        """The same normalisation over axis 1 of an NCHW map."""
-        mean, var = self._statistics(x, (0, 2, 3), momentum)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = ((x.float() - mean[:, None, None])
-             * inv[:, None, None] + self.bias[:, None, None])
-        return y.to(x.dtype)
+    def nchw(self, x: torch.Tensor, momentum=0.1,
+             relu: bool = False) -> torch.Tensor:
+        """The same normalisation over axis 1 of an NCHW map (contiguous
+        in the default or the channels_last memory format)."""
+        return self._normalise(x, True, momentum, relu)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -132,7 +125,7 @@ class Conv1x1BN(nn.Module):
     def finish(self, y: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         """BN + ReLU of the pre-activation ``y`` (``x`` times the conv
         weight, however the caller contracted it)."""
-        return F.relu(self.normlayer.bn(y, bn_momentum))
+        return self.normlayer.bn(y, bn_momentum, relu=True)
 
 
 class SharedMLP(nn.Module):
@@ -209,7 +202,7 @@ class ConvBnRelu(nn.Module):
     def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         x = conv2d(x, self.conv)
         if self.bn is not None:
-            x = self.bn.nchw(x, bn_momentum)
+            return self.bn.nchw(x, bn_momentum, relu=self.use_relu)
         return F.relu(x) if self.use_relu else x
 
 

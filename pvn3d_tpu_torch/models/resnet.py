@@ -39,7 +39,7 @@ class BasicBlock(nn.Module):
                "1": BatchNorm(planes)}) if downsample else None)
 
     def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
-        y = F.relu(self.bn1.nchw(conv2d(x, self.conv1), bn_momentum))
+        y = self.bn1.nchw(conv2d(x, self.conv1), bn_momentum, relu=True)
         y = self.bn2.nchw(conv2d(y, self.conv2), bn_momentum)
         res = x
         if self.downsample is not None:
@@ -73,7 +73,7 @@ class DilatedResNet(nn.Module):
             in_planes = planes
 
     def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
-        x = F.relu(self.bn1.nchw(conv2d(x, self.conv1), bn_momentum))
+        x = self.bn1.nchw(conv2d(x, self.conv1), bn_momentum, relu=True)
         x = max_pool_3x3_s2(x)
         for s in range(1, 5):
             for block in getattr(self, f"layer{s}"):

@@ -16,13 +16,20 @@ K3 interp_bwd      ops/pallas/interp.py::_fused_bwd            interp.py /
                                                                interp_bwd.cu
 K4 winner          ops/pallas/winner.py::winner_stats_fused    winner.py /
                                                                winner.cu
+bn_stats           none: train-mode BatchNorm, plain jnp in    bn.py /
+bn_finish          the JAX package (models/layers.py:29-69)    bn.cu
+bn_apply                                                        (five
+bn_bwd_reduce                                                   entry
+bn_bwd_apply                                                    points)
 =================  ==========================================  ============
 
 The instances of one source share its library and count their launches
-apart.
+apart.  ``KERNELS`` holds the ports of the TPU kernels, ``BN_KERNELS`` the
+BatchNorm pair, which the training step alone launches.
 """
-from pvn3d_tpu_torch.ops.kernels import fps, interp, query, winner
+from pvn3d_tpu_torch.ops.kernels import bn, fps, interp, query, winner
 
 KERNELS = (fps.KERNEL, query.KERNEL, query.KERNEL_EXPANDED, query.KERNEL_BF16,
            query.KERNEL_CAPACITY, interp.KERNEL, interp.KERNEL_EXPANDED,
            interp.KERNEL_BWD, winner.KERNEL)
+BN_KERNELS = bn.KERNELS

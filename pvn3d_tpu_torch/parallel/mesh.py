@@ -8,9 +8,9 @@ global array, so here one process drives one device, ``Mesh`` describes
 the process group (``dp`` ranks, this one's ``rank`` and ``device``), and
 each collective is explicit: ``shard_batch`` takes this rank's rows,
 ``gather`` puts the global result together on every rank,
-``all_reduce_gradients`` sums the gradients after the backward, and
-``all_reduce_sum`` is the differentiable sum the BatchNorms take their
-statistics through (``models/layers.py``).
+and ``all_reduce_gradients`` sums the gradients after the backward; the
+BatchNorms all-reduce their statistics and their backward's channel sums
+themselves (``ops/kernels/bn.py``).
 
 ``sp`` (intra-frame point sharding) is not ported: under GSPMD it changes
 the layout and not the results; in PyTorch it would need a model-parallel
@@ -116,28 +116,6 @@ def gather(mesh: Mesh, out):
     full[mesh.rank * b:(mesh.rank + 1) * b] = out
     dist.all_reduce(full, group=mesh.group)
     return full.to(out.dtype)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group, differentiable: the gradient of the sum is the
-    sum of every rank's gradient, so the backward all-reduces too."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    return _AllReduceSum.apply(x, group)
 
 
 def all_reduce_gradients(mesh: Mesh, params: Iterable[torch.Tensor]) -> None:

@@ -89,26 +89,32 @@ def skip(mesh, inp, d):
     return tickets
 
 
+def bn_rows(group, b, rows, nchw: bool, relu: bool = False) -> dict:
+    """A train-mode BN forward and backward on ``rows`` of the inputs,
+    channels last or NCHW (a channels_last map), synced over ``group``."""
+    from pvn3d_tpu_torch.models.layers import BatchNorm
+    layer = BatchNorm(6)
+    layer.load_state_dict(b["state"])
+    layer.train()
+    layer.process_group = group
+    x = torch.tensor(b["x"][rows], requires_grad=True)
+    y = (layer.nchw(x.permute(0, 3, 1, 2), b["momentum"], relu=relu).permute(
+        0, 2, 3, 1) if nchw else layer(x, b["momentum"], relu=relu))
+    y.backward(torch.tensor(b["g"][rows]))
+    return _numpy({"y": y, "gx": x.grad,
+                   "gw": layer.weight.grad, "gb": layer.bias.grad,
+                   "mean": layer.running_mean, "var": layer.running_var})
+
+
 def bn(mesh, inp, d):
     """One synced train-mode BN forward and backward on this rank's rows,
-    channels last and NCHW."""
-    from pvn3d_tpu_torch.models.layers import BatchNorm
-    b = inp["bn"]
+    channels last and NCHW (keyed by ``nchw``), and with the ReLU fused
+    (keyed by ``(nchw, "relu")``)."""
     sl = slice(mesh.rank * 2, (mesh.rank + 1) * 2)
     out = {}
     for nchw in (False, True):
-        layer = BatchNorm(6)
-        layer.load_state_dict(b["state"])
-        layer.train()
-        layer.process_group = mesh.group
-        x = torch.tensor(b["x"][sl], requires_grad=True)
-        y = (layer.nchw(x.permute(0, 3, 1, 2), b["momentum"]).permute(
-            0, 2, 3, 1) if nchw else layer(x, b["momentum"]))
-        y.backward(torch.tensor(b["g"][sl]))
-        out[nchw] = _numpy({"y": y, "gx": x.grad,
-                            "gw": layer.weight.grad, "gb": layer.bias.grad,
-                            "mean": layer.running_mean,
-                            "var": layer.running_var})
+        out[nchw] = bn_rows(mesh.group, inp["bn"], sl, nchw)
+        out[nchw, "relu"] = bn_rows(mesh.group, inp["bn"], sl, nchw, True)
     return out
 
 

@@ -322,6 +322,36 @@ def test_synced_batchnorm_matches_jax_on_the_concatenated_batch(two, nchw):
                                    rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("nchw", [False, True])
+def test_synced_batchnorm_matches_one_process_on_the_whole_batch(two, nchw,
+                                                                 relu):
+    """Two ranks of half a batch each through the port's synced BN
+    against the port's BN in one process on the whole batch: outputs and
+    input gradients (concatenated), the parameter gradients summed over
+    the ranks, the running statistics on each rank.  Two half-batch sums
+    round apart from one whole (float32); channel 2's statistics are
+    rounding noise (see test_torch_train.py)."""
+    results = two[0]
+    key = (nchw, "relu") if relu else nchw
+    got = [res["bn"][key] for res in results]
+    want = worker.bn_rows(None, _bn_inputs() | {"state": _bn_state(
+        _bn_inputs())}, slice(0, 4), nchw, relu)
+    keep = [0, 1, 3, 4, 5]
+    for k in ("y", "gx"):
+        cat = np.concatenate([g[k] for g in got])
+        np.testing.assert_allclose(cat[..., keep], want[k][..., keep],
+                                   rtol=1e-5, atol=1e-5)
+    for k in ("gw", "gb"):
+        np.testing.assert_allclose((got[0][k] + got[1][k])[keep],
+                                   want[k][keep], rtol=1e-5, atol=1e-4)
+    for g in got:
+        np.testing.assert_allclose(g["mean"], want["mean"], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(g["var"][keep], want["var"][keep],
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_synced_batchnorm_at_world_one_is_bit_for_bit(world_one):
     """Under a 1-rank group the synced path (weights 1.0, one all-reduce)
     gives the plain BN's bits: outputs, gradients, running statistics."""
