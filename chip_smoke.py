@@ -7,10 +7,10 @@ that fails):
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all six CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
+2. build     — all seven CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
                ``nvcc`` per source, all at once) into ``build/kernels``;
-               nine kernel instances and the five BatchNorm entry points,
-               each with its own launch count.
+               nine kernel instances, the five BatchNorm entry points and
+               the k-NN search, each with its own launch count.
 3. kernels   — each kernel against its plain PyTorch version on the card
                at the shapes the serving path gives it (indices exact,
                floats within 1e-5), timed with CUDA events beside the
@@ -264,10 +264,24 @@ that fails):
                80 statistics and normalise launches a forward and 80
                backward sets a step (twice the forward's under remat),
                the layouts the BNs saw, step time and peak memory of each.
-18. a JSON line per kernel and kernel instance (launches on the serving
+18. knn      — the k-NN search (``csrc/knn.cu``) at the 22 searches of
+               FFB6D's neighbour index (``data/ffb6d_index.py::searches``)
+               on one full-size 480x640 frame's priority-ordered sample
+               and cloud map on the card: each equal to its plain version
+               index for index, and timed by CUDA events and as device
+               time beside the plain version, cdist + topk (the library
+               yardstick) and its bound (8 operations a query-candidate
+               pair, or the coordinates and indices once); then three
+               FFB6D requests (``config.ffb6d_config()``, seeded weights)
+               through ``make_raw_inference_step`` with every launch count
+               set to 0 just before: 22 k-NN launches a request, no K1-K3,
+               their latency.
+19. a JSON line per kernel and kernel instance (launches on the serving
    slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
    mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
-   the [parallel] and [remat] runs (``launches_parallel``),
+   the [parallel] and [remat] runs (``launches_parallel``); the k-NN
+   search's over [knn]'s FFB6D requests (``launches_ffb6d``) and per
+   search (``searches``),
    error, times, bound; K2's
    instances and K3 forward and backward also per level, the backward on
    both clouds, K3 forward also at the eval graph's widths
@@ -448,10 +462,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from pvn3d_tpu_torch.ops.kernels import BN_KERNELS, KERNELS
+    from pvn3d_tpu_torch.ops.kernels import BN_KERNELS, KERNELS, KNN_KERNELS
     from pvn3d_tpu_torch.ops.kernels.common import build_all
     t0 = time.perf_counter()
-    kernels = KERNELS + BN_KERNELS
+    kernels = KERNELS + BN_KERNELS + KNN_KERNELS
     logs = build_all(kernels)
     for k in kernels:
         k.load()
@@ -4320,6 +4334,111 @@ def phase_bn(smi: str, seed: int = 0, shapes=BN_SHAPES) -> dict:
     return {"cases": cases, "steps": steps, "n_bn": n_bn}
 
 
+def _knn_library(q, c, k):
+    """The library yardstick of a search: cdist + topk (not index for
+    index: ``topk`` does not keep ties by index)."""
+    return torch.topk(torch.cdist(q, c), k, dim=-1, largest=False).indices
+
+
+def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
+    """[knn] (see the module docstring).  Returns the k-NN kernel's record
+    of the JSON line."""
+    from pvn3d_tpu_torch.config import ffb6d_config
+    from pvn3d_tpu_torch.data.device_frame import build_inference_batch_device
+    from pvn3d_tpu_torch.data.ffb6d_index import searches
+    from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
+    from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
+    from pvn3d_tpu_torch.ops.kernels import KERNELS, KNN_KERNELS
+    from pvn3d_tpu_torch.ops.kernels.knn import KERNEL, knn, knn_plain
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = ffb6d_config()
+    mc = cfg.model
+    h, w, n = mc.image_height, mc.image_width, mc.n_sample_points
+
+    def request(i):
+        rgb, depth, k = synth_sensor_frame(h, w, seed=i)
+        return {"rgb": rgb, "depth": depth, "cam_k": k}
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(i)
+
+    # The 22 searches of one full-size frame's index, index for index.
+    frame = request(seed)
+    built = build_inference_batch_device(
+        *(torch.as_tensor(frame[key], device=dev)
+          for key in ("rgb", "depth", "cam_k")), n, generator=gen(seed),
+        priority_order=True)
+    todo, _, _ = searches(built["pointcloud"][..., :3], built["cloud_map"],
+                          mc)
+    rows = []
+    for name, q, c, k in todo:
+        b, nq, nc = q.shape[0], q.shape[1], c.shape[1]
+        got, want = knn(q, c, k), knn_plain(q, c, k)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(-1).sum())
+            raise AssertionError(f"knn {name} {nq}x{nc} k={k}: {bad} rows "
+                                 f"differ from the plain version")
+        bound, by = bound_ms(b * (12.0 * (nq + nc) + 4.0 * nq * k),
+                             D2_FLOPS * b * nq * nc)
+        rec = {"search": name, "q": nq, "c": nc, "k": k,
+               "ms": time_ms(lambda: knn(q, c, k), reps=10),
+               "device_ms": device_ms(lambda: knn(q, c, k)),
+               "plain_ms": time_ms(lambda: knn_plain(q, c, k), reps=1),
+               "library_ms": time_ms(lambda: _knn_library(q, c, k), reps=1),
+               "bound_ms": bound, "bound_by": by}
+        rec["roofline_pct"] = 100.0 * bound / rec["device_ms"]
+        rows.append(rec)
+        log("knn", json.dumps(rec))
+    total = {key: sum(r[key] for r in rows) for key in
+             ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    log("knn", f"{len(rows)} searches, each equal to the plain version "
+        f"index for index; sums: " + json.dumps(total) + f" [{smi}]")
+
+    # FFB6D requests through the serving step, every launch count set to
+    # 0 just before: 22 searches a request, no K1-K3 (no PointNet++).
+    step = make_raw_inference_step(cfg, build_model(mc, seed),
+                                   stacked_mesh_kps(mc.n_classes),
+                                   stacked_class_radii(), device=dev)
+    step(request(1000), gen(1000))                           # warm-up
+    torch.cuda.synchronize()
+    for kern in KERNELS + KNN_KERNELS:
+        kern.launches = 0
+    lat = []
+    for i in range(requests):
+        batch = request(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch, gen(i))
+        poses = out["poses"].cpu()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if poses.shape != (1, mc.n_classes, 3, 4) or not bool(
+                torch.isfinite(poses).all()):
+            raise AssertionError(f"knn: FFB6D request {i}: poses "
+                                 f"{tuple(poses.shape)}")
+    launches = {kern.name: kern.launches for kern in KERNELS + KNN_KERNELS}
+    want = dict(_expected_launches(winner=launches["winner"]),
+                knn=22 * requests)
+    if launches != want:
+        raise AssertionError(f"knn: launches {launches} over {requests} "
+                             f"FFB6D requests, expected {want}")
+    log("knn", f"{requests} FFB6D requests, {h}x{w} RGB-D -> {n} points: "
+        f"latency ms " + ", ".join(f"{t:.2f}" for t in lat)
+        + f"; launches {launches} [{smi}]")
+    return {"name": KERNEL.name, "route": "cuda",
+            "source": os.path.relpath(KERNEL.source, ROOT),
+            "replaces": "none: FFB6D's neighbour index",
+            "launches": launches["knn"], "launches_ffb6d": launches["knn"],
+            "max_abs_err": 0.0, "ms": total["ms"],
+            "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": total["library_ms"], "searches": rows,
+            "ffb6d_latency_ms": lat}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -4340,6 +4459,7 @@ def main() -> int:
     parallel_launches = phase_parallel(smi)
     _add_counts(parallel_launches, phase_remat(smi))
     bn = phase_bn(smi)
+    knn = phase_knn(smi)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -4402,6 +4522,7 @@ def main() -> int:
             line[-1].update(index_add_ms=r["index_add_ms"],
                             device_ms_train=t["device_ms"], ms_train=t["ms"],
                             levels_train=t["levels"])
+    line.append(knn)
     print(json.dumps({"kernels": line, "bn": bn}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

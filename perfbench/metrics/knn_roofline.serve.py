@@ -1,0 +1,10 @@
+"""The k-NN searches alone (``csrc/knn.cu`` through
+``ops/kernels/knn.py::knn``, layer ``k.knn``): their least time on their inputs over their device
+time in the traced requests.  The work counts 8 operations a query-
+candidate pair and the coordinates and indices once
+(``perfbench/work_ffb6d.py::knn_work``).  A program without the search
+reads nothing."""
+
+
+def read(ctx):
+    return ctx.roofline_pct(["k.knn"])

@@ -14,6 +14,11 @@ holds about one request's time plus the next submission's.
   python -m pvn3d_tpu_torch.apps.serve --source dir --frame_dir /path/frames \
       --torch_ckpt pvn3d_best.pth.tar
 
+``--model ffb6d`` serves FFB6D (``models/ffb6d.py``, ``config.
+ffb6d_config``: RandLA-Net point branch, bidirectional fusion at every
+stage, 12800 points, its neighbour index built on the card a frame)
+through the same step in place of PVN3D.
+
 ``--source dir`` reads <stem>-color.png / <stem>-depth.png pairs (YCB
 layout); ``--source synthetic`` serves the procedural sensor frame
 (``data.synthetic.synth_sensor_frame``).  ``--out poses.jsonl`` writes one
@@ -38,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pvn3d_tpu_torch.config import Config
+from pvn3d_tpu_torch.config import Config, ffb6d_config
 
 # YCB camera intrinsics of the dir source (the JAX app's).
 _YCB_K = np.array([[1066.778, 0, 312.986], [0, 1067.487, 241.310],
@@ -50,7 +55,10 @@ def build_argparser():
     p.add_argument("--checkpoint_dir", default="",
                    help="restore the latest train/checkpoint.py checkpoint")
     p.add_argument("--torch_ckpt", default="",
-                   help="a reference PyTorch PVN3D checkpoint")
+                   help="a PyTorch state dict with the model's keys")
+    p.add_argument("--model", choices=("pvn3d", "ffb6d"), default="pvn3d",
+                   help="the network served (ffb6d: YCB, random weights "
+                        "unless --torch_ckpt)")
     p.add_argument("--source", choices=("synthetic", "dir"),
                    default="synthetic")
     p.add_argument("--frame_dir", default="",
@@ -100,6 +108,9 @@ def _load_model(args, cfg: Config, dev: torch.device) -> torch.nn.Module:
     from pvn3d_tpu_torch.utils.weights import (build_model,
                                                load_torch_state_dict)
     if args.checkpoint_dir:
+        if args.model == "ffb6d":
+            raise SystemExit("--checkpoint_dir restores a PVN3D training "
+                             "state; FFB6D takes --torch_ckpt")
         from pvn3d_tpu_torch.train.checkpoint import CheckpointManager
         from pvn3d_tpu_torch.train.state import create_train_state
         manager = CheckpointManager(args.checkpoint_dir)
@@ -126,15 +137,15 @@ def frame_generator(i: int, dev: torch.device) -> torch.Generator:
 def main(argv=None, cfg: Optional[Config] = None) -> dict:
     """Serve ``--frames`` frames after ``--warmup`` and return the JSON
     record it prints.  ``cfg`` is the configuration served,
-    ``Config.ycb()`` unless given (a small one drives the app on the
-    CPU in seconds)."""
+    ``Config.ycb()`` (``ffb6d_config()`` with ``--model ffb6d``) unless
+    given (a small one drives the app on the CPU in seconds)."""
     args = build_argparser().parse_args(argv)
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.device import resolve_device
     dev = resolve_device(args.device)
-    cfg = cfg or Config.ycb()
+    cfg = cfg or (ffb6d_config() if args.model == "ffb6d" else Config.ycb())
     mc = cfg.model
     step = make_raw_inference_step(
         cfg, _load_model(args, cfg, dev), stacked_mesh_kps(mc.n_classes),

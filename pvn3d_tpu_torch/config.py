@@ -312,6 +312,51 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# FFB6D (He et al., CVPR 2021; ethnhe/FFB6D): the port's second network, on
+# the serving path only.  Kept apart from ModelConfig, so Config.ycb() stays
+# the JAX package's field for field.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RandLAConfig:
+    """The RandLA-Net point branch (FFB6D ``common.py::ConfigRandLA``,
+    ``models/RandLA/RandLANet.py``)."""
+    in_channels: int = 9          # in_c: xyz | rgb | normal
+    fc0_width: int = 8
+    k_n: int = 16                 # neighbours of LocSE, pooling, fusion
+    d_out: Tuple[int, ...] = (32, 64, 128, 256)
+    sub_sampling_ratio: Tuple[int, ...] = (4, 4, 4, 4)
+    # Decoder convs' outputs; each reads [skip ; nearest-interpolated].
+    decoder_widths: Tuple[int, ...] = (256, 128, 64, 64)
+    leaky_slope: float = 0.2      # RandLA pytorch_utils.Conv2d default
+
+
+@dataclasses.dataclass(frozen=True)
+class FFB6DConfig:
+    """FFB6D's network (``ffb6d/models/ffb6d.py``): the ResNet34-PSP image
+    branch run stage by stage, the RandLA-Net point branch, a bidirectional
+    fusion after each of the 4 encoder and 3 decoder stages, and the three
+    PVN3D-style heads on [image ; point] features.  ``cnn.embedding_dim``
+    is the width of ``final`` (a 1x1 conv + log-softmax applied twice)."""
+    n_classes: int = 22
+    n_keypoints: int = 8
+    n_sample_points: int = 12800   # 480 * 640 // 24 (ConfigRandLA)
+    cnn: CNNConfig = CNNConfig(embedding_dim=64)
+    randla: RandLAConfig = RandLAConfig()
+    ds_strides: Tuple[int, ...] = (4, 8, 8, 8)    # rgb_ds_sr
+    up_strides: Tuple[int, ...] = (4, 2, 2)       # rgb_up_sr
+    seg_head: Tuple[int, ...] = (128, 128, 128)
+    kp_head: Tuple[int, ...] = (128, 128, 128)
+    ctr_head: Tuple[int, ...] = (128, 128, 128)
+    image_height: int = 480
+    image_width: int = 640
+    compute_dtype: str = "bfloat16"
+    # The last image stage (up_3 + final) only at the sampled pixels in
+    # eval mode at batch 1, as ModelConfig.sparse_cnn_eval.
+    sparse_cnn_eval: bool = True
+
+
+# ---------------------------------------------------------------------------
 # Training configuration (reference: common.py:36-47, train_ycb_pvn3d.py)
 # ---------------------------------------------------------------------------
 
@@ -450,6 +495,24 @@ class Config:
 def replace(cfg, **kw):
     """Functional update helper for any config dataclass."""
     return dataclasses.replace(cfg, **kw)
+
+
+def ffb6d_config(**kw) -> Config:
+    """FFB6D on YCB-Video: ``Config.ycb()``'s dataset, clustering and ICP
+    settings with the FFB6D network and its 12800 sampled points."""
+    model = FFB6DConfig()
+    return Config(dataset=DatasetConfig(
+        name="ycb", n_sample_points=model.n_sample_points, **kw),
+        model=model)
+
+
+def small_ffb6d_config() -> FFB6DConfig:
+    """FFB6D away from the full size: a 64x80 image and 1280 points (so
+    every level keeps at least 16 after the first three quarterings),
+    published widths, float32 compute."""
+    return dataclasses.replace(FFB6DConfig(), compute_dtype="float32",
+                               image_height=64, image_width=80,
+                               n_sample_points=1280)
 
 
 def small_model_config() -> ModelConfig:

@@ -51,7 +51,8 @@ def build_inference_batch_device(rgb: torch.Tensor, depth: torch.Tensor,
                                  cam_k: torch.Tensor, n_sample: int,
                                  cam_scale: float = 1.0, fill: bool = True,
                                  generator: Optional[torch.Generator] = None,
-                                 priorities: Optional[torch.Tensor] = None
+                                 priorities: Optional[torch.Tensor] = None,
+                                 priority_order: bool = False
                                  ) -> Dict[str, torch.Tensor]:
     """Raw frames -> network inputs, on the device the tensors lie on.
 
@@ -63,10 +64,14 @@ def build_inference_batch_device(rgb: torch.Tensor, depth: torch.Tensor,
       generator: draws the priorities when ``priorities`` is not given
         (None: the device's default generator).
       priorities: (B, H*W) priorities in (0, 1] to use instead of a draw.
+      priority_order: keep the sample in priority order (a uniformly random
+        order: FFB6D's levels are its leading quarters) instead of
+        ascending pixel order (PVN3D's).
 
     Returns pointcloud (B, N, 9) [xyz | rgb | normal], choose (B, N) int32
-    flat pixel indices (ascending), and depth_m (B, H, W), the filled depth
-    in metres.
+    flat pixel indices (ascending unless ``priority_order``), depth_m
+    (B, H, W), the filled depth in metres, and cloud_map (B, H, W, 3), its
+    camera-frame points (holes at the origin).
     """
     b, h, w = depth.shape
     p = h * w
@@ -77,22 +82,25 @@ def build_inference_batch_device(rgb: torch.Tensor, depth: torch.Tensor,
 
     if priorities is None:
         priorities = draw_priorities((b, p), depth.device, generator)
-    choose = select_pixels(valid_map.reshape(b, p), priorities, n_sample)
+    choose = select_pixels(valid_map.reshape(b, p), priorities, n_sample,
+                           ascending=not priority_order)
     return {"pointcloud": gather_points(choose, cloud_map, rgb, nrm_map),
-            "choose": choose.to(torch.int32), "depth_m": depth_m}
+            "choose": choose.to(torch.int32), "depth_m": depth_m,
+            "cloud_map": cloud_map}
 
 
 def select_pixels(valid: torch.Tensor, priorities: torch.Tensor,
-                  n_sample: int) -> torch.Tensor:
+                  n_sample: int, ascending: bool = True) -> torch.Tensor:
     """The ``n_sample`` valid pixels of highest priority per frame of
-    (B, P) masks, as ascending flat indices (B, n_sample) (int64); equal
-    priorities keep the lower index first, and a frame with fewer valid
-    pixels repeats its first selected pixel."""
+    (B, P) masks, as flat indices (B, n_sample) (int64), ascending or, with
+    ``ascending`` False, in descending priority; equal priorities keep the
+    lower index first, and a frame with fewer valid pixels repeats its
+    first selected pixel."""
     score = torch.where(valid, priorities.float(), -1.0)
     top, sel = torch.sort(score, dim=1, descending=True, stable=True)
     top, sel = top[:, :n_sample], sel[:, :n_sample]
     sel = torch.where(top > 0.0, sel, sel[:, :1])       # under-budget pad
-    return torch.sort(sel, dim=1).values
+    return torch.sort(sel, dim=1).values if ascending else sel
 
 
 def gather_points(choose: torch.Tensor, cloud_map: torch.Tensor,

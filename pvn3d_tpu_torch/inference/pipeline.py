@@ -68,7 +68,8 @@ def _make_serve(cfg: Config, model: torch.nn.Module, mesh_kps, radii,
     """What both serving steps share: the device (TF32 off), the model on
     it in eval mode, and ``serve(pointcloud, rgb, choose, batch)`` ->
     {poses, present, kps, seg}, plus per-instance add / adds against the
-    batch's GT slots (``cls_ids``, ``rts``) when meshes are given."""
+    batch's GT slots (``cls_ids``, ``rts``) when meshes are given.
+    ``model_inputs`` (FFB6D's ``index``) go to the forward as they are."""
     dev = resolve_device(device)
     disable_tf32()
     model = model.to(dev).eval()
@@ -78,8 +79,10 @@ def _make_serve(cfg: Config, model: torch.nn.Module, mesh_kps, radii,
         valid = torch.as_tensor(mesh_valid, device=dev).bool()
 
     def serve(pointcloud, rgb, choose, batch,
-              global_batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        out = model(pointcloud, rgb, choose, global_batch=global_batch)
+              global_batch: Optional[int] = None,
+              **model_inputs) -> Dict[str, torch.Tensor]:
+        out = model(pointcloud, rgb, choose, global_batch=global_batch,
+                    **model_inputs)
         seg = torch.argmax(out["seg_logits"], dim=-1).to(torch.int32)
         frame = pose_fn(pointcloud[..., :3], seg, out["ctr_offsets"],
                         out["kp_offsets"])
@@ -115,7 +118,13 @@ def make_inference_step(cfg: Config, model: torch.nn.Module,
     With a ``mesh``, every rank calls ``step`` on the same global batch,
     runs its rows (``shard_batch``; the CNN tail is chosen on the global
     batch) and returns the global result (``gather``).
+
+    A model with ``frame_inputs`` (FFB6D) serves raw frames only
+    (``make_raw_inference_step``): its inputs need the frame's cloud map.
     """
+    if hasattr(model, "frame_inputs"):
+        raise ValueError("FFB6D serves raw frames: use "
+                         "make_raw_inference_step")
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
     calls = itertools.count()
@@ -162,10 +171,17 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
     With a ``mesh``, as ``make_inference_step``: the global
     ``priorities`` (drawn for the global batch when not given) are
     sharded with the batch.
+
+    A model with a ``frame_inputs(xyz, cloud_map)`` method (FFB6D:
+    ``models/ffb6d.py``) takes the same arguments: its sample stays in
+    priority order (a random one), and the inputs the method makes from
+    the sampled points and the cloud map (FFB6D's neighbour index) go to
+    the forward and into the result.
     """
     dev, serve = _make_serve(cfg, model, mesh_kps, radii, mesh_pts,
                              mesh_valid, refine_mask, device)
     n_sample = cfg.model.n_sample_points
+    frame_inputs = getattr(model, "frame_inputs", None)
     calls = itertools.count()
 
     @torch.inference_mode()
@@ -191,10 +207,14 @@ def make_raw_inference_step(cfg: Config, model: torch.nn.Module,
                 built = build_inference_batch_device(
                     rgb, depth, cam_k, n_sample, cam_scale=cam_scale,
                     fill=fill_depth, generator=generator,
-                    priorities=priorities)
+                    priorities=priorities,
+                    priority_order=frame_inputs is not None)
+            cloud_map = built.pop("cloud_map")
+            inputs = ({} if frame_inputs is None else
+                      frame_inputs(built["pointcloud"][..., :3], cloud_map))
             result = serve(built["pointcloud"], rgb, built["choose"], batch,
-                           n)
-            result.update(built)
+                           n, **inputs)
+            result.update(built, **inputs)
             return result if mesh is None else gather(mesh, result)
 
     return step

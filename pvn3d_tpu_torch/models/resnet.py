@@ -72,10 +72,20 @@ class DilatedResNet(nn.Module):
             self.add_module(f"layer{s + 1}", nn.Sequential(*blocks))
             in_planes = planes
 
-    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        """conv1 + BN + ReLU + the 3x3 max pool: stride 4, 64 channels."""
         x = self.bn1.nchw(conv2d(x, self.conv1), bn_momentum, relu=True)
-        x = max_pool_3x3_s2(x)
+        return max_pool_3x3_s2(x)
+
+    def stage(self, s: int, x: torch.Tensor, bn_momentum=0.1
+              ) -> torch.Tensor:
+        """``layer{s}`` (s = 1..4); FFB6D runs the stages one by one."""
+        for block in getattr(self, f"layer{s}"):
+            x = block(x, bn_momentum)
+        return x
+
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        x = self.stem(x, bn_momentum)
         for s in range(1, 5):
-            for block in getattr(self, f"layer{s}"):
-                x = block(x, bn_momentum)
+            x = self.stage(s, x, bn_momentum)
         return x

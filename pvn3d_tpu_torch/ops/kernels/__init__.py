@@ -21,15 +21,19 @@ bn_finish          the JAX package (models/layers.py:29-69)    bn.cu
 bn_apply                                                        (five
 bn_bwd_reduce                                                   entry
 bn_bwd_apply                                                    points)
+knn                none: FFB6D's neighbour index (the JAX      knn.py /
+                   package runs PVN3D only)                     knn.cu
 =================  ==========================================  ============
 
 The instances of one source share its library and count their launches
 apart.  ``KERNELS`` holds the ports of the TPU kernels, ``BN_KERNELS`` the
-BatchNorm pair, which the training step alone launches.
+BatchNorm pair, which the training step alone launches, ``KNN_KERNELS``
+the k-NN search, which FFB6D's serving step launches.
 """
-from pvn3d_tpu_torch.ops.kernels import bn, fps, interp, query, winner
+from pvn3d_tpu_torch.ops.kernels import bn, fps, interp, knn, query, winner
 
 KERNELS = (fps.KERNEL, query.KERNEL, query.KERNEL_EXPANDED, query.KERNEL_BF16,
            query.KERNEL_CAPACITY, interp.KERNEL, interp.KERNEL_EXPANDED,
            interp.KERNEL_BWD, winner.KERNEL)
 BN_KERNELS = bn.KERNELS
+KNN_KERNELS = (knn.KERNEL,)

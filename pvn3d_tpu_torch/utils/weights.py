@@ -34,8 +34,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from pvn3d_tpu_torch.config import ModelConfig
+from pvn3d_tpu_torch.config import FFB6DConfig, ModelConfig
 from pvn3d_tpu_torch.models.layers import BatchNorm, PReLU
+from pvn3d_tpu_torch.models.ffb6d import FFB6D
 from pvn3d_tpu_torch.models.pvn3d import PVN3D
 
 
@@ -305,10 +306,11 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     return out
 
 
-def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
-    """A ``PVN3D`` for ``cfg`` with ``seeded_state_dict`` weights, on the
-    CPU (move it with ``.to(device)``)."""
-    model = PVN3D(cfg)
+def build_model(cfg: ModelConfig | FFB6DConfig, seed: int = 0) -> nn.Module:
+    """A ``PVN3D`` for ``cfg`` (an ``FFB6D`` for an ``FFB6DConfig``) with
+    ``seeded_state_dict`` weights, on the CPU (move it with
+    ``.to(device)``)."""
+    model = FFB6D(cfg) if isinstance(cfg, FFB6DConfig) else PVN3D(cfg)
     model.load_state_dict(seeded_state_dict(model, seed), strict=True)
     return model
 
