@@ -276,7 +276,20 @@ that fails):
                through ``make_raw_inference_step`` with every launch count
                set to 0 just before: 22 k-NN launches a request, no K1-K3,
                their latency.
-19. a JSON line per kernel and kernel instance (launches on the serving
+19. image_graph — the image branch as replayed CUDA graphs
+               (``utils/graphs.py``), in a process of its own
+               (``python3 chip_smoke.py --image-graph SMI``): PVN3D's ``PSPNetEmbedding`` at
+               ``Config.ycb()``'s widths at batch 1 with the sparse tail
+               (12288 chosen pixels) and at batch 2 dense, and FFB6D's
+               eight image stages on a full-size request's own inputs:
+               the max abs gap of each replay against the eager forward
+               (0 expected: the same kernels on the same buffers), the
+               captures and replays, host (enqueue) ms, wall ms and device
+               ms of a call eagerly and as a replay; then one raw ycb
+               request with the graph held off and one with it: its
+               launches (the graph's kernels counted apart), device ms,
+               wall ms and peak memory.
+20. a JSON line per kernel and kernel instance (launches on the serving
    slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
    mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
    the [parallel] and [remat] runs (``launches_parallel``); the k-NN
@@ -337,8 +350,9 @@ def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
     return statistics.median(out)
 
 
-# CUDA runtime calls that launch a kernel.
+# CUDA runtime calls that launch a kernel, and one that launches a graph's.
 _LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
+_GRAPH_CALL = "GraphLaunch"
 # Marker kernels launched at the start and at the end of each trace, not
 # counted: the launches whose device records a trace loses.
 _MARKERS = 16
@@ -351,7 +365,9 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     not counted), the kernels whose names hold each of ``names`` and their
     device time (``named_ms``), and whether the trace is complete: each
     kernel launch of ``fn`` that the runtime recorded has its device
-    record, matched by correlation id
+    record, matched by correlation id (a replayed graph's kernels, which
+    share their graph launch's id, are counted apart: ``graph_kernels``
+    of ``graph_launches``)
     (copies are not held so: a memset of no bytes leaves no record).  On
     an H100 a trace loses device records, never runtime calls: once
     earlier phases have run, those of its first launches (which the
@@ -378,7 +394,13 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     calls = sorted((e for e in ev if e.device_type() != DeviceType.CUDA
                     and any(n in e.name() for n in _LAUNCH_CALLS)),
                    key=lambda e: e.start_ns())[_MARKERS:-_MARKERS]
+    # A replayed graph's kernels carry its one launch's correlation id.
+    graphs = {e.correlation_id() for e in ev
+              if e.device_type() != DeviceType.CUDA
+              and _GRAPH_CALL in e.name()}
     copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in dev)
+    in_graphs = sum(e.correlation_id() in graphs and not e.name().startswith(
+        ("Memcpy", "Memset")) for e in dev)
     syncs = sum("Synchronize" in e.name() for e in ev
                 if e.device_type() != DeviceType.CUDA)
     by_corr = {e.correlation_id(): e.name() for e in dev}
@@ -392,8 +414,9 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
             "named": {n: sum(n in e.name() for e in dev) for n in names},
             "named_ms": {n: sum(e.duration_ns() for e in dev
                                 if n in e.name()) / 1e6 for n in names},
+            "graph_launches": len(graphs), "graph_kernels": in_graphs,
             "lost": sum(e.correlation_id() not in recorded for e in calls),
-            "complete": len(dev) - copies == len(calls) and all(
+            "complete": len(dev) - copies - in_graphs == len(calls) and all(
                 e.correlation_id() in recorded for e in calls)}
 
 
@@ -4439,6 +4462,189 @@ def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
             "ffb6d_latency_ms": lat}
 
 
+def _host_wall_ms(fn, reps: int = 5):
+    """Medians over ``reps`` calls of ``fn`` (after one untimed): the host
+    ms until ``fn`` returns (its enqueue) and the wall ms until the device
+    is done."""
+    fn()
+    host, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def _max_gap(a, b) -> float:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _graph_case(name, graphed, eager, smi) -> dict:
+    """One graphed call against its eager twin on the same inputs: the
+    first call (warm-up, capture and replay) and the next two (replays)
+    each against the eager forward, and both timed."""
+    from pvn3d_tpu_torch.utils import graphs
+    with torch.inference_mode():
+        want = eager()
+        c0, r0 = graphs.COUNTS.captures, graphs.COUNTS.replays
+        gaps = [_max_gap(graphed(), want) for _ in range(3)]
+        counts = (graphs.COUNTS.captures - c0, graphs.COUNTS.replays - r0)
+        if counts != (1, 3):
+            raise AssertionError(f"image_graph {name}: captures, replays "
+                                 f"{counts} over 3 calls, expected (1, 3)")
+        rec = {"case": name, "gap_capture": gaps[0],
+               "gap_replay": max(gaps[1:])}
+        for side, fn in (("eager", eager), ("replay", graphed)):
+            host, wall = _host_wall_ms(fn)
+            rec[f"{side}_host_ms"], rec[f"{side}_wall_ms"] = host, wall
+            rec[f"{side}_device_ms"] = device_ms(fn, reps=3)
+    if not all(torch.isfinite(t).all() for t in
+               (want if isinstance(want, tuple) else (want,))):
+        raise AssertionError(f"image_graph {name}: non-finite outputs")
+    log("image_graph", json.dumps(rec) + f" [{smi}]")
+    return rec
+
+
+def phase_image_graph(smi: str, seed: int = 0) -> dict:
+    """[image_graph] (see the module docstring).  Returns its records."""
+    from pvn3d_tpu_torch.config import Config, ffb6d_config
+    from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
+    from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
+    from pvn3d_tpu_torch.utils import graphs
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    mc = cfg.model
+    h, w, n = mc.image_height, mc.image_width, mc.n_sample_points
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(mc, seed).to(dev)
+    branch = model.cnn.model
+    out = {"cases": []}
+    for b, sparse in ((2, False), (1, True)):
+        rgb = torch.rand(b, h, w, 3, generator=g, device=dev).to(model.dtype)
+        choose = (torch.randperm(h * w, generator=g, device=dev)[:n]
+                  .sort().values[None] if sparse else None)
+        out["cases"].append(_graph_case(
+            f"pvn3d b{b} {'sparse' if sparse else 'dense'}",
+            lambda: branch(rgb, choose=choose),
+            lambda: branch._forward(rgb, choose=choose), smi))
+    # The same calls inside a profiler trace of CPU and CUDA activity, as
+    # the benchmark's traced runs take: CUPTI records each of a replayed
+    # graph's kernels, which costs the host.
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced = {}
+    with torch.inference_mode():
+        for side, fn in (("eager", lambda: branch._forward(rgb, choose=choose)),
+                         ("replay", lambda: branch(rgb, choose=choose))):
+            with torch.profiler.profile(activities=acts) as prof:
+                host, wall = _host_wall_ms(fn)
+            launch = [e.cpu_time_total / 1e3 for e in prof.events()
+                      if e.name == "cudaGraphLaunch"]
+            traced[side] = {"host_ms": host, "wall_ms": wall,
+                            "graph_launch_ms": (statistics.median(launch)
+                                                if launch else None)}
+    out["traced"] = traced
+    log("image_graph", "pvn3d b1 sparse under a CPU + CUDA profiler: "
+        + json.dumps(traced) + f" [{smi}]")
+
+    # FFB6D's eight stages on the inputs one full-size request gives them.
+    fcfg = ffb6d_config()
+    fmodel = build_model(fcfg.model, seed).to(dev)
+    fstep = make_raw_inference_step(
+        fcfg, fmodel, stacked_mesh_kps(fcfg.model.n_classes),
+        stacked_class_radii(), device=dev)
+    fh, fw = fcfg.model.image_height, fcfg.model.image_width
+    rgb_np, depth_np, k_np = synth_sensor_frame(fh, fw, seed=seed)
+    stages = []
+    for attr in ("image_stage", "image_last"):
+        with _capture(fmodel, attr, stages):
+            fstep({"rgb": rgb_np, "depth": depth_np, "cam_k": k_np},
+                  torch.Generator(device=dev).manual_seed(seed))
+    calls = [(a, o) for a, _, o in stages]
+    graphs.store(fmodel).entries.clear()
+    graphs.store(fmodel).pool = None
+    for args, _ in calls:
+        if len(args) == 3 and isinstance(args[0], str):
+            kind, i, x = args
+            out["cases"].append(_graph_case(
+                f"ffb6d {kind}{i}",
+                lambda: fmodel.image_stage(kind, i, x),
+                lambda: fmodel._image_stage(kind, i, x), smi))
+        else:
+            x, choose, batch = args
+            sparse = fmodel.uses_sparse_tail(batch)
+            out["cases"].append(_graph_case(
+                "ffb6d last",
+                lambda: fmodel.image_last(x, choose, batch),
+                lambda: fmodel._image_last(x, choose, sparse), smi))
+    if len(out["cases"]) != 2 + 8:
+        raise AssertionError(f"image_graph: {len(out['cases']) - 2} FFB6D "
+                             f"stage calls a request, expected 8")
+    gaps = max(max(c["gap_capture"], c["gap_replay"]) for c in out["cases"])
+    log("image_graph", f"max gap replay vs eager over the {len(out['cases'])}"
+        f" cases: {gaps:.3e}; sums, eager / replay: host ms "
+        f"{sum(c['eager_host_ms'] for c in out['cases'][2:]):.2f} / "
+        f"{sum(c['replay_host_ms'] for c in out['cases'][2:]):.2f}, wall "
+        f"{sum(c['eager_wall_ms'] for c in out['cases'][2:]):.2f} / "
+        f"{sum(c['replay_wall_ms'] for c in out['cases'][2:]):.2f} over "
+        f"FFB6D's 8 stages")
+    del fstep, fmodel, stages, calls
+
+    # One raw ycb request, the graph held off and on: launches, device,
+    # wall and peak memory.
+    step = make_raw_inference_step(cfg, model, stacked_mesh_kps(),
+                                   stacked_class_radii(), device=dev)
+
+    def request(i):
+        rgb, depth, k = synth_sensor_frame(h, w, seed=i)
+        return {"rgb": rgb, "depth": depth, "cam_k": k}
+    real = graphs.engages
+    for side in ("eager", "graph"):
+        if side == "eager":
+            graphs.engages = lambda m, i: False
+        graphs.store(branch).entries.clear()
+        graphs.store(branch).pool = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            walls = []
+
+            def traced():
+                t0 = time.perf_counter()
+                step(request(4), torch.Generator(device=dev).manual_seed(4))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            for i in range(3):
+                step(request(i), torch.Generator(device=dev).manual_seed(i))
+            tr = _complete_traces(traced)[0]
+            _, wall = _host_wall_ms(traced)
+        finally:
+            graphs.engages = real
+        rec = {"side": side, "host_launches": (
+            tr["kernels"] - tr["graph_kernels"] + tr["copies"]
+            + tr["graph_launches"]),
+            "kernels": tr["kernels"], "graph_kernels": tr["graph_kernels"],
+            "graph_launches": tr["graph_launches"], "copies": tr["copies"],
+            "syncs": tr["syncs"], "device_ms": tr["device_ms"],
+            "wall_ms": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        out[side] = rec
+        log("image_graph", "one raw ycb request, " + json.dumps(rec)
+            + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -4460,6 +4666,12 @@ def main() -> int:
     _add_counts(parallel_launches, phase_remat(smi))
     bn = phase_bn(smi)
     knn = phase_knn(smi)
+    # In a process of its own: late in a long run a profiler trace loses
+    # the device records of more of its first launches than the markers
+    # take, and this phase's device times need complete traces.
+    sys.stdout.flush()
+    subprocess.run([sys.executable, __file__, "--image-graph", smi],
+                   check=True)
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -4534,4 +4746,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(*map(int, sys.argv[2:5])))
+    if sys.argv[1:2] == ["--image-graph"]:
+        phase_build()
+        phase_image_graph(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

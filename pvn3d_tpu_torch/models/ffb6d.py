@@ -31,7 +31,8 @@ are.  The neighbour index (``data/ffb6d_index.py``) is an argument of the
 forward; the serving step builds it through ``frame_inputs``.  Each piece
 opens its span: ``pvn3d.neighbour_index``, ``pvn3d.image_branch``,
 ``pvn3d.point_branch``, ``pvn3d.fusion`` (both directions of a stage) and
-``pvn3d.heads``.
+``pvn3d.heads``.  On the card each of the eight image stages replays a
+CUDA graph (``utils/graphs.py``).
 
 One restructure of the literal graph: ``p2r_fuse``'s product on the
 concatenation is split, and its gathered half is taken on the points
@@ -55,10 +56,11 @@ from pvn3d_tpu_torch.models.randla import (ConvBNAct, RandLANet, gather_rows,
                                            nearest_interpolation,
                                            random_sample)
 from pvn3d_tpu_torch.models.resnet import DilatedResNet
+from pvn3d_tpu_torch.utils.graphs import Graphed
 from pvn3d_tpu_torch.utils.profiling import annotate
 
 
-class FFB6D(nn.Module):
+class FFB6D(Graphed):
     """``forward(pointcloud (B, N, 9), rgb (B, H, W, 3), choose (B, N),
     index)`` -> ``seg_logits`` (B, N, n_classes), ``kp_offsets``
     (B, n_kps, N, 3), ``ctr_offsets`` (B, 1, N, 3), float32.  The points
@@ -131,39 +133,53 @@ class FFB6D(nn.Module):
     def image_stage(self, kind: str, i: int, x: torch.Tensor
                     ) -> torch.Tensor:
         """Encoder (``ds``) or decoder (``up``) image stage ``i``: NCHW in
-        and out."""
-        feats = self.cnn.feats
+        and out; on the card in eval mode with autograd off, a replayed
+        CUDA graph a stage (``utils/graphs.py``)."""
         with annotate("pvn3d.image_branch"):
-            if kind == "ds":
-                if i == 0:
-                    return feats.stage(1, feats.stem(x))
-                if i == 1:
-                    return feats.stage(2, x)
-                if i == 2:
-                    return feats.stage(4, feats.stage(3, x))
-                return self.cnn.psp(x)
-            if i < 2:
-                up = getattr(self.cnn, f"up_{i + 1}")
-                fused = self.cfg.cnn.fuse_upsample and not self.training
-                return up.fused(x) if fused else up(x)
-            y = self._final(x.permute(0, 2, 3, 1))
-            return y.permute(0, 3, 1, 2)
+            return self.graphed((kind, i),
+                                lambda t: self._image_stage(kind, i, t), x)
+
+    def _image_stage(self, kind: str, i: int, x: torch.Tensor
+                     ) -> torch.Tensor:
+        feats = self.cnn.feats
+        if kind == "ds":
+            if i == 0:
+                return feats.stage(1, feats.stem(x))
+            if i == 1:
+                return feats.stage(2, x)
+            if i == 2:
+                return feats.stage(4, feats.stage(3, x))
+            return self.cnn.psp(x)
+        if i < 2:
+            up = getattr(self.cnn, f"up_{i + 1}")
+            fused = self.cfg.cnn.fuse_upsample and not self.training
+            return up.fused(x) if fused else up(x)
+        y = self._final(x.permute(0, 2, 3, 1))
+        return y.permute(0, 3, 1, 2)
 
     def image_last(self, x: torch.Tensor, choose: torch.Tensor,
                    batch: int) -> torch.Tensor:
         """``up_3`` + ``final`` at the (B, N) chosen full-resolution
         pixels -> (B, N, C): sparse when a forward of ``batch`` frames
-        takes the sparse tail, else the dense map gathered."""
+        takes the sparse tail, else the dense map gathered; a replayed
+        graph as ``image_stage``."""
+        sparse = self.uses_sparse_tail(batch)
+        with annotate("pvn3d.image_branch"):
+            return self.graphed(
+                ("last", sparse),
+                lambda t, c: self._image_last(t, c, sparse), x, choose)
+
+    def _image_last(self, x: torch.Tensor, choose: torch.Tensor,
+                    sparse: bool) -> torch.Tensor:
         b = x.shape[0]
         last = getattr(self.cnn, f"up_{len(self.cfg.cnn.up_channels)}")
-        with annotate("pvn3d.image_branch"):
-            if self.uses_sparse_tail(batch):
-                out_w = 2 * x.shape[-1]
-                choose = choose.int()
-                return self._final(last.sparse(x, choose // out_w,
-                                               choose % out_w))
-            y = self._final(last(x).permute(0, 2, 3, 1))
-            return gather_rows(y.reshape(b, -1, y.shape[-1]), choose)
+        if sparse:
+            out_w = 2 * x.shape[-1]
+            choose = choose.int()
+            return self._final(last.sparse(x, choose // out_w,
+                                           choose % out_w))
+        y = self._final(last(x).permute(0, 2, 3, 1))
+        return gather_rows(y.reshape(b, -1, y.shape[-1]), choose)
 
     # -- the point branch (channels last) ------------------------------------
     def point_input(self, pointcloud: torch.Tensor) -> torch.Tensor:

@@ -284,19 +284,6 @@ def shifted_resize_matrix(src: int, dst: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def shifted_resize_tensor(src: int, dst: int, align_corners: bool,
-                          dtype: torch.dtype,
-                          device: torch.device) -> torch.Tensor:
-    """``shifted_resize_matrix`` as a tensor of ``dtype`` on ``device``,
-    built once per shape, dtype and device.  Made outside inference mode,
-    so a later forward that records a graph may use it too."""
-    with torch.inference_mode(False):
-        return torch.as_tensor(
-            shifted_resize_matrix(src, dst, align_corners),
-            device=device).to(dtype)
-
-
 def _adaptive_pool_matrix(src: int, dst: int) -> np.ndarray:
     """(dst, src) averaging weights with torch AdaptiveAvgPool2d bins."""
     out = np.zeros((dst, src), np.float32)
@@ -307,13 +294,33 @@ def _adaptive_pool_matrix(src: int, dst: int) -> np.ndarray:
     return out
 
 
-def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
-               channels_last: bool) -> torch.Tensor:
-    # Copies from pageable host memory: on the card each waits for the
-    # stream to drain.
-    with annotate("pvn3d.read.separable_weights"):
-        wh_t = torch.as_tensor(wh, dtype=x.dtype, device=x.device)
-        ww_t = torch.as_tensor(ww, dtype=x.dtype, device=x.device)
+_SEPARABLE = {"resize": _resize_matrix,
+              "shifted": shifted_resize_matrix,
+              "pool": lambda src, dst, _: _adaptive_pool_matrix(src, dst)}
+
+
+@functools.lru_cache(maxsize=None)
+def separable_tensor(kind: str, src: int, dst: int, align_corners: bool,
+                     dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """The matrix of one axis of a separable map as a tensor of ``dtype``
+    on ``device``, built once per key: ``kind`` "resize"
+    (``_resize_matrix``, (dst, src)), "shifted"
+    (``shifted_resize_matrix``, (dst, 3 src)) or "pool"
+    (``_adaptive_pool_matrix``, (dst, src); ``align_corners`` unused).  A
+    forward copies no host matrix, so it waits for no queue and can be
+    captured in a CUDA graph.  Made outside inference mode, so a later
+    forward that records a graph may use it too."""
+    m = _SEPARABLE[kind](src, dst, align_corners)
+    with torch.inference_mode(False):
+        return torch.as_tensor(m, device=device).to(dtype)
+
+
+def _separable(x: torch.Tensor, kind: str, out_h: int, out_w: int,
+               align_corners: bool, channels_last: bool) -> torch.Tensor:
+    h, w = (x.shape[-3], x.shape[-2]) if channels_last else x.shape[-2:]
+    wh_t = separable_tensor(kind, h, out_h, align_corners, x.dtype, x.device)
+    ww_t = separable_tensor(kind, w, out_w, align_corners, x.dtype, x.device)
     if channels_last:
         x = torch.einsum("oh,...hwc->...owc", wh_t, x)
         return torch.einsum("ow,...hwc->...hoc", ww_t, x)
@@ -328,18 +335,15 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     with ``channels_last=False``) as two static-weight matmuls: the JAX
     package's ``method="matmul"`` (``layers.py:179-277``), torch's
     align-corners semantics."""
-    h, w = (x.shape[-3], x.shape[-2]) if channels_last else x.shape[-2:]
-    return _separable(x, _resize_matrix(h, out_h, align_corners),
-                      _resize_matrix(w, out_w, align_corners), channels_last)
+    return _separable(x, "resize", out_h, out_w, align_corners,
+                      channels_last)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int,
                       channels_last: bool = True) -> torch.Tensor:
     """Adaptive average pooling with torch's bins, as two matmuls
     (``layers.py:301-318`` of the JAX package)."""
-    h, w = (x.shape[-3], x.shape[-2]) if channels_last else x.shape[-2:]
-    return _separable(x, _adaptive_pool_matrix(h, out_h),
-                      _adaptive_pool_matrix(w, out_w), channels_last)
+    return _separable(x, "pool", out_h, out_w, False, channels_last)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -33,8 +33,9 @@ from pvn3d_tpu_torch.models.layers import (BatchNorm, PReLU,
                                            dropout, linear,
                                            named_sequential,
                                            resize_bilinear,
-                                           shifted_resize_tensor)
+                                           separable_tensor)
 from pvn3d_tpu_torch.models.resnet import DilatedResNet
+from pvn3d_tpu_torch.utils.graphs import Graphed
 
 
 class PSPModule(nn.Module):
@@ -97,8 +98,8 @@ class PSPUpsample(nn.Module):
         dt = x.dtype
         k = conv.weight.permute(1, 2, 3, 0).reshape(cin, 9 * co).to(dt)
         z = (x.permute(0, 2, 3, 1) @ k).reshape(b, h, w, 3, 3, co)
-        rh3 = shifted_resize_tensor(h, 2 * h, True, dt, x.device)
-        rw3 = shifted_resize_tensor(w, 2 * w, True, dt, x.device)
+        rh3 = separable_tensor("shifted", h, 2 * h, True, dt, x.device)
+        rw3 = separable_tensor("shifted", w, 2 * w, True, dt, x.device)
         # H pass over the stacked (tap i, h) axis.
         z = z.permute(0, 3, 1, 2, 4, 5).reshape(b, 3 * h, w * 3 * co)
         t = (rh3 @ z).reshape(b, 2 * h, w, 3, co)
@@ -173,14 +174,16 @@ class PSPUpsample(nn.Module):
         return self.conv[2](self.conv[1](y, bn_momentum))
 
 
-class PSPNetEmbedding(nn.Module):
+class PSPNetEmbedding(Graphed):
     """Full image branch.  ``forward(rgb (B, H, W, 3))`` returns the
     per-pixel embedding ``(B, H, W, embedding_dim)`` and the auxiliary
     log-softmax seg map ``(B, H, W, n_classes)``, channels-last; with
     ``choose`` (B, P) flat full-resolution pixel indices, the last stage
     and the heads run at those pixels only and both come as (B, P, .).
     ``fuse_up`` runs the upsample stages but the last through
-    ``PSPUpsample.fused`` in eval mode."""
+    ``PSPUpsample.fused`` in eval mode.  On the card in eval mode with
+    autograd off the forward replays a CUDA graph, one per input
+    signature and tail (``utils/graphs.py``)."""
 
     def __init__(self, n_classes: int = 22, sizes: Sequence[int] = (1, 2, 3, 6),
                  psp_features: int = 512, psp_out: int = 1024,
@@ -207,6 +210,19 @@ class PSPNetEmbedding(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 choose: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if choose is None:
+            return self.graphed(
+                ("dense",), lambda x: self._forward(x, bn_momentum,
+                                                    generator), rgb)
+        return self.graphed(
+            ("sparse",), lambda x, c: self._forward(x, bn_momentum,
+                                                    generator, c),
+            rgb, choose)
+
+    def _forward(self, rgb: torch.Tensor, bn_momentum=0.1,
+                 generator: Optional[torch.Generator] = None,
+                 choose: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.feats(rgb.permute(0, 3, 1, 2), bn_momentum)
         x = dropout(self.psp(x), self.dropout_psp, self.training, generator)
         fuse = self.fuse_up and not self.training

@@ -21,11 +21,14 @@ steps opens an ``annotate`` range named ``pvn3d.<stage>``:
 ``pvn3d.pose_stage`` (with ``pvn3d.meanshift.<fit>``), and
 ``pvn3d.step#<n>`` (one training step) holding ``pvn3d.forward``,
 ``pvn3d.backward``, ``pvn3d.optimizer`` and, in the train-mode forward,
-``pvn3d.bn``.  Every place where the host waits for the device's queue
-to drain opens ``pvn3d.read.<site>``: a read of a value (``host_read``),
-a copy from pageable host memory (which synchronises the stream), or a
-library call that reads.  A span's children are the ranges it holds on
-its thread.
+``pvn3d.bn``.  Where the image branch replays a CUDA graph
+(``utils/graphs.py``), ``pvn3d.image_branch`` holds
+``pvn3d.image_graph.capture`` (once a key) and
+``pvn3d.image_graph.replay``.  Every place where the host waits for the
+device's queue to drain opens ``pvn3d.read.<site>``: a read of a value
+(``host_read``), a copy from pageable host memory (which synchronises the
+stream), or a library call that reads.  A span's children are the ranges
+it holds on its thread.
 
 The ranges are host ranges on the profiler's own clock: kineto stamps
 them on the clock of the CUPTI device records, and each device record

@@ -38,7 +38,7 @@ torch.set_num_threads(1)
 
 from pvn3d_tpu_torch.inference.pipeline import make_inference_step  # noqa
 from pvn3d_tpu_torch.models.layers import (  # noqa: E402
-    shifted_resize_matrix, shifted_resize_tensor)
+    separable_tensor, shifted_resize_matrix)
 from pvn3d_tpu_torch.models.pointnet2 import FeaturePropagation  # noqa
 from pvn3d_tpu_torch.models.pvn3d import PVN3D  # noqa: E402
 from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,  # noqa
@@ -111,13 +111,13 @@ def test_shifted_resize_matrix_is_the_jax_one():
     for src, dst, ac in ((8, 16, True), (10, 20, True), (5, 12, False)):
         np.testing.assert_array_equal(shifted_resize_matrix(src, dst, ac),
                                       jax_shifted(src, dst, ac))
-    a = shifted_resize_tensor(8, 16, True, torch.float32,
-                              torch.device("cpu"))
-    assert a is shifted_resize_tensor(8, 16, True, torch.float32,
-                                      torch.device("cpu"))
+    a = separable_tensor("shifted", 8, 16, True, torch.float32,
+                         torch.device("cpu"))
+    assert a is separable_tensor("shifted", 8, 16, True, torch.float32,
+                                 torch.device("cpu"))
     with torch.inference_mode():
-        b = shifted_resize_tensor(9, 18, True, torch.float32,
-                                  torch.device("cpu"))
+        b = separable_tensor("shifted", 9, 18, True, torch.float32,
+                             torch.device("cpu"))
     assert not b.is_inference()
 
 

@@ -424,7 +424,7 @@ def test_a_request_holds_the_new_spans_and_makes_no_new_read():
     for f in named("pvn3d.fusion"):
         assert not any(within(r, f) for r in reads)
     assert {r.name for r in reads} <= {
-        "pvn3d.read.frame_upload", "pvn3d.read.separable_weights",
+        "pvn3d.read.frame_upload",
         "pvn3d.read.class_cap", "pvn3d.read.meanshift_bandwidth",
         "pvn3d.read.meanshift_threshold", "pvn3d.read.meanshift_stop",
         "pvn3d.read.svd"}

@@ -126,6 +126,15 @@ def test_serving_batch_norms_open_no_span(request_events):
     assert not _named(request_events, "pvn3d.bn")
 
 
+@pytest.mark.parametrize("name", ["pvn3d.read.separable_weights",
+                                  "pvn3d.image_graph."])
+def test_cpu_request_copies_no_matrix_and_replays_no_graph(name,
+                                                           request_events):
+    """The PSP matrices are made once (no read a request), and the CPU
+    runs the image branch eagerly (no capture, no replay)."""
+    assert not _named(request_events, name)
+
+
 def _frames(e):
     q = e.cpu_parent
     while q is not None:
