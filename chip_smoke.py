@@ -1,309 +1,148 @@
-"""Smoke run of the PyTorch port on one CUDA card.
+"""Check of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases (each logs lines tagged with its name; the script stops at the first
-that fails):
+Each phase logs lines tagged with its name; the script stops at the first
+check that fails.  The only timings are the kernel-alone ones (events,
+device time from a complete CUDA-only trace, plain version, library
+yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all seven CUDA sources from ``pvn3d_tpu_torch/csrc`` (one
-               ``nvcc`` per source, all at once) into ``build/kernels``;
-               nine kernel instances, the five BatchNorm entry points and
-               the k-NN search, each with its own launch count.
-3. kernels   — each kernel against its plain PyTorch version on the card
-               at the shapes the serving path gives it (indices exact,
-               floats within 1e-5), timed with CUDA events beside the
-               plain version, a library call where one computes the same
-               function (K2: cdist + where + topk; K3: cdist + topk +
-               gather), and the bound the card's peak rates set; K1's time
-               per step and K2's and K3's times per level are logged, each
-               also as device time from a ``torch.profiler`` trace kept
-               only when each launch has its device record (the kernel
-               without the host's launch cost); K3 forward logs
-               each level's grid and bound.  K3's backward kernel is held
-               bit for bit against its plain version at the training
-               step's shapes (batch 4, fp3 .. fp0), run twice for
-               determinism, and timed per level beside ``index_add_``, on
-               depth-camera clouds and on the training batch's own clouds
-               (``synthetic_batch``, whose clusters give lists of ~1800
-               hits); K1, K2 and K3 forward are checked once more at
-               batch 4 on both.  K4 is held bit for bit (twice) and
-               timed per pass (H = 21, 21, 168 at K = 512: grid, valid
-               points, events, device, bound, plain, and cdist + lt +
-               sum + argmax as the library yardstick) on synthetic votes
-               (every hypothesis 70% valid) and on the three passes' own
-               inputs, captured from the pose stage on labelled votes.
-4. edge      — the same comparison at shapes off the main paths, among
-               them the edge cases of K1's cluster split, K2's 32-point
-               runs, K3's lane split and tie order, and K3 backward's
-               tiles, long lists and scalar instances, and K4's
-               cluster shares, ties, tiles and empty hypotheses.
-5. slice     — the serving path at full width (``Config.ycb()``:
-               480x640, 12288 points, 22 classes) with seeded random
-               weights: three requests through ``make_inference_step``
-               with every launch count set to 0 just before and read just
-               after; poses finite, some class present, every kernel
-               launched.
-6. eval_graph — the eval graph at full width, batch 1, seeded random
-               weights, bf16 and float32: one request through the
-               default graph (the sparse CNN tail, the fused upsample
-               stages, the split heads, the SA/FP precompute) and through
-               the literal one (``sparse_cnn=False``, the four fields
-               off); the outputs within 0.05 (bf16) / 1e-4 (float32) x
-               max(1, |ref|) of the literal graph's and the seg argmax
-               agreeing on > 95% / 99.9% (the tolerances of
-               tests/test_torch_eval_graph.py), the pose difference
-               logged; in bf16 the two graphs' request latency (host
-               clock, 50 requests each, alternating in ABBA order:
-               median, p10, p90), each one's forward (events), device
-               time and launches (a CUDA-only trace); then K3 at the
-               eval graph's widths (fp3 .. fp0 blending W0 =
-               512/512/256/128 channels) against its plain version,
-               timed and bounded per level.
-7. raw       — raw RGB-D frames at full width (``synth_sensor_frame``,
-               480x640) through ``make_raw_inference_step``: three
-               requests with every launch count set to 0 just before and
-               read just after (fps 1, query 4, interp 4, winner 3 a
-               request, no backward); poses finite, some class present.
-               The frame build's stages by CUDA events (fill, normals +
-               cloud, sample + gather) and its launches and device time
-               in a profiler trace; the card's frame build against the
-               CPU's on the same frame and priorities (choose identical,
-               xyz and filled depth within 1e-5, rgb exact, normals within
-               1e-4 but for camera-facing flips by rounding); the metrics
-               branch (ADD / ADD-S) on the card against the CPU within
-               1e-5 m; then ``apps.serve.main`` in this process (20
-               frames after 3 of warm-up), its JSON line logged.
-8. icp       — ICP after a raw request at full width (seeded random
-               weights, 22 meshes of 2000 points): the raw step's filled
-               depth through ``make_icp_step`` in full-resolution mode,
-               then the same frame in sampled mode, each timed (events,
-               median of 3) and traced (device time and kernel and copy
-               launches from complete traces of CUDA activity alone, host
-               reads from one of CPU activity alone), with its iterations
-               and the classes that passed the gate; the request and the
-               two ICP calls counted from 0 (fps 1, query 4, interp 4,
-               winner 3 + 2);
-               the 1-NN propagation alone; K4 at the prefilter's shape
-               (H = 21, K = 2000, bandwidth 0.06) held bit for bit against
-               its plain version on its own inputs (captured by wrapping
-               ``winner_stats``) and timed beside a cdist composition;
-               ``icp_refine`` on the card against the CPU on the captured
-               scene (largest pose difference, printed) and on 21
-               well-posed problems (within 1e-3), the propagation against
-               the CPU on every 16th pixel (every mismatch at a near-tie),
-               and one SVD and one det traced alone; then
-               ``tools/synthetic_e2e.py`` for 20 steps at batch 4 with
-               ``--icp``, its JSON record complete and finite, and K4 held
-               bit for bit and timed on its prefilter calls (a trained
-               network's classes, captured as above).
-9. reference — the same code on the card (kernels) and on the CPU
-               (plain versions): a small frame's forward within 2e-3, and
-               the full-width pose stage on labelled votes (several
-               classes present) within 1e-4.
-10. train    — the training path at full width (``Config.ycb()``, bf16,
-               batch 4, ``grad_accum`` 1): ``create_train_state`` ->
-               ``make_train_step`` -> ``Trainer.fit``, one warm-up step,
-               then three steps with every launch count set to 0 just
-               before and read just after (per step fps 1, query 4,
-               interp 4, interp_bwd 4); loss finite and falling on the
-               repeated batch, BN running statistics moved, gradients
-               finite; step time and peak memory logged.  Then one step at
-               ``grad_accum`` 2 (twice a step's launches) and one at
-               batch 24 with the smallest ``grad_accum`` of 1, 2, 3, 4, 6
-               that fits in memory (an out-of-memory below 6 is logged,
-               not a failure).  Then one small float32 step on the card
-               (kernels) and on the CPU (plain versions) from the same
-               weights and batch: loss within 1e-4, gradient within 3e-2
-               in global L2 (the float32 conditioning floor of a
-               batch-statistics gradient is ~1e-2:
-               ``tests/test_torch_train.py``); and the same backward with
-               BN on its running statistics (the literal eval graph, as
-               that test holds it), every leaf within 2e-3 * max|g|.
-11. modes    — the JAX package's neighbour and sampling modes: K2's
-               capacity (query_mode "pallas"), expanded ("approx") and
-               bf16 instances bit for bit against their plain versions at
-               the four serving levels (and on an adversarial cloud whose
-               indices j, j+128, j+256 coincide, where the capacity result
-               must differ from the exact one on some rows, and at 12
-               off-path shapes), timed there beside the exact instance
-               (events, device, bound, plain, cdist+where+topk); K3's
-               expanded instance (interp_mode "exact" / "approx") at the
-               four FP levels; grouped FPS (G = 2, 4) against plain FPS on
-               the same slabs and against the CPU; then three full-width
-               requests in each deployment mode (query_mode "pallas";
-               "approx" with interp_mode "exact"; fps_groups 4;
-               query_compute "bf16"), every count set to 0 just before
-               and read just after, each mode's kernel instances launched,
-               median latency beside the exact mode's; and each mode on a
-               small frame card against CPU (forward 2e-3, poses 1e-4).
-12. disk     — the dataset path through the apps at full width, from
-               trees written here by ``tools/fake_data.py`` (under
-               ``build/disk``): a YCB tree at 480x640 (8 real frames named
-               as the vendored test list's first, 8 synthetic) and a
-               LineMOD tree for ape (4 real, 2 render, 2 fuse items).
-               ``apps.train.main`` takes 3 steps at batch 4 on YCB with
-               host frames from 0 and 2 spawned workers and with
-               ``--device_preprocess``, then 2 on LineMOD, each saving a
-               checkpoint (launches exactly fps 1, query 4, interp 4,
-               interp_bwd 4 a step); the host build's frames/s at 0 and
-               2 workers; ``apps.evaluate.main`` on the YCB test split
-               from the first checkpoint with host frames,
-               ``--device_preprocess``, ``--icp`` and ``--packed_dir``
-               (after ``tools/preprocess_testset.py`` packed it), then on
-               LineMOD (K1-K4 each launched, K4 more often with
-               ``--icp``), frames/s for each; every run counted from 0.
-               Then a loader test frame card vs CPU (float32, the
-               checkpoint's weights: forward 2e-3, pose stage 1e-4) and
-               the first ``--device_preprocess`` training batch built on
-               the card and on the CPU from the same raw batch and
-               generator (choose, labels, GT slots equal; cloud and
-               targets 1e-5).  Its 3 steps and 8 frames check the path
-               and are too few for rates: those come from the phase
-               alone at 20 steps and 32 frames (``phase_disk(smi,
-               steps=20, frames=32)``).
-13. native   — the host's C++ twins (``pvn3d_tpu_torch/native``, built
-               by g++ from the checkout into ``build/native``): on a
-               synthetic 480x640 frame the fill twin against the torch
-               fill (within 2e-3, 1e-5 off the 2-pixel border) and the
-               normals twin against the numpy normals (the same zero
-               pixels, cos >= 0.999), each timed (median of 5), the FPS
-               twin's indices equal to the numpy version's; then the
-               host frame build's stages apart (decode, augmentation,
-               fill, normals, sampling) and the loader's frames/s at 0
-               workers, with the twins and with the plain versions, on
-               [disk]'s YCB tree.
-14. apps     — the apps' and tools' surface, on 480x640 trees written
-               here (under ``build/apps``): ``apps.evaluate --occ`` for
-               ape at batch 4 on an Occlusion-LineMOD tree (4 annotated
-               frames and an unannotated one) with synthesised labels,
-               with masks and with ``--device_preprocess``, and with
-               ``--packed_dir`` after ``tools/preprocess_testset.py
-               --occ`` packed it (frames/s, ADD, launches each; K1-K4
-               launched); ``apps.demo`` on the YCB and LineMOD trees, 2
-               frames each, from a checkpoint of seeded weights whose
-               poses land in view (the PNGs decode to full frames that
-               differ from the frames read by the overlays);
-               ``apps.train --pretrained_trunk`` for 2 steps at batch 4
-               on LineMOD from a torchvision-named dict written here
-               (the trunk equals the dict when the first step starts;
-               launches exactly fps 1, query 4, interp 4, interp_bwd 4 a
-               step); ``tools.check_dataset --render_dir`` on both trees
-               (0 violations), ``tools.gen_obj_info`` on a PLY,
-               ``knn_normals`` on a 12288-point cloud on the card against
-               the CPU (|n.n'| >= 1 - 1e-6); ``utils.profiling.
-               device_loop_stats`` around a full-width request (iters 5,
-               trials 3) beside [slice]'s latencies, and one ``trace()``
-               of two requests whose Chrome trace names K1-K4.  Its 4 occ
-               and 2 demo frames check the paths and are too few for
-               rates: those come from the phase alone at 32 and 8
-               (``phase_apps(smi, lat, occ_frames=32, demo_frames=8)``).
-15. parallel — data parallelism at full width, in two parts.  A world-1
-               NCCL group in this process (``initialize_distributed``
-               with a file store under ``build/parallel``; ``make_mesh``
-               takes a group of one rank for none, so the phase builds
-               the mesh that holds it): the mesh's
-               train step (synced BN, the summed gradient all-reduce, the
-               global metrics; ``Config.ycb()``, bf16, batch 4) in turns
-               with the plain step from the same weights and batch, three
-               of each: the loss and the running statistics bit for bit,
-               the gradient within ``SAME_GRAD_L2`` (3e-2) in global L2
-               beside two plain steps' distance,
-               the parameters bit for bit where two plain steps are (else
-               within 2 lr + 1e-6: the card's backward holds atomic
-               scatter-adds and Adam moves a rounding-noise entry by lr),
-               launches fps
-               1, query 4, interp 4, interp_bwd 4 a step, the step times,
-               and one mesh step's and one plain step's CUDA-only trace
-               (the NCCL kernels' share; the device records a late trace
-               lost, logged).  Then two ranks spawned on this card
-               (``chip_smoke.py --parallel-rank R 2 SEED``) over gloo
-               (NCCL refuses two ranks on one card), float32, dropout 0:
-               each rank's step on 2 of a global batch of 4 against one
-               process's step on the 4 (the ranks' losses equal; the loss
-               within 1e-5 relative, the gradient within 3e-2 in global
-               L2 beside two plain steps' distance, the parameters within
-               2 lr + 1e-6 + 1e-5 |p|: float32 reduction order and the
-               conditioning of a batch-statistics backward), then a
-               dp-sharded request of 4 frames (2 a
-               rank) against the unsharded one (poses 2e-4, seg equal:
-               the tolerances of tests/test_sharded_inference.py); each
-               rank's launches are read from its output.
-16. remat    — one full-width bf16 step at batch 4 from one state with
-               ``remat`` off, "full" and "dots" (and off again, the
-               run-to-run floor): the loss within 1e-6 / 3e-5 relative,
-               the gradient (dropout on: the replayed masks) within
-               ``SAME_GRAD_L2`` in global L2 beside two plain steps',
-               the parameters within 1e-6 / 1e-5 (plus 2 lr + 1e-6 where
-               two plain steps differ), the running statistics equal to the
-               plain step's (moved once), launches fps 2, query 8, interp
-               8, interp_bwd 4 a rematerialised step; the torch version;
-               then one step at batch 24 in each mode (after one
-               untimed), its time and peak memory.
-17. bn       — the train-mode BatchNorm pair (``csrc/bn.cu``, five entry
-               points) against its plain branch on the card at the
-               batch-24 step's shapes, bf16: the stem (24, 64, 240, 320)
-               and layer 4 (24, 512, 60, 80) in channels_last and NCHW
-               memory, ``up_3`` (24, 64, 480, 640) NCHW and channels_last,
-               an SA scale (24, 2048, 32, 128) and a head's rows
-               (24 * 12288 by 1024 and by 128), each with and without the
-               fused ReLU: statistics, values, running statistics, dx,
-               dweight and dbias (the dx of elements whose ReLU mask the
-               two sides' roundings flip counted apart), three launches a
-               forward and three a backward; events and device ms of each
-               pass beside its bytes bound at 3.35 TB/s, the plain
-               branch's, the autograd of the plain tensor code it
-               replaced, and ``F.batch_norm``'s (cuDNN, the library
-               yardstick).  Then a batch-24 ``Config.ycb()`` step (and
-               ``remat`` "full" and "dots") through the kernels against
-               the same step with the plain branch forced, from one state
-               and batch made on the CPU: the losses of three steps, the
-               first gradients' median leaf and the parameters' change
-               within the benchmark's train limits (0.003, 0.03, 0.2),
-               80 statistics and normalise launches a forward and 80
-               backward sets a step (twice the forward's under remat),
-               the layouts the BNs saw, step time and peak memory of each.
-18. knn      — the k-NN search (``csrc/knn.cu``) at the 22 searches of
-               FFB6D's neighbour index (``data/ffb6d_index.py::searches``)
-               on one full-size 480x640 frame's priority-ordered sample
-               and cloud map on the card: each equal to its plain version
-               index for index, and timed by CUDA events and as device
-               time beside the plain version, cdist + topk (the library
-               yardstick) and its bound (8 operations a query-candidate
-               pair, or the coordinates and indices once); then three
-               FFB6D requests (``config.ffb6d_config()``, seeded weights)
-               through ``make_raw_inference_step`` with every launch count
-               set to 0 just before: 22 k-NN launches a request, no K1-K3,
-               their latency.
-19. image_graph — the image branch as replayed CUDA graphs
-               (``utils/graphs.py``), in a process of its own
-               (``python3 chip_smoke.py --image-graph SMI``): PVN3D's ``PSPNetEmbedding`` at
-               ``Config.ycb()``'s widths at batch 1 with the sparse tail
-               (12288 chosen pixels) and at batch 2 dense, and FFB6D's
-               eight image stages on a full-size request's own inputs:
-               the max abs gap of each replay against the eager forward
-               (0 expected: the same kernels on the same buffers), the
-               captures and replays, host (enqueue) ms, wall ms and device
-               ms of a call eagerly and as a replay; then one raw ycb
-               request with the graph held off and one with it: its
-               launches (the graph's kernels counted apart), device ms,
-               wall ms and peak memory.
-20. a JSON line per kernel and kernel instance (launches on the serving
-   slice, [eval_graph]'s requests, the raw requests, the ICP request, the training steps, the
-   mode requests, the [disk] runs and the [apps] runs (``launches_apps``),
-   the [parallel] and [remat] runs (``launches_parallel``); the k-NN
-   search's over [knn]'s FFB6D requests (``launches_ffb6d``) and per
-   search (``searches``),
-   error, times, bound; K2's
-   instances and K3 forward and backward also per level, the backward on
-   both clouds, K3 forward also at the eval graph's widths
-   (``eval_graph``); K4 also per pass on both inputs and at the ICP
-   shape),
-   the ``nvidia-smi`` line again, then the result line.
+2. build     — all seven CUDA sources from ``pvn3d_tpu_torch/csrc`` into
+               ``build/kernels``: nine kernel instances, the five
+               BatchNorm entry points and the k-NN search.
+3. kernels   — each kernel against its plain PyTorch version at the
+               serving path's shapes (indices exact, floats within 1e-5),
+               timed: K1; K2 and K3 forward per level.  K3 backward held
+               bit for bit, twice, at the training step's shapes (batch 4,
+               fp3 .. fp0) on depth-camera clouds and on the training
+               batch's own clouds, timed per level beside ``index_add_``;
+               K1, K2 and K3 forward checked again at batch 4 on both.  K4
+               held bit for bit, twice, and timed per pass (H = 21, 21,
+               168 at K = 512) on synthetic votes and on the pose stage's
+               own inputs.
+4. edge      — the same comparisons at shapes off the main paths: K1's
+               cluster split and skipped points, K2's 32-point runs, K3's
+               lane split, ties, scalar instances, K3 backward's tiles
+               and long lists (each twice), K4's cluster shares, ties,
+               tiles and empty hypotheses (each twice).
+5. slice     — three full-width (``Config.ycb()``) requests through
+               ``make_inference_step``, counted from 0: poses finite, some
+               class present, K1-K4 launched, no backward.
+6. eval_graph — one full-width request through the default eval graph and
+               through the literal one, bf16 and float32: outputs within
+               0.05 / 1e-4 x max(1, |ref|), seg argmax agreeing on > 95% /
+               99.9% (the tolerances of tests/test_torch_eval_graph.py);
+               each graph's bf16 request counted from 0; K3 at the eval
+               graph's widths against its plain version, timed per level.
+7. raw       — three raw 480x640 RGB-D requests through
+               ``make_raw_inference_step``: exactly fps 1, query 4, interp
+               4, winner 3 a request; poses finite, some class present;
+               the frame build card vs CPU on the same frame and
+               priorities (choose identical, xyz and filled depth 1e-5,
+               rgb exact, normals 1e-4 but for rounding flips); the
+               metrics branch card vs CPU (1e-5 m); ``apps.serve.main``
+               for 20 frames, its record whole.
+8. icp       — one raw request, then full-res and sampled ICP, counted
+               from 0 (winner 3 + 2); refined poses finite, the background
+               row untouched; K4 at the prefilter's shape (H = 21, K =
+               2000) bit for bit on its captured inputs, timed; the 1-NN
+               propagation card vs CPU on every 16th pixel (every mismatch
+               at a near-tie); ``icp_refine`` card vs CPU on the captured
+               scene (finite, difference printed) and on 21 well-posed
+               problems (1e-3, within 2e-2 of the GT); host reads at least
+               one an iteration plus one; ``tools/synthetic_e2e.py`` for
+               20 steps with ``--icp``, its record complete and finite,
+               K4 bit for bit on its prefilter calls, timed.
+9. reference — card (kernels) against CPU (plain versions): a small
+               frame's forward within 2e-3, seg agreement > 99.9%; the
+               full-width pose stage on labelled votes within 1e-4.
+10. train    — ``Trainer.fit`` at full width, bf16, batch 4: three steps
+               counted from 0 (fps 1, query 4, interp 4, interp_bwd 4 a
+               step), loss finite and falling on a repeated batch, every
+               BN running statistic moved, gradients finite; one step at
+               ``grad_accum`` 2 (twice the launches, loss below the
+               first); one step at batch 24, loss finite; a small float32
+               step card vs CPU (loss 1e-4, gradient 3e-2 in global L2)
+               and the same backward on BN running statistics (every
+               leaf within 2e-3 * max|g|, 1e-4 in global L2).
+11. modes    — K2's capacity, expanded and bf16 instances bit for bit at
+               the four serving levels, timed beside the exact one; the
+               capacity instance on an adversarial cloud (equal to plain,
+               unlike the exact result) and every K2 instance at 12
+               off-path shapes; K3's expanded instance at the four FP
+               levels, timed; grouped FPS (G = 2, 4) against plain FPS on
+               the slabs and against the CPU; three full-width requests in
+               the exact mode and in each deployment mode (poses finite,
+               each mode's instances launched); each mode card vs CPU on a
+               small frame (forward 2e-3, poses 1e-4).
+12. disk     — ``apps.train`` and ``apps.evaluate`` on 480x640 fake trees
+               (``tools/fake_data.py``, under ``build/disk``): 3 YCB steps
+               at batch 4 from 0 and 2 workers and with
+               ``--device_preprocess``, 2 on LineMOD, each launching
+               exactly fps 1, query 4, interp 4, interp_bwd 4 a step and
+               saving its checkpoint; evaluation of 8 YCB test frames with
+               host frames, ``--device_preprocess``, ``--icp`` (more K4
+               launches) and ``--packed_dir``, then LineMOD, every frame
+               scored and K1-K4 launched; a loader frame card vs CPU
+               (forward 2e-3, poses 1e-4); the first
+               ``--device_preprocess`` training batch card vs CPU
+               (choose, labels, GT slots equal; cloud and targets 1e-5).
+13. native   — the host C++ twins built by g++ into ``build/native``: the
+               fill against the torch fill (2e-3, 1e-5 off the border),
+               the normals against numpy's (same zero pixels, cos >=
+               0.999), FPS indices equal in both start modes.
+14. apps     — on fake trees under ``build/apps``: ``apps.evaluate --occ``
+               (synthesised labels, masks, ``--device_preprocess``,
+               ``--packed_dir``), every frame scored, ADD finite;
+               ``apps.demo`` on YCB and LineMOD, full-size PNGs with
+               overlays; ``apps.train --pretrained_trunk`` (the trunk
+               equal to the dict at the first step, exact launches);
+               ``check_dataset`` (0 violations, 2 renders a tree),
+               ``gen_obj_info`` (8 files, keypoints on the mesh),
+               ``knn_normals`` card vs CPU (|n.n'| >= 1 - 1e-6);
+               ``utils.profiling.trace()`` of two requests naming K1-K4.
+15. parallel — a world-1 NCCL group: the mesh's train step against the
+               plain step from the same weights and batch, in turns, three
+               each (loss and running statistics bit for bit, gradient
+               within ``SAME_GRAD_L2``, parameters within 2 lr + 1e-6
+               where two plain steps differ, exact launches); two gloo
+               ranks spawned on the card (``chip_smoke.py --parallel-rank
+               R 2 SEED``): each rank's float32 step on 2 of 4 frames
+               against one process's on 4 (loss 1e-5 relative, gradient
+               3e-2, parameters 2 lr + 1e-6 + 1e-5 |p|) and a dp-sharded
+               request against the unsharded one (poses 2e-4, seg equal).
+16. remat    — one bf16 step at batch 4 with ``remat`` off, "full",
+               "dots" and off again: loss within 1e-6 / 3e-5 relative,
+               gradient within ``SAME_GRAD_L2``, parameters within 1e-6 /
+               1e-5 (plus 2 lr + 1e-6 where two plain steps differ),
+               running statistics equal, exact launches; then one step at
+               batch 24 in each mode, loss finite.
+17. bn       — the BatchNorm pair (``csrc/bn.cu``) against its plain
+               branch at the batch-24 step's shapes, with and without the
+               ReLU (statistics, values, running statistics, dx, dweight,
+               dbias; three launches a pass), each pass timed beside its
+               bytes bound, the plain branch, the tensor code it replaced
+               and ``F.batch_norm``; then three batch-24 steps (remat off,
+               "full", "dots") through the kernels against the plain
+               branch, within the benchmark's train limits, with exact
+               BN launches.
+18. knn      — the k-NN search (``csrc/knn.cu``) at FFB6D's 22 searches on
+               one full-size frame, index for index against its plain
+               version, each timed; three FFB6D requests, poses finite,
+               22 searches a request and no K1-K3.
+19. image_graph — PVN3D's image branch (batch 2 dense, batch 1 sparse) and
+               FFB6D's eight image stages as replayed CUDA graphs
+               (``utils/graphs.py``) against the eager forward: one
+               capture and three replays in three calls, outputs finite,
+               the gaps printed.
 
-The last line is ``{"ok": true, "device": {...}}``; it is printed only when
-every phase passed.  Times are the card's under its printed power limit.
+Then one JSON line of every kernel instance's launches on each path, error
+and kernel-alone times (K2's and K3's per level, K4's per pass and at the
+ICP shape, the BatchNorm passes, the 22 searches), the ``nvidia-smi`` line
+again, and ``{"ok": true, "device": {...}}`` when every phase passed.
+Times are the card's under its printed power limit.
 """
 from __future__ import annotations
 
@@ -315,7 +154,6 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -350,32 +188,22 @@ def time_ms(fn, reps: int = 3, trials: int = 3) -> float:
     return statistics.median(out)
 
 
-# CUDA runtime calls that launch a kernel, and one that launches a graph's.
+# CUDA runtime calls that launch a kernel.
 _LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
-_GRAPH_CALL = "GraphLaunch"
 # Marker kernels launched at the start and at the end of each trace, not
 # counted: the launches whose device records a trace loses.
 _MARKERS = 16
 
 
-def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
+def _cuda_trace(fn, reps: int) -> dict:
     """``reps`` calls of ``fn`` in one ``torch.profiler`` trace of CUDA
-    activity alone: the device time in ms, the kernel and the copy/memset
-    launches, the runtime's synchronisations (the trace's own closing one
-    not counted), the kernels whose names hold each of ``names`` and their
-    device time (``named_ms``), and whether the trace is complete: each
-    kernel launch of ``fn`` that the runtime recorded has its device
-    record, matched by correlation id (a replayed graph's kernels, which
-    share their graph launch's id, are counted apart: ``graph_kernels``
-    of ``graph_launches``)
-    (copies are not held so: a memset of no bytes leaves no record).  On
-    an H100 a trace loses device records, never runtime calls: once
-    earlier phases have run, those of its first launches (which the
-    markers take: up to 9 in [modes] on an H100), those of its last
-    launches (which the closing markers take: 4 of a 29,393-launch
-    sampled ICP call), at times up to 6% of a 31,000-launch call's, and,
-    in a trace that also records the CPU, more (K4's ctypes launch among
-    them)."""
+    activity alone: the device time in ms, and whether the trace is
+    complete: each kernel launch of ``fn`` that the runtime recorded has its
+    device record, matched by correlation id (copies are not held so: a
+    memset of no bytes leaves no record).  On an H100 a trace loses device
+    records, never runtime calls: once earlier phases have run, those of
+    its first and last launches (which the markers take), at times a share
+    of a long call's, and, in a trace that also records the CPU, more."""
     from torch._C._autograd import DeviceType
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -394,56 +222,29 @@ def _cuda_trace(fn, reps: int = 1, names=()) -> dict:
     calls = sorted((e for e in ev if e.device_type() != DeviceType.CUDA
                     and any(n in e.name() for n in _LAUNCH_CALLS)),
                    key=lambda e: e.start_ns())[_MARKERS:-_MARKERS]
-    # A replayed graph's kernels carry its one launch's correlation id.
-    graphs = {e.correlation_id() for e in ev
-              if e.device_type() != DeviceType.CUDA
-              and _GRAPH_CALL in e.name()}
     copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in dev)
-    in_graphs = sum(e.correlation_id() in graphs and not e.name().startswith(
-        ("Memcpy", "Memset")) for e in dev)
-    syncs = sum("Synchronize" in e.name() for e in ev
-                if e.device_type() != DeviceType.CUDA)
-    by_corr = {e.correlation_id(): e.name() for e in dev}
-    lost_at = [(i, c.name(), by_corr.get(calls[i - 1].correlation_id(), "")
-                [:70] if i else "") for i, c in enumerate(calls)
-               if c.correlation_id() not in recorded][:6]
     return {"device_ms": sum(e.duration_ns() for e in dev) / 1e6,
-            "lost_at": lost_at,
-            "kernels": len(dev) - copies, "copies": copies,
-            "syncs": syncs - 1,
-            "named": {n: sum(n in e.name() for e in dev) for n in names},
-            "named_ms": {n: sum(e.duration_ns() for e in dev
-                                if n in e.name()) / 1e6 for n in names},
-            "graph_launches": len(graphs), "graph_kernels": in_graphs,
-            "lost": sum(e.correlation_id() not in recorded for e in calls),
-            "complete": len(dev) - copies - in_graphs == len(calls) and all(
+            "complete": len(dev) - copies == len(calls) and all(
                 e.correlation_id() in recorded for e in calls)}
 
 
-def _complete_traces(fn, reps: int = 1, names=(), want: int = 1,
-                     attempts: int = 6) -> list:
-    """``want`` complete traces (``_cuda_trace``) of ``fn``, of at most
-    ``attempts`` taken; raises when fewer were complete."""
-    runs = []
+def device_ms(fn, reps: int = 5, attempts: int = 6) -> float:
+    """Device time per call of the kernels ``fn`` launches, from the first
+    complete ``torch.profiler`` trace (``_cuda_trace``) of at most
+    ``attempts``: the kernel alone, without the host's launch cost that the
+    CUDA-event time of a short kernel also holds.  Raises when no trace is
+    complete or the complete one shows no device time."""
     for _ in range(attempts):
-        r = _cuda_trace(fn, reps, names)
-        runs += [r] if r["complete"] else []
-        if len(runs) == want:
-            return runs
-    raise AssertionError(f"profiler: {len(runs)} of {attempts} traces held "
-                         f"a device record for each launch; the last {r}")
-
-
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time per call of the kernels ``fn`` launches, from a complete
-    ``torch.profiler`` trace of CUDA activity alone: the kernel alone,
-    without the host's launch cost that the CUDA-event time of a short
-    kernel also holds.  Raises when the trace shows no device time."""
-    ms = _complete_traces(fn, reps)[0]["device_ms"] / reps
-    if ms <= 0.0:
+        r = _cuda_trace(fn, reps)
+        if r["complete"]:
+            break
+    else:
+        raise AssertionError(f"profiler: none of {attempts} traces held a "
+                             f"device record for each launch; the last {r}")
+    if r["device_ms"] <= 0.0:
         raise AssertionError("device_ms: the trace holds no device time for "
                              "a call that launches a kernel")
-    return ms
+    return r["device_ms"] / reps
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -487,12 +288,10 @@ def phase_device() -> str:
 def phase_build() -> None:
     from pvn3d_tpu_torch.ops.kernels import BN_KERNELS, KERNELS, KNN_KERNELS
     from pvn3d_tpu_torch.ops.kernels.common import build_all
-    t0 = time.perf_counter()
     kernels = KERNELS + BN_KERNELS + KNN_KERNELS
     logs = build_all(kernels)
     for k in kernels:
         k.load()
-    dt = time.perf_counter() - t0
     for entry in logs:
         for line in entry.splitlines():
             if ("entry function" in line or "registers" in line
@@ -500,7 +299,7 @@ def phase_build() -> None:
                 log("build", line.strip())
     sources = len({k.source for k in kernels})
     log("build", f"{len(kernels)} kernel instances of {sources} sources "
-        f"ready in {dt:.1f} s")
+        f"built and loaded")
 
 
 def _expected_launches(**counts) -> dict:
@@ -791,16 +590,15 @@ def phase_kernels(rng):
         shapes=[f"xyz (1, {n}, 3) -> (1, {m0})"],
         max_abs_err=_err(got, want), tol="indices exact",
         ms=time_ms(lambda: fps.fps(xyz, m0)),
+        device_ms=device_ms(lambda: fps.fps(xyz, m0)),
         plain_ms=time_ms(lambda: fps.fps_plain(xyz, m0), reps=1),
         library_ms=None,
         bound=bound_ms(n * 12 + m0 * 4, (m0 - 1) * n * (D2_FLOPS + 1)),
         replaces="pvn3d_tpu/ops/pallas/fps.py:150")
-    fps_dev = device_ms(lambda: fps.fps(xyz, m0))
     log("kernels", f"K1 fps {rec['fps']['shapes'][0]}: indices equal, "
-        f"{rec['fps']['ms']:.3f} ms = "
-        f"{rec['fps']['ms'] * 1e3 / (m0 - 1):.3f} us per step; on the "
-        f"device {fps_dev:.3f} ms = {fps_dev * 1e3 / (m0 - 1):.3f} us per "
-        f"step (plain {rec['fps']['plain_ms']:.3f})")
+        f"{rec['fps']['ms']:.3f} ms, on the device "
+        f"{rec['fps']['device_ms']:.3f} ms (plain "
+        f"{rec['fps']['plain_ms']:.3f})")
 
     # Level point sets as the serving path builds them (fps_prefix).
     levels = [xyz]
@@ -809,7 +607,7 @@ def phase_kernels(rng):
         levels.append(pts[:, :lvl.npoint].contiguous())
 
     # K2: four launches per frame, two scales each.
-    ms = plain = lib = 0.0
+    ms = dev_ms = plain = lib = 0.0
     n_bytes = flops = 0.0
     shapes = []
     err = 0.0
@@ -831,6 +629,7 @@ def phase_kernels(rng):
         lib += level_lib
         level_dev = device_ms(lambda: query.ball_query(
             lvl.radii, lvl.nsamples, src, cen))
+        dev_ms += level_dev
         log("kernels", f"K2 query L{li} N={npts} m={m}: {level_ms:.4f} ms, "
             f"on the device {level_dev:.4f} ms (cdist+where+topk "
             f"{level_lib:.4f})")
@@ -839,11 +638,13 @@ def phase_kernels(rng):
         n_bytes += npts * 12 + m * 12 + m * sum(lvl.nsamples) * 4
         shapes.append(f"L{li} N={npts} m={m} r={lvl.radii}")
     rec["query"] = dict(shapes=shapes, max_abs_err=err, tol="indices exact",
-                        ms=ms, plain_ms=plain, library_ms=lib,
+                        ms=ms, device_ms=dev_ms, plain_ms=plain,
+                        library_ms=lib,
                         bound=bound_ms(n_bytes, flops),
                         replaces="pvn3d_tpu/ops/pallas/query.py:118")
-    log("kernels", f"K2 query x4 levels: indices equal, {ms:.3f} ms "
-        f"(plain {plain:.3f}, cdist+where+topk {lib:.3f})")
+    log("kernels", f"K2 query x4 levels: indices equal, {ms:.3f} ms, on the "
+        f"device {dev_ms:.4f} ms (plain {plain:.3f}, cdist+where+topk "
+        f"{lib:.3f})")
 
     # K3: four launches per frame (fp3 .. fp0), known features of the
     # literal graph's widths (the training path's); the eval graph's
@@ -904,12 +705,8 @@ def phase_kernels(rng):
             f"{r['plain_ms']:.3f}, updates+index_add_ {r['library_ms']:.4f}, "
             f"index_add_ alone {r['index_add_ms']:.4f}); longest list "
             f"{max(lv['longest_list'] for lv in r['levels'])} hits")
-    on_train = rec["interp_bwd_train"]["device_ms"]
-    on_depth = rec["interp_bwd"]["device_ms"]
-    log("kernels", f"K3 interp_bwd on the training batch's clouds / depth "
-        f"clouds, device time: {on_train:.4f} / {on_depth:.4f} = "
-        f"{on_train / on_depth:.2f}x; K1, K2, K3 forward equal their plain "
-        f"versions at batch {tb} on both")
+    log("kernels", f"K1, K2, K3 forward equal their plain versions at batch "
+        f"{tb} on both clouds")
 
     # K4: three launches per frame, H = 21, 21, 168 at K = 512, on two
     # inputs: synthetic votes (every hypothesis 70% valid: the most work a
@@ -1237,23 +1034,19 @@ def literal_model_config(mcfg):
 # output within tol * max(1, |ref|) of the literal graph's, the seg
 # argmax agreeing on more than the share given.
 EVAL_GRAPH_TOL = {"float32": (1e-4, 0.999), "bfloat16": (0.05, 0.95)}
-# [eval_graph]'s latency window: requests a graph, the two interleaved.
-EVAL_GRAPH_REQUESTS = 50
 
 
-def phase_eval_graph(smi: str, rng, seed: int = 0):
+def phase_eval_graph(rng, seed: int = 0):
     """The eval graph at full width (``Config.ycb()``, seeded random
     weights, batch 1): one request through the default graph (the sparse
     CNN tail, the fused upsample, the split heads, the SA/FP precompute)
     and through the literal one (``sparse_cnn=False``, the four fields
     off), in bf16 and float32.  Logs the outputs' largest differences,
     the seg argmax agreement and the poses' difference, and fails above
-    ``EVAL_GRAPH_TOL``; in bf16 the two graphs' request latency (host
-    clock, ``EVAL_GRAPH_REQUESTS`` each, alternating ABBA so that drift of
-    the shared host falls on both), each one's device time and launches
-    (a CUDA-only trace); then K3 at the eval graph's widths (fp3 .. fp0
-    blending W0 channels) against its plain version.  Returns (K3's record there, the launch counts of
-    the requests, each counted from 0)."""
+    ``EVAL_GRAPH_TOL``; in bf16 one more request through each graph with
+    every launch count set to 0 just before; then K3 at the eval graph's
+    widths (fp3 .. fp0 blending W0 channels) against its plain version.
+    Returns (K3's record there, the launch counts of the bf16 requests)."""
     import dataclasses
 
     from pvn3d_tpu_torch.config import Config
@@ -1311,40 +1104,18 @@ def phase_eval_graph(smi: str, rng, seed: int = 0):
             + f"; seg argmax agreement {agree:.5f}; present classes "
             f"{present[0]} / {present[1]}, pose max abs diff on the "
             f"{int(both.sum())} present in both {pose_diff:.3e} "
-            f"(random weights: logged, not held) [{smi}]")
+            f"(random weights: logged, not held)")
         bad = [k for k, (d, sc) in diffs.items() if d > tol * sc]
         if bad or agree <= min_agree:
             raise AssertionError(f"eval_graph {dtype}: {bad} above "
                                  f"{tol} * max(1, |ref|), or agreement "
                                  f"{agree} <= {min_agree}")
-        if dtype != "bfloat16":
-            continue
-        lat = {name: [] for name in steps}
-        for i in range(EVAL_GRAPH_REQUESTS):
-            order = ("auto", "literal") if i % 2 == 0 else ("literal",
-                                                            "auto")
-            for name in order:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                steps[name](batch)
-                torch.cuda.synchronize()
-                lat[name].append((time.perf_counter() - t0) * 1e3)
-        for name, step in steps.items():
-            _, counts = _counted(lambda: step(batch))
-            for k, v in counts.items():
-                launches[k] += v
-            q = np.percentile(lat[name], [10, 50, 90])
-            trace = _device_trace(lambda: step(batch), min_kernels=10)
-            with torch.inference_mode():
-                fwd = time_ms(lambda: graphs[name](*args), reps=1)
-            log("eval_graph", f"bf16 {name} graph: request median "
-                f"{q[1]:.2f} ms, p10 {q[0]:.2f}, p90 {q[2]:.2f} (host "
-                f"clock, {len(lat[name])} requests alternating with the "
-                f"other graph's), forward alone {fwd:.2f} ms (events); on "
-                f"the device {trace['device_ms']:.2f} ms, "
-                f"{trace['kernels']} kernel and {trace['copies']} copy "
-                f"launches; K1-K4 launches "
-                f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+        if dtype == "bfloat16":
+            for name, step in steps.items():
+                _, counts = _counted(lambda: step(batch))
+                _add_counts(launches, counts)
+                log("eval_graph", f"bf16 {name} graph: K1-K4 launches "
+                    f"{ {k: v for k, v in counts.items() if v} }")
         del graphs, steps, auto, literal, outs
         torch.cuda.empty_cache()
 
@@ -1364,7 +1135,7 @@ def phase_eval_graph(smi: str, rng, seed: int = 0):
         f"{'/'.join(str(w0[i]) for i in range(3, -1, -1))} (fp3 .. fp0): "
         f"{rec['ms']:.4f} ms, on the device {rec['device_ms']:.4f} ms, "
         f"bound {rec['bound'][0]:.4f} ms (plain {rec['plain_ms']:.3f}, "
-        f"cdist+topk+gather {rec['library_ms']:.4f}) [{smi}]")
+        f"cdist+topk+gather {rec['library_ms']:.4f})")
     return rec, launches
 
 
@@ -1374,7 +1145,6 @@ def phase_slice(seed: int = 0):
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_inference_step
-    from pvn3d_tpu_torch.ops.kernels import KERNELS
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model
@@ -1383,21 +1153,8 @@ def phase_slice(seed: int = 0):
     step = make_inference_step(cfg, model, stacked_mesh_kps(),
                                stacked_class_radii())
     step(synthetic_batch(cfg, batch_size=1, seed=1000))   # warm-up
-    torch.cuda.synchronize()
-
-    for k in KERNELS:
-        k.launches = 0
-    lat = []
-    outs = []
-    for i in range(3):
-        batch = synthetic_batch(cfg, batch_size=1, seed=i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(batch)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
-    launches = {k.name: k.launches for k in KERNELS}
+    outs, launches = _counted(lambda: [
+        step(synthetic_batch(cfg, batch_size=1, seed=i)) for i in range(3)])
 
     n_cls = cfg.model.n_classes
     for i, out in enumerate(outs):
@@ -1416,29 +1173,10 @@ def phase_slice(seed: int = 0):
         if launches[name] < n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
                                  f"slice, expected >= {n}")
-    log("slice", "3 requests, 480x640 + 12288 points, 22 classes: latency ms "
-        + ", ".join(f"{t:.2f}" for t in lat) + "; present classes "
-        + ", ".join(str(int(o["present"].sum())) for o in outs)
+    log("slice", "3 requests, 480x640 + 12288 points, 22 classes: present "
+        "classes " + ", ".join(str(int(o["present"].sum())) for o in outs)
         + f"; launches {launches}")
-
-    # Where a request's time goes: the forward alone, then the pose stage
-    # alone on the forward's outputs (median of three, card clocks).
-    dev = torch.device("cuda")
-    batch = synthetic_batch(cfg, batch_size=1, seed=0)
-    args = [torch.as_tensor(batch[k], device=dev)
-            for k in ("pointcloud", "rgb", "choose")]
-    with torch.inference_mode():
-        fwd_ms = time_ms(lambda: model(*args), reps=1)
-        res = model(*args)
-        seg = torch.argmax(res["seg_logits"], -1).to(torch.int32)
-        from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
-        pose_fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii())
-        pose_ms = time_ms(lambda: pose_fn(args[0][..., :3], seg,
-                                          res["ctr_offsets"],
-                                          res["kp_offsets"]), reps=1)
-    log("slice", f"forward {fwd_ms:.2f} ms, votes->poses {pose_ms:.2f} ms "
-        f"(median of 3)")
-    return launches, lat
+    return launches
 
 
 def _frame_build_close(got, want, k):
@@ -1481,27 +1219,21 @@ def raw_meshes(rng, n_cls: int, n_mesh: int = 2000):
     return mesh_pts, mesh_valid
 
 
-def phase_raw(smi: str, seed: int = 0):
+def phase_raw(seed: int = 0):
     """Raw RGB-D frames through ``make_raw_inference_step`` on the card at
     full width: three requests with every launch count set to 0 just
     before and read just after (fps 1, query 4, interp 4, winner 3 a
-    request, no backward); the frame build's stages by CUDA events and its
-    launches and device time from a profiler trace; the frame build held
-    against the CPU's on the same full-size frame and priorities; the
-    metrics branch on the card against the CPU; then the serving app in
-    this process.  Returns the launch counts of the three requests."""
+    request, no backward); the frame build held against the CPU's on the
+    same full-size frame and priorities; the metrics branch on the card
+    against the CPU; then the serving app in this process.  Returns the
+    launch counts of the three requests."""
     from pvn3d_tpu_torch.apps import serve
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.device_frame import (
-        build_inference_batch_device, draw_priorities, gather_points,
-        select_pixels)
+        build_inference_batch_device, draw_priorities)
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
-    from pvn3d_tpu_torch.geometry.cloud import depth_to_cloud_map
     from pvn3d_tpu_torch.inference.evaluator import eval_frame_metrics
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
-    from pvn3d_tpu_torch.ops.kernels import KERNELS
-    from pvn3d_tpu_torch.ops.preprocess import (fill_missing,
-                                                normals_from_depth_map)
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model
@@ -1524,19 +1256,8 @@ def phase_raw(smi: str, seed: int = 0):
     def gen(i):
         return torch.Generator(device=dev).manual_seed(i)
     step(request(1000), gen(1000))                           # warm-up
-    torch.cuda.synchronize()
-    for kern in KERNELS:
-        kern.launches = 0
-    lat, outs = [], []
-    for i in range(3):
-        batch = request(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(batch, gen(i))
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
-    launches = {kern.name: kern.launches for kern in KERNELS}
+    outs, launches = _counted(lambda: [step(request(i), gen(i))
+                                       for i in range(3)])
     want = _expected_launches(fps=3, query=12, interp=12, winner=9)
     if launches != want:
         raise AssertionError(f"raw: launches {launches} over 3 requests, "
@@ -1551,59 +1272,18 @@ def phase_raw(smi: str, seed: int = 0):
         if not bool(out["present"].any()):
             raise AssertionError(f"raw request {i}: no class present")
     log("raw", f"3 raw requests, {h}x{w} RGB-D -> {n} points, {n_cls} "
-        f"classes: latency ms " + ", ".join(f"{t:.2f}" for t in lat)
-        + "; present classes "
+        f"classes: present classes "
         + ", ".join(str(int(o["present"].sum())) for o in outs)
-        + f"; launches {launches} [{smi}]")
-
-    # The frame build's stages on one full-size frame (CUDA events,
-    # median of 3), its launches and device time in a profiler trace.
-    batch = request(0)
-    rgb = torch.as_tensor(batch["rgb"], device=dev)
-    depth = torch.as_tensor(batch["depth"], device=dev)
-    k = torch.as_tensor(batch["cam_k"], device=dev)
-    pri = draw_priorities((1, h * w), dev, gen(7))
-    depth_m = fill_missing(depth)
-    cloud_map, valid = depth_to_cloud_map(depth_m, k)
-    nrm = normals_from_depth_map(depth_m, k)
-
-    def sample():
-        p = draw_priorities((1, h * w), dev, gen(7))
-        choose = select_pixels(valid.reshape(1, -1), p, n)
-        return gather_points(choose, cloud_map, rgb, nrm)
-
-    def build():
-        return build_inference_batch_device(rgb, depth, k, n, generator=gen(7))
-    stage = {"fill": time_ms(lambda: fill_missing(depth)),
-             "normals + cloud": time_ms(lambda: (
-                 depth_to_cloud_map(depth_m, k),
-                 normals_from_depth_map(depth_m, k))),
-             "sample + gather": time_ms(sample),
-             "whole build": time_ms(build)}
-    tr = _complete_traces(build)[0]
-    build_launches = tr["kernels"] + tr["copies"]
-    build_dev_ms = tr["device_ms"]
-    log("raw", f"frame build, one {h}x{w} frame, CUDA events ms (median of "
-        "3): " + ", ".join(f"{key} {v:.3f}" for key, v in stage.items())
-        + f"; device {build_dev_ms:.3f} ms in {build_launches} kernel and "
-        f"copy launches (profiler) [{smi}]")
-    # One whole raw request in a trace: wall clock, device busy, launches
-    # (the wall clock of the complete trace's call, the last one taken).
-    walls = []
-
-    def traced_request():
-        t0 = time.perf_counter()
-        step(request(4), gen(4))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    tr = _complete_traces(traced_request)[0]
-    log("raw", f"one raw request in a trace: wall {walls[-1]:.2f} ms, device "
-        f"busy {tr['device_ms']:.3f} ms in {tr['kernels'] + tr['copies']} "
-        f"kernel and copy launches")
+        + f"; launches {launches}")
 
     # The card's frame build against the CPU plain path: same frame, same
     # priorities.
-    got = build_inference_batch_device(rgb, depth, k, n, priorities=pri)
+    batch = request(0)
+    k = torch.as_tensor(batch["cam_k"], device=dev)
+    pri = draw_priorities((1, h * w), dev, gen(7))
+    got = build_inference_batch_device(
+        torch.as_tensor(batch["rgb"], device=dev),
+        torch.as_tensor(batch["depth"], device=dev), k, n, priorities=pri)
     cpu = build_inference_batch_device(
         torch.as_tensor(batch["rgb"]), torch.as_tensor(batch["depth"]),
         torch.as_tensor(batch["cam_k"]), n, priorities=pri.cpu())
@@ -1629,18 +1309,15 @@ def phase_raw(smi: str, seed: int = 0):
     if m_err > 1e-5 or not bool(torch.isfinite(out["adds"]).all()):
         raise AssertionError(f"raw: metrics card vs CPU {m_err}")
     log("raw", f"metrics branch (22 meshes of {n_mesh} points, 4 GT slots):"
-        f" add {out['add'].cpu().numpy().round(4).tolist()}, adds "
-        f"{out['adds'].cpu().numpy().round(4).tolist()} m; card vs CPU max "
-        f"err {m_err:.2e}")
+        f" card vs CPU max err {m_err:.2e}")
 
     # The serving app, in this process, at full width on the card.
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(io.StringIO()):
         rec = serve.main(["--frames", "20", "--warmup", "3"])
     lat = rec["latency_ms"]
     if not (rec["value"] > 0 and 0 < lat["p50"] <= lat["p99"]):
         raise AssertionError(f"raw: serve {rec}")
-    log("raw", f"serve: {json.dumps(rec)} [{smi}]")
+    log("raw", "serve: 20 frames after 3 of warm-up, its record whole")
     return launches
 
 
@@ -1661,31 +1338,9 @@ def _capture(module, name: str, calls: list):
         setattr(module, name, real)
 
 
-def _device_trace(fn, expect=None, min_kernels: int = 1):
-    """The device side of a call of ``fn``: after a warm-up call, two
-    complete traces of one call each (``_complete_traces``).  Returns the
-    device busy ms (mean of the two), the kernel and copy/memset launches
-    and the synchronisations.  Raises unless the two agree on the launches
-    and hold at least ``min_kernels`` kernels, positive device time where
-    they hold one, and for each kernel name part in ``expect`` that many
-    launches of kernels so named."""
-    fn()
-    a, b = _complete_traces(fn, names=tuple(expect or ()), want=2)
-    if ((a["kernels"], a["copies"]) != (b["kernels"], b["copies"])
-            or a["kernels"] < min_kernels or a["named"] != (expect or {})
-            or b["named"] != a["named"]
-            or (a["kernels"] and min(a["device_ms"], b["device_ms"]) <= 0)):
-        raise AssertionError(f"device trace: {a} and {b}, expected at "
-                             f"least {min_kernels} kernels and {expect}")
-    return {"device_ms": (a["device_ms"] + b["device_ms"]) / 2,
-            "kernels": a["kernels"], "copies": a["copies"],
-            "syncs": a["syncs"]}
-
-
 def _host_reads(fn) -> int:
     """Host reads of a device scalar (``aten::_local_scalar_dense``) in one
-    call of ``fn``, from a profiler trace of CPU activity alone (run after
-    the phase's device traces)."""
+    call of ``fn``, from a profiler trace of CPU activity alone."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -1784,28 +1439,25 @@ def _well_posed_icp(icp, mesh_pts, mesh_valid, seed: int):
     return diff, from_gt, (int(out["cuda"][2][0]), int(out["cpu"][2][0]))
 
 
-def phase_icp(smi: str, seed: int = 0):
+def phase_icp(seed: int = 0):
     """ICP after a raw request at full width: full-resolution ICP on the
-    raw step's filled depth, then sampled ICP on the same frame, each
-    timed (events, median of 3) and traced (device time, kernel and copy
-    launches from traces of CUDA activity alone; host reads from one of
-    CPU activity alone, taken last), with its iterations and the classes
-    that passed the gate, and the 1-NN propagation alone; K4 held bit for
-    bit against its plain version on the prefilter's own inputs (captured
-    by wrapping ``winner_stats``) and timed at that shape; ``icp_refine``
-    (on the captured scene and on well-posed problems) and the propagation
-    on the card against the CPU; one SVD and one det traced; then the
-    accuracy tool for 20 steps with ``--icp``, its prefilter calls (a
-    trained network's classes) captured and held and timed as above.
-    Returns (launches of one raw request with both ICP modes, counted from
-    0; K4's records at the ICP shape)."""
+    raw step's filled depth, then sampled ICP on the same frame, counted
+    from 0; K4 held bit for bit against its plain version on the
+    prefilter's own inputs (captured by wrapping ``winner_stats``) and timed
+    at that shape; ``icp_refine`` (on the captured scene and on well-posed
+    problems) and the propagation on the card against the CPU; each mode's
+    host reads against its iterations; then the accuracy tool for 20 steps
+    with ``--icp``, its prefilter calls (a trained network's classes)
+    captured and held and timed as above.  Returns (launches of one raw
+    request with both ICP modes, counted from 0; K4's records at the ICP
+    shape)."""
     import gc
 
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
     from pvn3d_tpu_torch.inference import icp
     from pvn3d_tpu_torch.inference import pipeline
-    from pvn3d_tpu_torch.ops.kernels import KERNELS, winner
+    from pvn3d_tpu_torch.ops.kernels import winner
     from pvn3d_tpu_torch.tools import synthetic_e2e
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
@@ -1832,23 +1484,18 @@ def phase_icp(smi: str, seed: int = 0):
     out = request()                                        # warm-up
     for mode in ("fullres", "sampled"):
         icp_step(*args_of(out, mode))
-    torch.cuda.synchronize()
 
     # The counted run: one raw request, then ICP in both modes, each
     # counted from 0.
-    for kern in KERNELS:
-        kern.launches = 0
-    out = request()
-    torch.cuda.synchronize()
-    req_launches = {kern.name: kern.launches for kern in KERNELS}
-    for kern in KERNELS:
-        kern.launches = 0
+    out, req_launches = _counted(request)
     wins = []
-    with _capture(icp, "winner_stats", wins):
-        refined = {"fullres": icp_step(*args_of(out, "fullres"))}
-    refined["sampled"] = icp_step(*args_of(out, "sampled"))
-    torch.cuda.synchronize()
-    icp_launches = {kern.name: kern.launches for kern in KERNELS}
+
+    def both_modes():
+        with _capture(icp, "winner_stats", wins):
+            refined = {"fullres": icp_step(*args_of(out, "fullres"))}
+        refined["sampled"] = icp_step(*args_of(out, "sampled"))
+        return refined
+    refined, icp_launches = _counted(both_modes)
     launches = {n: req_launches[n] + icp_launches[n] for n in req_launches}
     want = _expected_launches(fps=1, query=4, interp=4, winner=3)
     want_icp = _expected_launches(winner=2)
@@ -1872,53 +1519,28 @@ def phase_icp(smi: str, seed: int = 0):
         f"{k4['hypotheses_with_points']} hypotheses; equal to plain bit for "
         f"bit; {k4['ms']:.4f} ms, on the device {k4['device_ms']:.4f} ms, "
         f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}); plain "
-        f"{k4['plain_ms']:.3f}, cdist+lt+sum+argmax {k4['library_ms']:.4f} "
-        f"[{smi}]")
+        f"{k4['plain_ms']:.3f}, cdist+lt+sum+argmax {k4['library_ms']:.4f}")
 
-    min_pts = cfg.icp.min_class_points
-    per_mode, captured = {}, {}
+    # Each mode's refinement and propagation captured, and its host reads
+    # counted in a trace of CPU activity alone: one loop read an iteration
+    # and one at its end, plus the SVD's.
+    captured = {}
     for mode in ("fullres", "sampled"):
-        a = args_of(out, mode)
-        refines, frames, props = [], [], []
+        refines, props = [], []
         with _capture(icp, "icp_refine", refines), \
-                _capture(pipeline, "refine_frame_poses", frames), \
                 _capture(icp, "propagate_labels_fullres", props):
-            icp_step(*a)
-        torch.cuda.synchronize()
-        fa, fk, _ = frames[0]
-        counts = fk["gate_counts"]
-        if counts is None:
-            counts = fa[4].sum(-1)
-        rec = {"ms": time_ms(lambda: icp_step(*a), reps=1),
-               "n_iter": int(refines[0][2][2][0]),
-               "gate_passed": int((counts >= min_pts).sum()),
-               "classes_with_points": int((counts > 0).sum())}
-        rec.update(_device_trace(lambda: icp_step(*a),
-                                 expect={"winner_kernel": 1}))
-        per_mode[mode] = rec
+            reads = _host_reads(lambda: icp_step(*args_of(out, mode)))
+        n_iter = int(refines[0][2][2][0])
+        if reads < n_iter + 1:
+            raise AssertionError(f"icp {mode}: {reads} host reads for "
+                                 f"{n_iter} iterations")
+        log("icp", f"{mode} ICP: {reads} host reads for {n_iter} "
+            f"iterations")
         captured[mode] = (refines[0], props)
-        log("icp", f"{mode} ICP, one {h}x{w} raw frame, {n_cls - 1} "
-            f"classes x {cfg.icp.max_scene_points} scene points x "
-            f"{mesh_pts.shape[1]} mesh points: "
-            f"{rec['ms']:.2f} ms (events, median of 3), device "
-            f"{rec['device_ms']:.3f} ms in {rec['kernels']} kernel and "
-            f"{rec['copies']} copy launches, {rec['syncs']} "
-            f"synchronisations; {rec['n_iter']} iterations; "
-            f"{rec['gate_passed']} of {rec['classes_with_points']} classes "
-            f"with points passed the gate (>= {min_pts}) [{smi}]")
 
-    # The 1-NN propagation alone, on its own inputs (full-res mode): at
-    # least an addmm and an argmin a chunk.
+    # The 1-NN propagation (full-res mode) on the card against the CPU, on
+    # every 16th pixel.
     pa, _, plabels = captured["fullres"][1][0]
-    prop = lambda: icp.propagate_labels_fullres(*pa)      # noqa: E731
-    prop_ms = time_ms(prop, reps=1)
-    prop_tr = _device_trace(prop, min_kernels=2 * -(-pa[0].shape[0] // 4096))
-    log("icp", f"1-NN propagation {pa[0].shape[0]} pixels x "
-        f"{pa[2].shape[0]} samples (chunks of 4096): {prop_ms:.3f} ms "
-        f"(events), device "
-        f"{prop_tr['device_ms']:.3f} ms in {prop_tr['kernels']} kernel "
-        f"launches [{smi}]")
-    # ... on the card against the CPU, on every 16th pixel.
     cloud, valid, samples, slabels = (t.cpu() for t in pa)
     sub = slice(None, None, 16)
     cpu_labels = icp.propagate_labels_fullres(cloud[sub], valid[sub],
@@ -1959,22 +1581,14 @@ def phase_icp(smi: str, seed: int = 0):
         f"off; tolerance 1e-6): largest pose difference {wp_diff:.3e}, "
         f"largest from the GT {wp_gt:.3e}, iterations card / CPU "
         f"{wp_iter[0]} / {wp_iter[1]}")
-    # Where ICP's synchronisations come from: one batched SVD and one det
-    # of the fit's 21 3x3 matrices, alone.
-    h3 = torch.randn(n_cls - 1, 3, 3, device=dev)
-    lin = {"svd": lambda: torch.linalg.svd(h3),
-           "det": lambda: torch.linalg.det(h3)}
-    lin_tr = {n: _device_trace(f, min_kernels=0) for n, f in lin.items()}
 
     # The accuracy tool, short, at full width; its prefilter calls carry a
     # trained network's classes.
-    buf, tool_wins = io.StringIO(), []
-    with contextlib.redirect_stdout(buf), \
+    tool_wins = []
+    with contextlib.redirect_stdout(io.StringIO()), \
             _capture(icp, "winner_stats", tool_wins):
         res = synthetic_e2e.main(["--steps", "20", "--batch", "4",
                                   "--eval_frames", "4", "--icp"])
-    for line in buf.getvalue().splitlines():
-        log("icp", f"synthetic_e2e: {line}")
     keys = {"metric", "value", "add_auc", "adds_auc", "eval_seg_acc",
             "steps", "icp"}
     icp_keys = {"add_s_auc", "add_auc", "adds_auc", "delta_add_auc",
@@ -1986,6 +1600,8 @@ def phase_icp(smi: str, seed: int = 0):
         raise AssertionError(f"icp: synthetic_e2e record {res}")
     if not tool_wins:
         raise AssertionError("icp: the tool's ICP ran no prefilter")
+    log("icp", f"synthetic_e2e, 20 steps at batch 4 with --icp: its record "
+        f"complete and finite; {len(tool_wins)} prefilter calls")
     trained = [_k4_record(winner, *ta, tout, 1, dev)
                for ta, _, tout in tool_wins]
     for t in trained:
@@ -1995,35 +1611,15 @@ def phase_icp(smi: str, seed: int = 0):
             f"for bit; {t['ms']:.4f} ms, on the device "
             f"{t['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}); plain {t['plain_ms']:.3f}, "
-            f"cdist+lt+sum+argmax {t['library_ms']:.4f} [{smi}]")
-
-    # Host reads last, in traces of CPU activity alone: one loop read an
-    # iteration and one at its end, plus the SVD's.
-    for mode, rec in per_mode.items():
-        a = args_of(out, mode)
-        rec["host_reads"] = _host_reads(lambda: icp_step(*a))
-        if rec["host_reads"] < rec["n_iter"] + 1:
-            raise AssertionError(f"icp {mode}: {rec['host_reads']} host reads "
-                                 f"for {rec['n_iter']} iterations")
-        log("icp", f"{mode} ICP: {rec['host_reads']} host reads for "
-            f"{rec['n_iter']} iterations")
-    for n, f in lin.items():
-        t = lin_tr[n]
-        log("icp", f"one torch.linalg.{n} of {n_cls - 1} 3x3 matrices: "
-            f"{_host_reads(f)} host reads, {t['syncs']} synchronisations, "
-            f"{t['kernels']} kernels and {t['copies']} copies, "
-            f"{t['device_ms']:.4f} ms device")
-    # The traces' and the tool's garbage is collected here, not inside the
-    # next phase's timed steps.
+            f"cdist+lt+sum+argmax {t['library_ms']:.4f}")
+    # The tool's garbage is collected here, not inside the next phase.
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(k4, modes=per_mode, trained=trained,
-                          propagation_ms=prop_ms,
-                          propagation_device_ms=prop_tr["device_ms"],
+    return launches, dict(k4, trained=trained,
                           icp_refine_card_vs_cpu=pose_diff)
 
 
-def phase_train(smi: str, seed: int = 0):
+def phase_train(seed: int = 0):
     """The training path on the card.  Returns the launch counts of its
     three counted steps."""
     import dataclasses
@@ -2031,7 +1627,6 @@ def phase_train(smi: str, seed: int = 0):
 
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
-    from pvn3d_tpu_torch.ops.kernels import KERNELS
     from pvn3d_tpu_torch.train.state import (create_train_state,
                                              param_count)
     from pvn3d_tpu_torch.train.step import make_train_step, to_device
@@ -2044,28 +1639,19 @@ def phase_train(smi: str, seed: int = 0):
     batch = to_device(synthetic_batch(cfg, batch_size=n_batch, seed=seed),
                       dev)
     step(state, batch)                                   # warm-up
-    torch.cuda.synchronize()
     stats0 = {k: v.clone() for k, v in state.model.named_buffers()
               if "running_" in k}
 
-    losses, times = [], []
+    losses = []
 
-    def timed_step(st, b, step_seed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def logged_step(st, b, step_seed):
         st, metrics = step(st, b, step_seed)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
         return st, metrics
-    trainer = Trainer(cfg, state, timed_step, log_every=1)
-    torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k.launches = 0
-    trainer.fit([batch] * n_steps, max_steps=state.step + n_steps)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in KERNELS}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = Trainer(cfg, state, logged_step, log_every=1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, launches = _counted(lambda: trainer.fit(
+            [batch] * n_steps, max_steps=state.step + n_steps))
 
     want = {"fps": 1, "query": 4, "interp": 4, "interp_bwd": 4, "winner": 0}
     for name, per_step in want.items():
@@ -2091,22 +1677,17 @@ def phase_train(smi: str, seed: int = 0):
             raise AssertionError(f"train: non-finite gradient for {name}")
     log("train", f"{n_steps} steps through Trainer.fit at batch {n_batch}, "
         f"480x640 + 12288 points, 22 classes, bf16, "
-        f"{param_count(state.model)} parameters: step ms "
-        + ", ".join(f"{t:.1f}" for t in times) + "; loss "
+        f"{param_count(state.model)} parameters: loss "
         + ", ".join(f"{v:.4f}" for v in losses)
-        + f"; peak memory {peak_gb:.2f} GiB; launches {launches}; all "
-        f"{len(stats0)} BN running statistics moved, gradients finite "
-        f"[{smi}]")
+        + f"; launches {launches}; all {len(stats0)} BN running statistics "
+        f"moved, gradients finite")
 
     # grad_accum 2 on the same batch: two micro-batches of 2, so twice a
     # step's launches and one optimizer update.
     accum_step = make_train_step(dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, grad_accum=2)))
-    for k in KERNELS:
-        k.launches = 0
-    _, metrics = accum_step(state, batch)
+    (_, metrics), accum_launches = _counted(lambda: accum_step(state, batch))
     accum_loss = float(metrics["loss"])
-    accum_launches = {k.name: k.launches for k in KERNELS}
     if accum_launches != _expected_launches(
             **{name: 2 * n for name, n in want.items()}):
         raise AssertionError(f"train: grad_accum 2 launched "
@@ -2115,58 +1696,21 @@ def phase_train(smi: str, seed: int = 0):
         raise AssertionError(f"train: grad_accum 2 loss {accum_loss}")
     log("train", f"one more step at grad_accum 2 (micro-batches of 2): "
         f"loss {accum_loss:.4f}, launches {accum_launches}")
-    fit_batch_24(cfg, state, smi, seed + 1)
-    del state, trainer, batch
+
+    # One step at the published mini-batch of 24, grad_accum 1.
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = to_device(synthetic_batch(cfg, batch_size=24, seed=seed + 1), dev)
+    big_loss = float(step(state, big)[1]["loss"])
+    if not np.isfinite(big_loss):
+        raise AssertionError(f"train: batch 24 loss {big_loss}")
+    log("train", f"one step at batch 24, grad_accum 1: loss {big_loss:.4f}")
+    del state, big
     gc.collect()
     torch.cuda.empty_cache()
     train_reference(seed)
     return launches
-
-
-def fit_batch_24(cfg, state, smi: str, seed: int) -> None:
-    """One training step at ``mini_batch_size`` 24 with the smallest
-    ``grad_accum`` of 1, 2, 3, 4, 6 that fits in memory.  An out-of-memory
-    below 6 is logged and the next tried; at 6 (micro-batch 4, which the
-    steps before ran) it is a failure."""
-    import dataclasses
-    import gc
-
-    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
-    from pvn3d_tpu_torch.train.step import make_train_step, to_device
-    dev = torch.device("cuda")
-    big = to_device(synthetic_batch(cfg, batch_size=24, seed=seed), dev)
-    for accum in (1, 2, 3, 4, 6):
-        cfg_a = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, grad_accum=accum))
-        big_step = make_train_step(cfg_a)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        oom = None
-        try:
-            _, metrics = big_step(state, big)
-            torch.cuda.synchronize()
-        except torch.cuda.OutOfMemoryError as e:
-            if accum == 6:
-                raise
-            oom = str(e).splitlines()[0]
-        ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if oom is not None:
-            state.optimizer.zero_grad(set_to_none=True)
-            log("train", f"batch 24, grad_accum {accum} (micro-batch "
-                f"{24 // accum}): out of memory at {peak:.2f} GiB allocated "
-                f"({oom[:100]})")
-            continue
-        loss = float(metrics["loss"])
-        if not np.isfinite(loss):
-            raise AssertionError(f"train: batch 24 loss {loss}")
-        log("train", f"batch 24, grad_accum {accum} (micro-batch "
-            f"{24 // accum}): fits, peak memory {peak:.2f} GiB, first step "
-            f"{ms:.1f} ms, loss {loss:.4f} [{smi}]")
-        return
 
 
 def train_reference(seed: int) -> None:
@@ -2245,7 +1789,7 @@ def phase_reference(seed: int = 1):
     """The same code on the card (kernels) and on the CPU (plain
     versions): a small frame's forward, same weights, within 2e-3 with
     > 99.9% seg agreement; and the full-width pose stage on labelled votes
-    (three classes present) within 1e-4, timed on the card."""
+    (three classes present) within 1e-4."""
     from pvn3d_tpu_torch.config import Config, small_model_config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
@@ -2280,8 +1824,6 @@ def phase_reference(seed: int = 1):
         args = [v.to(dev) for v in votes]
         with torch.inference_mode():
             frames[dev] = fn(*args)
-            if dev == "cuda":
-                pose_ms = time_ms(lambda: fn(*args), reps=1)
     present = frames["cpu"].present
     pose_err = float((frames["cuda"].poses.cpu()
                       - frames["cpu"].poses).abs().max())
@@ -2292,7 +1834,7 @@ def phase_reference(seed: int = 1):
     log("reference", f"small frame card vs CPU plain: forward max err "
         f"{err:.2e}, seg agreement {agree:.4f}; full-width pose stage on "
         f"labelled votes ({int(present.sum())} classes): max err "
-        f"{pose_err:.2e}, {pose_ms:.2f} ms on the card (median of 3)")
+        f"{pose_err:.2e}")
 
 
 # The JAX package's deployment modes that [modes] drives at full width,
@@ -2337,7 +1879,7 @@ def _k2_variant(name, lvl, src, cen, capacity):
             lambda: query.ball_query_plain(r, ns, src, cen, **kw))
 
 
-def _k2_modes_levels(levels, pcfg, smi):
+def _k2_modes_levels(levels, pcfg):
     """K2's capacity, expanded and bf16 instances (bf16 in both d^2
     forms) held bit for bit against their plain versions at the four
     serving levels, and timed there beside the exact instance (events,
@@ -2387,7 +1929,7 @@ def _k2_modes_levels(levels, pcfg, smi):
             f"bound {ex['bound_ms']:.4f} ms | expanded "
             f"{rec['query_expanded']['levels'][li]['device_ms']:.4f}, bf16 "
             f"{rec['query_bf16']['levels'][li]['device_ms']:.4f} ms on the "
-            f"device; cdist+where+topk {ex['library_ms']:.4f} ms ({smi})")
+            f"device; cdist+where+topk {ex['library_ms']:.4f} ms")
     for name, r in rec.items():
         log("modes", f"K2 {name} x4 levels: equal to plain; {r['ms']:.4f} "
             f"ms, on the device {r['device_ms']:.4f} ms, bound "
@@ -2476,7 +2018,7 @@ def _k2_modes_edges(rng, levels, pcfg):
         f"versions")
 
 
-def _k3_expanded_levels(rng, levels, known_c, smi):
+def _k3_expanded_levels(rng, levels, known_c):
     """K3's expanded instance at the four FP levels: held against its
     plain version as the fused one is, timed beside it."""
     from pvn3d_tpu_torch.ops.kernels import interp
@@ -2529,20 +2071,18 @@ def _k3_expanded_levels(rng, levels, known_c, smi):
             f"{lvl['fused_device_ms']:.4f}), bound {lvl['bound_ms']:.4f} ms "
             f"({lvl['bound_by']}); plain {lvl['plain_ms']:.3f}, "
             f"cdist+topk+gather {lvl['library_ms']:.4f}; rows with the "
-            f"direct form's neighbours {same:.4f} ({smi})")
+            f"direct form's neighbours {same:.4f}")
     return _level_record(per_level, err, "indices exact, out/dist 1e-5",
                          "pvn3d_tpu/ops/interpolate.py:23")
 
 
-def _grouped_fps(xyz, m0, smi):
+def _grouped_fps(xyz, m0):
     """Grouped FPS (G = 2, 4): K1 on the slabs against plain FPS on the
-    same slabs, the whole grouped sample on the card against the CPU, and
-    its time beside exact FPS."""
+    same slabs, and the whole grouped sample on the card against the
+    CPU."""
     from pvn3d_tpu_torch.ops import sampling
     from pvn3d_tpu_torch.ops.kernels import fps
     n = xyz.shape[1]
-    exact_ms = time_ms(lambda: fps.fps(xyz, m0))
-    exact_dev = device_ms(lambda: fps.fps(xyz, m0))
     for g in (2, 4):
         spread = xyz.amax(1) - xyz.amin(1)
         ax = torch.argmax(spread, dim=1)
@@ -2559,16 +2099,8 @@ def _grouped_fps(xyz, m0, smi):
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"modes: grouped FPS G={g} on the card "
                                  f"differs from the CPU")
-        ms = time_ms(lambda: sampling.furthest_point_sample(xyz, m0,
-                                                            groups=g))
-        # K1 alone: traces of the whole sample (sort, gathers, copies)
-        # taken after the earlier phases lose their first device records.
-        k1_ms = device_ms(lambda: fps.fps(slabs, m0 // g))
         log("modes", f"grouped FPS G={g}: K1 on ({g}, {n // g}, 3) slabs "
-            f"equals plain, the sample equals the CPU's; {ms:.3f} ms "
-            f"(sort + K1 + gathers; K1 on the device {k1_ms:.3f}) against "
-            f"exact FPS {exact_ms:.3f} ms, on the device {exact_dev:.3f} "
-            f"({smi})")
+            f"equals plain, the sample equals the CPU's")
 
 
 def _request_card_vs_cpu(over, seed: int = 1):
@@ -2607,17 +2139,17 @@ def _request_card_vs_cpu(over, seed: int = 1):
     return err, agree, pose_err, int(present.sum())
 
 
-def phase_modes(smi: str, seed: int = 0):
+def phase_modes(seed: int = 0):
     """The JAX package's neighbour and sampling modes on the card.  K2's
     capacity, expanded and bf16 instances and K3's expanded one held bit
     for bit against their plain versions at the serving levels (and K2's
     on an adversarial cloud and 12 off-path shapes), grouped FPS against
     plain FPS on the same slabs, times beside the default instances; then
-    one full-width request in each deployment mode (``Config.ycb()``,
-    seeded random weights, three requests, every count set to 0 just
-    before and read just after, each mode's instances launched) beside the
-    exact mode's, and each mode card against CPU on a small frame
-    (forward 2e-3, poses 1e-4).  Returns (records, launches)."""
+    three full-width requests in each deployment mode (``Config.ycb()``,
+    seeded random weights, every count set to 0 just before and read just
+    after, each mode's instances launched), and each mode card against CPU
+    on a small frame (forward 2e-3, poses 1e-4).  Returns (records,
+    launches)."""
     import dataclasses
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
@@ -2637,13 +2169,13 @@ def phase_modes(smi: str, seed: int = 0):
     pts = xyz[0, fps.fps(xyz, m0)[0].long()][None]
     levels = [xyz] + [pts[:, :lvl.npoint].contiguous()
                       for lvl in pcfg.sa_levels]
-    rec = _k2_modes_levels(levels, pcfg, smi)
+    rec = _k2_modes_levels(levels, pcfg)
     _k2_modes_edges(rng, levels, pcfg)
     widths = [sum(m[-1] for m in lvl.mlps) for lvl in pcfg.sa_levels]
     known_c = [pcfg.fp_mlps[i + 1][-1] if i < 3 else widths[3]
                for i in range(4)]
-    rec["interp_expanded"] = _k3_expanded_levels(rng, levels, known_c, smi)
-    _grouped_fps(xyz, m0, smi)
+    rec["interp_expanded"] = _k3_expanded_levels(rng, levels, known_c)
+    _grouped_fps(xyz, m0)
 
     base = build_model(cfg.model, seed)
     state = base.state_dict()
@@ -2651,7 +2183,6 @@ def phase_modes(smi: str, seed: int = 0):
     batches = [synthetic_batch(cfg, batch_size=1, seed=100 + i)
                for i in range(3)]
     launches = {k.name: 0 for k in KERNELS}
-    lat = {}
     for name, (over, instances) in [("exact", ({}, ()))] + list(
             DEPLOY_MODES.items()):
         mcfg = dataclasses.replace(cfg, model=_with_pointnet2(cfg.model,
@@ -2660,30 +2191,16 @@ def phase_modes(smi: str, seed: int = 0):
         model.load_state_dict(state, strict=True)
         step = make_inference_step(mcfg, model, mesh_kps, radii)
         step(batches[0])                                    # warm-up
-        torch.cuda.synchronize()
-        for k in KERNELS:
-            k.launches = 0
-        times = []
-        for batch in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            if not bool(torch.isfinite(out["poses"]).all()):
-                raise AssertionError(f"modes {name}: non-finite poses")
-        counts = {k.name: k.launches for k in KERNELS}
+        outs, counts = _counted(lambda: [step(b) for b in batches])
+        if not all(bool(torch.isfinite(o["poses"]).all()) for o in outs):
+            raise AssertionError(f"modes {name}: non-finite poses")
         for inst in instances:
             if counts[inst] < 3:
                 raise AssertionError(f"modes {name}: {inst} launched "
                                      f"{counts[inst]} times in 3 requests")
         if name != "exact":
-            for k, v in counts.items():
-                launches[k] += v
-        lat[name] = statistics.median(times)
-        log("modes", f"{name}: 3 full-width requests, median "
-            f"{lat[name]:.2f} ms (exact mode "
-            f"{lat.get('exact', lat[name]):.2f} ms in this call); launches "
+            _add_counts(launches, counts)
+        log("modes", f"{name}: 3 full-width requests, poses finite; launches "
             f"{ {k: v for k, v in counts.items() if v} }")
         del model, step
     for name, (over, _) in DEPLOY_MODES.items():
@@ -2695,38 +2212,14 @@ def phase_modes(smi: str, seed: int = 0):
         log("modes", f"{name}: small frame card vs CPU plain: forward max "
             f"err {err:.2e}, seg agreement {agree:.4f}, poses max err "
             f"{pose_err:.2e} ({present} classes present)")
-    rec["latency_ms"] = lat
     return rec, launches
 
 
 # The [disk] phase's trees and runs live in the checkout's build/
 # directory (git ignores it).
 DISK_DIR = os.path.join(ROOT, "build", "disk")
-
-
-class _TimedTrainer:
-    """A ``Trainer`` factory that records each step's host-clock time
-    (synchronised before and after) and the interval between step ends
-    (the loader's wait included)."""
-
-    def __init__(self, base):
-        self.base, self.step_ms, self.interval_ms = base, [], []
-
-    def __call__(self, cfg, state, train_step, *a, **kw):
-        last = [None]
-
-        def timed(st, batch, seed):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = train_step(st, batch, seed)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            self.step_ms.append((t1 - t0) * 1e3)
-            if last[0] is not None:
-                self.interval_ms.append((t1 - last[0]) * 1e3)
-            last[0] = t1
-            return out
-        return self.base(cfg, state, timed, *a, **kw)
+# [disk]'s YCB training steps a mode and YCB test frames an evaluation.
+DISK_STEPS, DISK_FRAMES = 3, 8
 
 
 def _counted(fn):
@@ -2741,11 +2234,11 @@ def _counted(fn):
     return out, {k.name: k.launches for k in KERNELS}
 
 
-def _disk_trees(n_test: int):
-    """A YCB tree at 480x640 (``n_test`` real frames named as the vendored
-    test list's first, 8 synthetic; a mesh for each of the 21 classes)
-    and a LineMOD tree for one object (4 real frames, 2 render and 2 fuse
-    items), written by the port's tool."""
+def _disk_trees():
+    """A YCB tree at 480x640 (``DISK_FRAMES`` real frames named as the
+    vendored test list's first, 8 synthetic; a mesh for each of the 21
+    classes) and a LineMOD tree for one object (4 real frames, 2 render and
+    2 fuse items), written by the port's tool."""
     import shutil
 
     from pvn3d_tpu_torch.config import ASSETS_DIR
@@ -2754,30 +2247,22 @@ def _disk_trees(n_test: int):
     shutil.rmtree(DISK_DIR, ignore_errors=True)
     with open(os.path.join(ASSETS_DIR, "ycb_config",
                            "test_data_list.txt")) as f:
-        test_items = [ln.strip() for ln in f if ln.strip()][:n_test]
+        test_items = [ln.strip() for ln in f if ln.strip()][:DISK_FRAMES]
     items = test_items + [f"data_syn/{i:06d}" for i in range(1, 9)]
-    t0 = time.perf_counter()
     ycb = make_fake_ycb(DISK_DIR, items=items, mesh_ids=range(1, 22))
     lm = make_fake_linemod(DISK_DIR, n_frames=4, n_renders=2)
-    log("disk", f"trees written in {time.perf_counter() - t0:.1f} s: YCB "
-        f"{len(items)} frames ({n_test} real as the test list's first, 8 "
-        f"synthetic), LineMOD 4 real + 2 render + 2 fuse")
+    log("disk", f"trees written: YCB {len(items)} frames ({DISK_FRAMES} "
+        f"real as the test list's first, 8 synthetic), LineMOD 4 real + 2 "
+        f"render + 2 fuse")
     return ycb, lm
 
 
-def _interval_summary(ms) -> str:
-    ms = sorted(ms)
-    return (f"median {ms[len(ms) // 2]:.1f} ms, mean "
-            f"{sum(ms) / len(ms):.1f} over {len(ms)} intervals")
-
-
-def _disk_train(smi, ycb, lm, steps: int):
-    """The train app: ``steps`` steps at batch 4 on the YCB tree with
+def _disk_train(ycb, lm):
+    """The train app: ``DISK_STEPS`` steps at batch 4 on the YCB tree with
     host frames from 0 and 2 workers and with --device_preprocess, then 2
     on the LineMOD tree; each saves a checkpoint.  Returns the summed
     launch counts and the first YCB run's checkpoint directory."""
     from pvn3d_tpu_torch.apps import train as train_app
-    from pvn3d_tpu_torch.train.trainer import Trainer
     runs = {
         "ycb host, 0 workers": ["--workers", "0"],
         "ycb host, 2 workers": ["--workers", "2"],
@@ -2788,7 +2273,7 @@ def _disk_train(smi, ycb, lm, steps: int):
     total, ckpt = {}, None
     for i, (name, extra) in enumerate(runs.items()):
         lm_run = name.startswith("linemod")
-        n_steps = 2 if lm_run else steps
+        n_steps = 2 if lm_run else DISK_STEPS
         run_dir = os.path.join(DISK_DIR, f"run{i}")
         argv = (["--dataset", "linemod", "--cls", "ape", "--data_root", lm]
                 if lm_run else
@@ -2796,14 +2281,8 @@ def _disk_train(smi, ycb, lm, steps: int):
                  os.path.join(ycb, "image_list.txt")])
         argv += ["--checkpoint_dir", run_dir, "--batch_size", "4",
                  "--max_steps", str(n_steps), "--log_every", "1"] + extra
-        timer = _TimedTrainer(Trainer)
-        train_app.Trainer = timer
-        try:
-            t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
             trainer, launches = _counted(lambda: train_app.main(argv))
-            wall = time.perf_counter() - t0
-        finally:
-            train_app.Trainer = Trainer
         want = _expected_launches(fps=n_steps, query=4 * n_steps,
                                   interp=4 * n_steps,
                                   interp_bwd=4 * n_steps)
@@ -2814,57 +2293,27 @@ def _disk_train(smi, ycb, lm, steps: int):
                 os.path.join(run_dir, f"ckpt_{n_steps}.pt")):
             raise AssertionError(f"disk: train {name}: no checkpoint at "
                                  f"step {n_steps}")
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        log("disk", f"train {name}: {n_steps} steps at batch 4, step ms "
-            + ", ".join(f"{t:.1f}" for t in timer.step_ms)
-            + "; between step ends ms "
-            + ", ".join(f"{t:.1f}" for t in timer.interval_ms)
-            + f" ({_interval_summary(timer.interval_ms)}); run {wall:.1f} "
-            f"s; launches {launches} [{smi}]")
+        _add_counts(total, launches)
+        log("disk", f"train {name}: {n_steps} steps at batch 4, checkpoint "
+            f"written; launches {launches}")
         ckpt = ckpt or run_dir
     return total, ckpt
 
 
-def _disk_loader_rate(smi, ycb, steps: int):
-    """Frames a second of the host build (YCB train frames, augmentation
-    and fill included) at 0 and 2 workers, over the ``steps - 1``
-    batches of 4 after the first."""
-    from pvn3d_tpu_torch.apps.train import make_dataset_factory, train_config
-    from pvn3d_tpu_torch.apps.train import build_argparser as train_args
-    from pvn3d_tpu_torch.data.loader import DataLoader
-    args = train_args().parse_args(["--data_root", ycb, "--file_list",
-                                    os.path.join(ycb, "image_list.txt")])
-    factory = make_dataset_factory(args, "train", train_config(args))
-    rates = {}
-    for workers in (0, 2):
-        it = iter(DataLoader(factory, 4, num_workers=workers, steps=steps))
-        next(it)
-        t0 = time.perf_counter()
-        n = sum(len(b["labels"]) for b in it)
-        rates[workers] = n / (time.perf_counter() - t0)
-    log("disk", f"loader, YCB train frames built on the host: "
-        f"{rates[0]:.2f} frames/s at 0 workers, {rates[2]:.2f} at 2, over "
-        f"{4 * (steps - 1)} frames after the first batch [{smi}]")
-    return rates
-
-
-def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt, frames: int):
-    """The evaluate app on the YCB test split's ``frames`` frames from the
-    first checkpoint: host frames, --device_preprocess, --icp, and
+def _disk_evaluate(ycb, lm, ckpt, lm_ckpt):
+    """The evaluate app on the YCB test split's ``DISK_FRAMES`` frames from
+    the first checkpoint: host frames, --device_preprocess, --icp, and
     --packed_dir after the packer packed the split; then once on
     LineMOD.  Returns the summed launch counts."""
     from pvn3d_tpu_torch.apps import evaluate as eval_app
     from pvn3d_tpu_torch.data.ycb import YCBDataset
     from pvn3d_tpu_torch.tools.preprocess_testset import pack_dataset
     packed = os.path.join(DISK_DIR, "packed")
-    t0 = time.perf_counter()
     n_packed = pack_dataset(YCBDataset(ycb, split="test"), packed,
-                            shard_size=4, max_frames=frames, workers=2)
-    log("disk", f"packed {n_packed} test frames in "
-        f"{time.perf_counter() - t0:.1f} s")
+                            shard_size=4, max_frames=DISK_FRAMES, workers=2)
+    log("disk", f"packed {n_packed} test frames")
     base = ["--data_root", ycb, "--checkpoint_dir", ckpt, "--batch_size",
-            "4", "--max_frames", str(frames), "--workers", "0"]
+            "4", "--max_frames", str(DISK_FRAMES), "--workers", "0"]
     runs = {"ycb host": base, "ycb --device_preprocess":
             base + ["--device_preprocess"], "ycb --icp": base + ["--icp"],
             "ycb --packed_dir": base + ["--packed_dir", packed],
@@ -2874,40 +2323,29 @@ def _disk_evaluate(smi, ycb, lm, ckpt, lm_ckpt, frames: int):
     acc = eval_app.accumulate_batches
     total, counts = {}, {}
     for name, argv in runs.items():
-        timed = {}
+        scored = []
 
         def accumulate(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            n = acc(*a, **kw)
-            torch.cuda.synchronize()
-            timed["s"], timed["n"] = time.perf_counter() - t0, n
-            return n
+            scored.append(acc(*a, **kw))
+            return scored[-1]
         eval_app.accumulate_batches = accumulate
-        printed = io.StringIO()
         try:
-            with contextlib.redirect_stdout(printed):
-                summary, launches = _counted(lambda: eval_app.main(argv))
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, launches = _counted(lambda: eval_app.main(argv))
         finally:
             eval_app.accumulate_batches = acc
-        want = 4 if name.startswith("linemod") else frames
-        if timed.get("n") != want:
-            raise AssertionError(f"disk: evaluate {name}: {timed.get('n')} "
-                                 f"frames scored, expected {want}")
+        want = 4 if name.startswith("linemod") else DISK_FRAMES
+        if scored != [want]:
+            raise AssertionError(f"disk: evaluate {name}: {scored} frames "
+                                 f"scored, expected {want}")
         if any(launches[k] < 1 for k in ("fps", "query", "interp",
                                          "winner")):
             raise AssertionError(f"disk: evaluate {name}: launches "
                                  f"{launches}")
         counts[name] = launches
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        said = [ln for ln in printed.getvalue().splitlines()
-                if ln.startswith(("evaluating", "evaluated", "All", "obj",
-                                  "WARNING"))]
-        log("disk", f"evaluate {name}: {timed['n']} frames in "
-            f"{timed['s']:.2f} s ({timed['n'] / timed['s']:.2f} frames/s, "
-            f"loader included); the app said {said}; launches {launches} "
-            f"[{smi}]")
+        _add_counts(total, launches)
+        log("disk", f"evaluate {name}: {want} frames scored; launches "
+            f"{launches}")
     if not counts["ycb --icp"]["winner"] > counts["ycb host"]["winner"]:
         raise AssertionError("disk: --icp launched K4 no more often than "
                              "the run without it")
@@ -3017,18 +2455,14 @@ def _disk_card_vs_cpu(ycb, ckpt):
         f"beyond 1e-4 at {flips} of {nrm_off.numel()} points")
 
 
-def phase_disk(smi: str, steps: int = 3, frames: int = 8):
+def phase_disk():
     """Train and evaluate through the apps from trees written here (see
-    the module docstring).  Returns the launch counts of its runs.
-
-    ``steps`` YCB training steps a mode and ``frames`` test frames an
-    evaluation mode (see the module docstring)."""
+    the module docstring).  Returns the launch counts of its runs."""
     import gc
-    ycb, lm = _disk_trees(frames)
-    train_launches, ckpt = _disk_train(smi, ycb, lm, steps)
-    _disk_loader_rate(smi, ycb, steps)
-    eval_launches = _disk_evaluate(smi, ycb, lm, ckpt,
-                                   os.path.join(DISK_DIR, "run3"), frames)
+    ycb, lm = _disk_trees()
+    train_launches, ckpt = _disk_train(ycb, lm)
+    eval_launches = _disk_evaluate(ycb, lm, ckpt,
+                                   os.path.join(DISK_DIR, "run3"))
     _disk_card_vs_cpu(ycb, ckpt)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3038,6 +2472,8 @@ def phase_disk(smi: str, steps: int = 3, frames: int = 8):
 # The [apps] phase's trees, checkpoints, renders and traces (under the
 # checkout's git-ignored build/ directory).
 APPS_DIR = os.path.join(ROOT, "build", "apps")
+# Annotated frames an [apps] --occ evaluation and frames a demo run.
+OCC_FRAMES, DEMO_FRAMES = 4, 2
 # Substrings of the four TPU kernels' CUDA names in a profiler trace.
 _TRACE_NAMES = {"K1": "fps_kernel", "K2": "ball_query_kernel",
                 "K3": "three_interp_kernel", "K4": "winner_kernel"}
@@ -3048,12 +2484,12 @@ def _add_counts(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def _apps_trees(occ_frames: int, demo_frames: int):
-    """480x640 trees written by the port's tool: YCB (``demo_frames``
-    real frames named as the vendored test list's first, a mesh for each
-    of the 21 classes), LineMOD ape (``demo_frames`` real frames), and
+def _apps_trees():
+    """480x640 trees written by the port's tool: YCB (``DEMO_FRAMES`` real
+    frames named as the vendored test list's first, a mesh for each of the
+    21 classes), LineMOD ape (``DEMO_FRAMES`` real frames), and
     Occlusion-LineMOD ape in both variants, labels synthesised from the
-    mesh and masks on disk (``occ_frames`` annotated frames each and an
+    mesh and masks on disk (``OCC_FRAMES`` annotated frames each and an
     unannotated last one)."""
     import shutil
 
@@ -3064,43 +2500,26 @@ def _apps_trees(occ_frames: int, demo_frames: int):
     shutil.rmtree(APPS_DIR, ignore_errors=True)
     with open(os.path.join(ASSETS_DIR, "ycb_config",
                            "test_data_list.txt")) as f:
-        items = [ln.strip() for ln in f if ln.strip()][:demo_frames]
-    t0 = time.perf_counter()
+        items = [ln.strip() for ln in f if ln.strip()][:DEMO_FRAMES]
     trees = {
         "ycb": make_fake_ycb(APPS_DIR, items=items, mesh_ids=range(1, 22)),
-        "linemod": make_fake_linemod(APPS_DIR, n_frames=demo_frames),
+        "linemod": make_fake_linemod(APPS_DIR, n_frames=DEMO_FRAMES),
         "occ": make_fake_occlusion_linemod(
-            os.path.join(APPS_DIR, "occ_synth"), n_frames=occ_frames + 1),
+            os.path.join(APPS_DIR, "occ_synth"), n_frames=OCC_FRAMES + 1),
         "occ masks": make_fake_occlusion_linemod(
-            os.path.join(APPS_DIR, "occ_masks"), n_frames=occ_frames + 1,
+            os.path.join(APPS_DIR, "occ_masks"), n_frames=OCC_FRAMES + 1,
             with_masks=True)}
-    log("apps", f"trees written in {time.perf_counter() - t0:.1f} s: YCB "
-        f"{demo_frames} test frames, LineMOD {demo_frames}, "
-        f"Occlusion-LineMOD {occ_frames} annotated + 1 not, with "
-        f"synthesised labels and with masks")
+    log("apps", f"trees written: YCB {DEMO_FRAMES} test frames, LineMOD "
+        f"{DEMO_FRAMES}, Occlusion-LineMOD {OCC_FRAMES} annotated + 1 not, "
+        f"with synthesised labels and with masks")
     return trees
 
 
-# Fewest frames of a run whose wall time [apps] reports as a rate; the
-# smoke run's 4 occ and 2 demo frames are path checks.
-RATE_FRAMES = 8
-
-
-def _rate(n: int, seconds: float) -> str:
-    """``n`` frames in ``seconds`` as frames/s, or, below
-    ``RATE_FRAMES``, as a path check only: a few frames are one batch,
-    whose reading is mostly the first call's or the warm process's."""
-    if n < RATE_FRAMES:
-        return (f"{n} frames in {seconds:.2f} s (a path check, too few "
-                f"frames for a rate)")
-    return f"{n} frames in {seconds:.2f} s ({n / seconds:.2f} frames/s)"
-
-
-def _apps_occ(smi, trees, total, frames):
+def _apps_occ(trees, total):
     """``apps.evaluate --occ`` at batch 4 on both occ variants (host
     frames) and with --device_preprocess, then the packer's --occ and
-    --packed_dir on its shards, ``frames`` annotated frames each: wall
-    time, ADD and launches a run."""
+    --packed_dir on its shards, ``OCC_FRAMES`` annotated frames each: the
+    frames scored, ADD finite and K1-K4 launched in each run."""
     from pvn3d_tpu_torch.apps import evaluate as eval_app
     from pvn3d_tpu_torch.inference import evaluator
     from pvn3d_tpu_torch.tools import preprocess_testset
@@ -3123,23 +2542,17 @@ def _apps_occ(smi, trees, total, frames):
     real_ev = evaluator.PoseEvaluator
     for name, extra in runs.items():
         if name == "--packed_dir":
-            t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 preprocess_testset.main(
                     ["--dataset", "linemod", "--cls", "ape", "--occ",
                      "--data_root", trees["occ"], "--out", packed,
                      "--shard_size", "4", "--workers", "0"])
-            log("apps", f"packer --occ: {frames} frames packed in "
-                f"{time.perf_counter() - t0:.1f} s")
-        timed = {}
+            log("apps", f"packer --occ: {OCC_FRAMES} frames packed")
+        scored = []
 
         def accumulate(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            n = acc(*a, **kw)
-            torch.cuda.synchronize()
-            timed["s"], timed["n"] = time.perf_counter() - t0, n
-            return n
+            scored.append(acc(*a, **kw))
+            return scored[-1]
         eval_app.accumulate_batches = accumulate
         evaluator.PoseEvaluator = Capture
         try:
@@ -3150,21 +2563,17 @@ def _apps_occ(smi, trees, total, frames):
             eval_app.accumulate_batches = acc
             evaluator.PoseEvaluator = real_ev
         add = np.asarray(made[-1].cls_add_dis[1])
-        if timed.get("n") != frames or summary["n"] != frames or \
+        if scored != [OCC_FRAMES] or summary["n"] != OCC_FRAMES or \
                 not np.isfinite(add).all():
             raise AssertionError(f"apps: evaluate --occ {name}: "
-                                 f"{timed.get('n')} frames, summary "
-                                 f"{summary}")
+                                 f"{scored} frames, summary {summary}")
         if any(launches[k] < 1 for k in ("fps", "query", "interp",
                                          "winner")):
             raise AssertionError(f"apps: evaluate --occ {name}: launches "
                                  f"{launches}")
         _add_counts(total, launches)
-        log("apps", f"evaluate --occ ({name}), loader included: "
-            f"{_rate(frames, timed['s'])}; ADD "
-            f"mean {add.mean():.4f} m, AUC {summary['add_auc']:.2f}, "
-            f"<0.1d {summary['add_0.1d']:.2f} (random weights); launches "
-            f"{launches} [{smi}]")
+        log("apps", f"evaluate --occ ({name}): {OCC_FRAMES} frames scored, "
+            f"ADD finite; launches {launches}")
 
 
 def _overlay_checkpoint(cfg, run_dir: str) -> None:
@@ -3187,8 +2596,8 @@ def _overlay_checkpoint(cfg, run_dir: str) -> None:
     CheckpointManager(run_dir).save(0, state)
 
 
-def _apps_demo(smi, trees, total, frames):
-    """``apps.demo`` on the YCB and LineMOD trees, ``frames`` frames each:
+def _apps_demo(trees, total):
+    """``apps.demo`` on the YCB and LineMOD trees, ``DEMO_FRAMES`` each:
     the PNGs decode to full frames and differ from the frames read by the
     drawn overlays."""
     from pvn3d_tpu_torch.apps import demo
@@ -3197,23 +2606,22 @@ def _apps_demo(smi, trees, total, frames):
     from pvn3d_tpu_torch.data.png import read_png
     with open(os.path.join(ASSETS_DIR, "ycb_config",
                            "test_data_list.txt")) as f:
-        items = [ln.strip() for ln in f if ln.strip()][:frames]
+        items = [ln.strip() for ln in f if ln.strip()][:DEMO_FRAMES]
     sources = {
         "ycb": [os.path.join(trees["ycb"], f"{it}-color.png")
                 for it in items],
         "linemod": [os.path.join(trees["linemod"], "data", "01", "rgb",
-                                 f"{i:04d}.png") for i in range(frames)]}
+                                 f"{i:04d}.png")
+                    for i in range(DEMO_FRAMES)]}
     for dataset, srcs in sources.items():
         run = os.path.join(APPS_DIR, f"demo_run_{dataset}")
         _overlay_checkpoint(base_config(dataset, "ape"), run)
         out = os.path.join(APPS_DIR, f"demo_{dataset}")
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             paths, launches = _counted(lambda: demo.main(
                 ["--dataset", dataset, "--cls", "ape", "--data_root",
                  trees[dataset], "--checkpoint_dir", run, "--out_dir", out,
-                 "--n_frames", str(frames), "--workers", "0"]))
-        wall = time.perf_counter() - t0
+                 "--n_frames", str(DEMO_FRAMES), "--workers", "0"]))
         drawn = []
         for path, src in zip(paths, srcs):
             img, frame = read_png(path), read_png(src)
@@ -3221,17 +2629,16 @@ def _apps_demo(smi, trees, total, frames):
                 raise AssertionError(f"apps: demo {path}: {img.shape} "
                                      f"{img.dtype}")
             drawn.append(int((img != frame[..., :3]).any(-1).sum()))
-        if len(paths) != frames or min(drawn) < 1:
+        if len(paths) != DEMO_FRAMES or min(drawn) < 1:
             raise AssertionError(f"apps: demo {dataset}: {len(paths)} "
                                  f"images, overlay pixels {drawn}")
-        if any(launches[k] < frames for k in ("fps", "query", "interp",
-                                              "winner")):
+        if any(launches[k] < DEMO_FRAMES for k in ("fps", "query", "interp",
+                                                   "winner")):
             raise AssertionError(f"apps: demo {dataset}: launches "
                                  f"{launches}")
         _add_counts(total, launches)
-        log("apps", f"demo {dataset}, model, meshes and loader included: "
-            f"{_rate(frames, wall)}; overlay pixels {drawn}; launches "
-            f"{launches} [{smi}]")
+        log("apps", f"demo {dataset}: {DEMO_FRAMES} PNGs of full frames, "
+            f"overlay pixels {drawn}; launches {launches}")
 
 
 def _torchvision_dict(path: str) -> dict:
@@ -3262,7 +2669,7 @@ def _torchvision_dict(path: str) -> dict:
     return sd
 
 
-def _apps_trunk(smi, trees, total):
+def _apps_trunk(trees, total):
     """``apps.train --pretrained_trunk`` for 2 steps at batch 4 on the
     LineMOD tree: the trunk equals the dict when the first step starts
     and the steps launch K1-K3 and K3's backward."""
@@ -3283,17 +2690,14 @@ def _apps_trunk(smi, trees, total):
             return train_step(st, batch, seed)
         return real(cfg, state, first, *a, **kw)
     train_app.Trainer = trainer
-    printed = io.StringIO()
     try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(io.StringIO()):
             out, launches = _counted(lambda: train_app.main(
                 ["--dataset", "linemod", "--cls", "ape", "--data_root",
                  trees["linemod"], "--checkpoint_dir",
                  os.path.join(APPS_DIR, "trunk_run"), "--pretrained_trunk",
                  path, "--batch_size", "4", "--max_steps", "2",
                  "--workers", "0", "--log_every", "1"]))
-        wall = time.perf_counter() - t0
     finally:
         train_app.Trainer = real
     off = [k for k, v in sd.items() if not k.startswith("fc.")
@@ -3308,14 +2712,12 @@ def _apps_trunk(smi, trees, total):
         raise AssertionError(f"apps: --pretrained_trunk: launches "
                              f"{launches}, expected {want}")
     _add_counts(total, launches)
-    losses = [ln for ln in printed.getvalue().splitlines()
-              if ln.startswith("[train")]
     log("apps", f"train --pretrained_trunk: {len(sd) - 2} trunk tensors "
-        f"equal the dict at step 0; 2 steps at batch 4 in {wall:.1f} s; "
-        f"{losses}; launches {launches} [{smi}]")
+        f"equal the dict at step 0; 2 steps at batch 4; launches "
+        f"{launches}")
 
 
-def _apps_tools(smi, trees):
+def _apps_tools(trees):
     """``tools.check_dataset`` with --render_dir on the YCB and LineMOD
     trees (0 violations), ``tools.gen_obj_info`` on a fake PLY, and
     ``knn_normals`` on a 12288-point cloud on the card against the
@@ -3330,7 +2732,6 @@ def _apps_tools(smi, trees):
                                        trees["linemod"]])):
         renders = os.path.join(APPS_DIR, f"check_{dataset}")
         printed = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             bad = check_dataset.main(argv + ["--split", "test",
                                              "--n_frames", "2",
@@ -3342,14 +2743,13 @@ def _apps_tools(smi, trees):
                                  f"bad, renders {names} {shapes}: "
                                  f"{printed.getvalue()}")
         log("apps", f"check_dataset {dataset}: "
-            f"{printed.getvalue().splitlines()[-1]}, {len(names)} renders, "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{printed.getvalue().splitlines()[-1]}, {len(names)} renders")
 
     ply = os.path.join(APPS_DIR, "obj.ply")
     pts = np.random.RandomState(11).uniform(-40, 40, (2000, 3))
     _write_ply(ply, pts)
     info_dir = os.path.join(APPS_DIR, "obj_info")
-    info = gen_obj_info.gen_one_mesh_info(ply, info_dir, scale=1000.0)
+    gen_obj_info.gen_one_mesh_info(ply, info_dir, scale=1000.0)
     kps = np.loadtxt(os.path.join(info_dir, "farthest.txt"))
     near = np.abs(kps[:, None] - pts[None] / 1000.0).sum(-1).min(1)
     if sorted(os.listdir(info_dir)) != sorted(
@@ -3357,52 +2757,34 @@ def _apps_tools(smi, trees):
              "farthest4.txt", "farthest12.txt", "farthest16.txt",
              "farthest20.txt"]) or kps.shape != (8, 3) or near.max() > 1e-6:
         raise AssertionError(f"apps: gen_obj_info: {os.listdir(info_dir)}")
-    log("apps", f"gen_obj_info: {info}, 8 files")
+    log("apps", "gen_obj_info: 8 files, the 8 keypoints on the mesh")
 
     cloud = depth_cloud(np.random.RandomState(12), 12288)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     card = knn_normals(cloud, k=50)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     cpu = knn_normals(cloud, k=50, device="cpu")
-    cpu_s = time.perf_counter() - t0
     dots = (card.astype(np.float64) * cpu).sum(1)
     if dots.min() < 1 - 1e-6:
         raise AssertionError(f"apps: knn_normals card vs CPU: min |n.n'| "
                              f"{dots.min()}")
-    log("apps", f"knn_normals, 12288 points, k 50: card {card_s:.2f} s, "
-        f"CPU {cpu_s:.2f} s (host clock, first call); min n.n' card vs "
-        f"CPU {dots.min():.9f} [{smi}]")
+    log("apps", f"knn_normals, 12288 points, k 50: min n.n' card vs CPU "
+        f"{dots.min():.9f}")
 
 
-def _apps_profiling(smi, slice_lat, total):
-    """``utils.profiling.device_loop_stats`` around one full-width serving
-    request (iters 5, trials 3), then one ``trace()`` of two requests
+def _apps_trace(total):
+    """One ``utils.profiling.trace()`` of two full-width serving requests
     between marker kernels, whose Chrome trace must name K1-K4."""
     from pvn3d_tpu_torch.config import Config
     from pvn3d_tpu_torch.data.synthetic import synthetic_batch
     from pvn3d_tpu_torch.inference.pipeline import make_inference_step
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
-    from pvn3d_tpu_torch.utils.profiling import (annotate,
-                                                 device_loop_stats, trace)
+    from pvn3d_tpu_torch.utils.profiling import annotate, trace
     from pvn3d_tpu_torch.utils.weights import build_model
     cfg = Config.ycb()
     step = make_inference_step(cfg, build_model(cfg.model, 0),
                                stacked_mesh_kps(), stacked_class_radii())
     batch = synthetic_batch(cfg, batch_size=1, seed=0)
-    stats, launches = _counted(lambda: device_loop_stats(
-        lambda i: step(batch)["poses"].sum() + 0.0 * i, iters=5, trials=3))
-    _add_counts(total, launches)
-    log("apps", f"device_loop_stats of a full-width request (iters 5, "
-        f"trials 3, CUDA events): {stats['s_per_iter'] * 1e3:.2f} ms a "
-        f"request, trials {stats['trials_s']} s, stalls "
-        f"{stats['rejected_stall_s']}, spread {stats['spread']}, suspect "
-        f"{stats['suspect']}; [slice] by the host clock "
-        + ", ".join(f"{t:.2f}" for t in slice_lat) + f" ms [{smi}]")
-
+    step(batch)       # warm-up: the image branch's graph captured untraced
     logdir = os.path.join(APPS_DIR, "trace")
 
     def traced():
@@ -3433,134 +2815,31 @@ def _apps_profiling(smi, slice_lat, total):
         f"ranges {requests}")
 
 
-class _StageClock:
-    """Host-clock time spent in named functions, summed per stage: each
-    ``wrap`` replaces ``owner.name`` by a timed call until ``restore``."""
-
-    def __init__(self):
-        self.ms, self._undo = {}, []
-
-    def wrap(self, owner, name: str, stage: str) -> None:
-        fn = getattr(owner, name)
-
-        def timed(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.ms[stage] = (self.ms.get(stage, 0.0)
-                                  + (time.perf_counter() - t0) * 1e3)
-        setattr(owner, name, timed)
-        self._undo.append((owner, name, fn))
-
-    def restore(self) -> None:
-        for owner, name, fn in reversed(self._undo):
-            setattr(owner, name, fn)
-        self._undo = []
-
-
-def _median_ms(fn, reps: int = 5) -> float:
-    """Median host-clock ms of ``reps`` calls after one warm-up call."""
-    fn()
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(out)
-
-
-def _host_stages(smi, ycb: str, plain: bool, steps: int = 3) -> dict:
-    """YCB train frames built on the host at 0 workers (``steps`` batches
-    of 4) with the stages timed apart: decode (PNG and .mat reads, the
-    pasted backgrounds' too), augmentation, fill, normals, sampling (the
-    rest of ``build_frame``: sampling, gathers, targets) and other.  With
-    ``plain``, the fill and the normals take their plain versions (torch
-    fill, numpy normals) instead of the C++ twins.  Returns ms a frame
-    per stage and the frames/s over the batches after the first."""
-    import functools
-
-    from pvn3d_tpu_torch.apps.train import build_argparser as train_args
-    from pvn3d_tpu_torch.apps.train import make_dataset_factory, train_config
-    from pvn3d_tpu_torch.data import augment, frame, ycb as ycb_mod
-    from pvn3d_tpu_torch.data.depth_completion import fill_missing
-    from pvn3d_tpu_torch.data.loader import DataLoader
-    from pvn3d_tpu_torch.data.normals import normals_from_depth_map
-    clock = _StageClock()
-    saved = (ycb_mod.fill_missing, frame.normals_from_depth_map)
-    if plain:
-        ycb_mod.fill_missing = functools.partial(fill_missing, impl="torch")
-        frame.normals_from_depth_map = functools.partial(
-            normals_from_depth_map, impl="numpy")
-    try:
-        clock.wrap(ycb_mod.YCBDataset, "get_item", "total")
-        clock.wrap(ycb_mod.YCBDataset, "_load_raw", "decode")
-        for fn in ("color_jitter", "rgb_add_noise_ycb", "add_real_back"):
-            clock.wrap(augment, fn, "augmentation")
-        clock.wrap(ycb_mod, "fill_missing", "fill")
-        clock.wrap(frame, "normals_from_depth_map", "normals")
-        clock.wrap(ycb_mod, "build_frame", "build_frame")
-        args = train_args().parse_args(["--data_root", ycb, "--file_list",
-                                        os.path.join(ycb, "image_list.txt")])
-        factory = make_dataset_factory(args, "train", train_config(args))
-        it = iter(DataLoader(factory, 4, num_workers=0, steps=steps))
-        n = len(next(it)["labels"])
-        t0 = time.perf_counter()
-        rest = sum(len(b["labels"]) for b in it)
-        rate = rest / (time.perf_counter() - t0)
-        n += rest
-    finally:
-        clock.restore()
-        ycb_mod.fill_missing, frame.normals_from_depth_map = saved
-    ms = {k: v / n for k, v in clock.ms.items()}
-    ms["sampling"] = ms.pop("build_frame") - ms.get("normals", 0.0)
-    ms["other"] = ms["total"] - sum(ms.get(k, 0.0) for k in (
-        "decode", "augmentation", "fill", "normals", "sampling"))
-    label = "plain (torch fill, numpy normals)" if plain else "C++ twins"
-    log("native", f"host build, YCB train frames at 0 workers, {label}: "
-        f"{rate:.2f} frames/s over {rest} frames after the first batch; ms "
-        f"a frame over {n}: " + ", ".join(
-            f"{k} {ms.get(k, 0.0):.1f}" for k in (
-                "decode", "augmentation", "fill", "normals", "sampling",
-                "other", "total")) + f" [{smi}]")
-    return {"frames_per_s": rate, "ms": ms}
-
-
-def phase_native(smi: str, ycb: str = ""):
+def phase_native():
     """The host's C++ twins on the card machine's host: built from the
     checkout's sources (``g++ -O3 -fopenmp -shared -fPIC`` into
     ``build/native``); on a synthetic 480x640 sensor frame the fill twin
     against the torch fill and the normals twin against the numpy normals
-    (ms a frame, median of 5; max abs difference, zero masks equal); the
-    FPS twin's indices against the numpy plain version; then the host
-    frame build's stages apart and the loader's frames/s at 0 workers,
-    with the twins and with the plain versions (``_host_stages``), on the
-    [disk] phase's YCB tree (written anew when it is missing)."""
+    (max abs difference, zero masks equal); the FPS twin's indices against
+    the numpy plain version."""
     from pvn3d_tpu_torch import native
     from pvn3d_tpu_torch.data import depth_completion as dc
     from pvn3d_tpu_torch.data.normals import normals_from_depth_map
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
-    t0 = time.perf_counter()
     for name in ("preprocess", "fps"):
         native.load_library(name)
-    log("native", f"twins built and loaded in {time.perf_counter() - t0:.1f}"
-        f" s ({native.CXX} {' '.join(native.CXX_FLAGS)}; "
-        f"PVN3D_NATIVE_THREADS={os.environ.get('PVN3D_NATIVE_THREADS', '1')}"
-        f", torch CPU threads {torch.get_num_threads()})")
+    log("native", f"twins built and loaded ({native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)})")
     _, depth, k = synth_sensor_frame(480, 640, seed=3)
     depth_mm = depth[0] * 1000.0
     fill = {impl: dc.fill_missing(depth_mm, 1000.0, impl=impl) / 1000.0
             for impl in ("auto", "torch")}
-    fill_ms = {impl: _median_ms(lambda: dc.fill_missing(
-        depth_mm, 1000.0, impl=impl)) for impl in ("auto", "torch")}
     ferr = np.abs(fill["auto"] - fill["torch"])
     if ferr.max() > 2e-3 or ferr[2:-2, 2:-2].max() > 1e-5:
         raise AssertionError(f"native fill: twin vs torch {ferr.max()} "
                              f"(inside the border {ferr[2:-2, 2:-2].max()})")
     nrm = {impl: normals_from_depth_map(fill["auto"], k[0], impl=impl)
            for impl in ("auto", "numpy")}
-    nrm_ms = {impl: _median_ms(lambda: normals_from_depth_map(
-        fill["auto"], k[0], impl=impl)) for impl in ("auto", "numpy")}
     # At 480x640 the numpy version's float32 running-sum box blur (row
     # sums up to ~800 m) carries up to ~2e-2 of error into the normals, the
     # twin's double window sums ~1e-4 (against a float64 evaluation of the
@@ -3573,61 +2852,42 @@ def phase_native(smi: str, ycb: str = ""):
     if not np.array_equal(zero["auto"], zero["numpy"]) or cos < 0.999:
         raise AssertionError(f"native normals: zero pixels differ, or "
                              f"min cos {cos} < 0.999 (max abs diff {nerr})")
-    log("native", f"480x640 frame: fill twin {fill_ms['auto']:.2f} ms vs "
-        f"torch {fill_ms['torch']:.2f} ms a frame (median of 5), max abs "
-        f"diff {ferr.max():.3e} m ({ferr[2:-2, 2:-2].max():.3e} off the "
-        f"2-pixel border); normals twin {nrm_ms['auto']:.2f} ms vs numpy "
-        f"{nrm_ms['numpy']:.2f} ms, max abs diff {nerr:.3e}, min cos "
-        f"{cos:.6f}, zero pixels equal [{smi}]")
+    log("native", f"480x640 frame: fill twin vs torch max abs diff "
+        f"{ferr.max():.3e} m ({ferr[2:-2, 2:-2].max():.3e} off the 2-pixel "
+        f"border); normals twin vs numpy max abs diff {nerr:.3e}, min cos "
+        f"{cos:.6f}, zero pixels equal")
     rng = np.random.RandomState(5)
     cloud = (rng.rand(20000, 3) * [0.2, 0.1, 0.05]).astype(np.float32)
-    fps_ms = {}
-    for impl in ("auto", "numpy"):
-        for center in (False, True):
-            got = native.fps_indices(cloud, 64, init_center=center,
-                                     impl=impl)
-            if impl == "numpy" and not np.array_equal(
-                    got, native.fps_indices(cloud, 64, init_center=center)):
-                raise AssertionError(f"native fps: twin indices differ "
-                                     f"(init_center={center})")
-        fps_ms[impl] = _median_ms(lambda: native.fps_indices(
-            cloud, 64, impl=impl))
-    log("native", f"FPS of 64 from 20000 points: twin indices equal numpy's"
-        f" in both start modes; twin {fps_ms['auto']:.2f} ms vs numpy "
-        f"{fps_ms['numpy']:.2f} ms [{smi}]")
-    if not ycb or not os.path.isdir(ycb):
-        ycb, _ = _disk_trees(8)
-    rates = {plain: _host_stages(smi, ycb, plain) for plain in (False, True)}
-    log("native", f"loader at 0 workers: {rates[False]['frames_per_s']:.2f} "
-        f"frames/s with the twins, {rates[True]['frames_per_s']:.2f} with "
-        f"the plain versions [{smi}]")
-    return rates
+    for center in (False, True):
+        if not np.array_equal(
+                native.fps_indices(cloud, 64, init_center=center,
+                                   impl="numpy"),
+                native.fps_indices(cloud, 64, init_center=center)):
+            raise AssertionError(f"native fps: twin indices differ "
+                                 f"(init_center={center})")
+    log("native", "FPS of 64 from 20000 points: twin indices equal numpy's "
+        "in both start modes")
 
 
-def phase_apps(smi: str, slice_lat=(), occ_frames: int = 4,
-               demo_frames: int = 2):
+def phase_apps():
     """The apps' and tools' surface on trees written here (see the
-    module docstring).  Returns the launch counts of its runs.
-
-    ``occ_frames`` annotated frames an ``--occ`` evaluation and
-    ``demo_frames`` a demo run (see the module docstring)."""
+    module docstring).  Returns the launch counts of its runs."""
     import gc
-    t0 = time.perf_counter()
-    trees = _apps_trees(occ_frames, demo_frames)
+
+    from pvn3d_tpu_torch.ops.kernels import KERNELS
+    trees = _apps_trees()
     total = {}
-    _apps_occ(smi, trees, total, occ_frames)
-    _apps_demo(smi, trees, total, demo_frames)
-    _apps_trunk(smi, trees, total)
-    _apps_tools(smi, trees)
-    _apps_profiling(smi, slice_lat, total)
+    _apps_occ(trees, total)
+    _apps_demo(trees, total)
+    _apps_trunk(trees, total)
+    _apps_tools(trees)
+    _apps_trace(total)
     if any(total.get(k, 0) < 1 for k in ("fps", "query", "interp",
                                          "interp_bwd", "winner")):
         raise AssertionError(f"apps: launches {total}")
-    log("apps", f"phase done in {time.perf_counter() - t0:.1f} s; "
-        f"launches {total}")
+    log("apps", f"launches {total}")
     gc.collect()
     torch.cuda.empty_cache()
-    from pvn3d_tpu_torch.ops.kernels import KERNELS
     return {k.name: total.get(k.name, 0) for k in KERNELS}
 
 
@@ -3646,17 +2906,14 @@ def _max_diff(a: dict, b: dict, running: bool = False) -> float:
                and "num_batches" not in k)
 
 
-def _timed_step(step, model, cfg, sd0, batch):
+def _step_from(step, model, cfg, sd0, batch):
     """One step from the weights ``sd0`` and a fresh optimizer: (metrics,
-    host ms to the step's end, the weights after, the step's gradients)."""
+    the weights after, the step's gradients)."""
     from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
     model.load_state_dict(sd0)
     state = TrainState(0, model, make_optimizer(cfg, model))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, metrics = step(state, batch)
-    torch.cuda.synchronize()
-    return (metrics, (time.perf_counter() - t0) * 1e3, _snapshot(model),
+    return (metrics, _snapshot(model),
             {k: p.grad.clone() for k, p in model.named_parameters()
              if p.grad is not None})
 
@@ -3684,7 +2941,7 @@ def _grad_l2(got: dict, want: dict) -> float:
     return float(np.sqrt(num / den))
 
 
-def _parallel_world_one(smi, seed: int):
+def _parallel_world_one(seed: int):
     """[parallel] part 1: a world-1 NCCL group in this process; one
     full-width bf16 step at batch 4 through the mesh's step (synced BN,
     gradient all-reduce, global metrics) against the plain step from the
@@ -3696,7 +2953,6 @@ def _parallel_world_one(smi, seed: int):
     from pvn3d_tpu_torch.parallel.mesh import Mesh, make_mesh
     from pvn3d_tpu_torch.parallel.multihost import initialize_distributed
     from pvn3d_tpu_torch.train.schedule import lr_schedule
-    from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
     from pvn3d_tpu_torch.train.step import make_train_step, to_device
     from pvn3d_tpu_torch.utils.weights import build_model
     store = os.path.join(PARALLEL_DIR, "store1")
@@ -3716,20 +2972,20 @@ def _parallel_world_one(smi, seed: int):
         steps = {"plain": make_train_step(cfg),
                  "mesh": make_train_step(cfg, mesh=mesh)}
         for name in steps:                                    # warm-up
-            _timed_step(steps[name], model, cfg, sd0, batch)
+            _step_from(steps[name], model, cfg, sd0, batch)
         runs = {"plain": [], "mesh": []}
         for name in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
-            (m, t, sd, g), launches = _counted(
-                lambda: _timed_step(steps[name], model, cfg, sd0, batch))
-            runs[name].append((float(m["loss"]), sd, launches, t, g))
+            (m, sd, g), launches = _counted(
+                lambda: _step_from(steps[name], model, cfg, sd0, batch))
+            runs[name].append((float(m["loss"]), sd, launches, g))
         want = _expected_launches(fps=1, query=4, interp=4, interp_bwd=4)
         if any(r[2] != want for r in runs["mesh"]):
             raise AssertionError(f"parallel: mesh steps launched "
                                  f"{[r[2] for r in runs['mesh']]}, "
                                  f"expected {want} each")
-        (loss_p, sd_p, _, _, g_p), (loss_p2, sd_p2, _, _, g_p2) = \
+        (loss_p, sd_p, _, g_p), (loss_p2, sd_p2, _, g_p2) = \
             runs["plain"][:2]
-        loss_m, sd_m, _, _, g_m = runs["mesh"][0]
+        loss_m, sd_m, _, g_m = runs["mesh"][0]
         floor = _max_diff(sd_p, sd_p2)
         diff = _max_diff(sd_p, sd_m)
         g_floor, g_diff = _grad_l2(g_p2, g_p), _grad_l2(g_m, g_p)
@@ -3749,35 +3005,12 @@ def _parallel_world_one(smi, seed: int):
                 f"{SAME_GRAD_L2:g}), parameters {diff:.3g} apart "
                 f"(plain against plain {floor:.3g}, bound {bound:.3g}), "
                 f"running statistics {stats:.3g} apart")
-        trace = {}
-        for name in ("plain", "mesh"):
-            model.load_state_dict(sd0)
-            state = TrainState(0, model, make_optimizer(cfg, model))
-            # One trace each, kept as it comes: after the earlier phases
-            # a trace may lose a few launches' device records (logged).
-            trace[name] = _cuda_trace(lambda: steps[name](state, batch), 1,
-                                      names=("nccl",))
-        tr = trace["mesh"]
-        ms = {k: ", ".join(f"{r[3]:.1f}" for r in v) for k, v in runs.items()}
         log("parallel", f"world-1 NCCL group (file store), Config.ycb() "
             f"bf16 batch 4: the mesh step's loss {loss_m!r} equals the plain "
             f"step's bit for bit, running statistics equal bit for bit, "
             f"gradient {g_diff:.3g} in global L2 (plain against plain "
-            f"{g_floor:.3g}), "
-            f"parameters {diff:.3g} apart (plain against plain {floor:.3g}); "
-            f"step ms mesh {ms['mesh']}, plain {ms['plain']} (in turns: "
-            f"plain, mesh, mesh, plain, plain, mesh); one mesh "
-            f"step's trace (CUDA only): device {tr['device_ms']:.2f} ms, "
-            f"NCCL kernels {tr['named']['nccl']} taking "
-            f"{tr['named_ms']['nccl']:.3f} ms "
-            f"({100 * tr['named_ms']['nccl'] / tr['device_ms']:.2f}%), "
-            f"{tr['kernels']} kernels and {tr['copies']} copies (a plain "
-            f"step's: device {trace['plain']['device_ms']:.2f} ms, "
-            f"{trace['plain']['kernels']} kernels and "
-            f"{trace['plain']['copies']} copies; device records lost "
-            f"{tr['lost']} and {trace['plain']['lost']}); launches a mesh "
-            f"step "
-            f"{runs['mesh'][0][2]} [{smi}]")
+            f"{g_floor:.3g}), parameters {diff:.3g} apart (plain against "
+            f"plain {floor:.3g}); launches a mesh step {runs['mesh'][0][2]}")
         total = {}
         for r in runs["mesh"]:
             _add_counts(total, r[2])
@@ -3822,15 +3055,15 @@ def parallel_rank(rank: int, world: int, seed: int) -> int:
     replicated(mesh, model)
     sd0 = _snapshot(model)
     batch = synthetic_batch(cfg, batch_size=4, seed=seed)
-    (m, _, sd_m, grads), launches = _counted(lambda: _timed_step(
+    (m, sd_m, grads), launches = _counted(lambda: _step_from(
         make_train_step(cfg, mesh=mesh), model, cfg, sd0,
         shard_batch(mesh, batch)))
     rec = {"rank": rank, "loss": float(m["loss"]),
            "launches_train": launches}
     if rank == 0:
         plain = make_train_step(cfg)
-        floor = _timed_step(plain, model, cfg, sd0, batch)[3]
-        m1, _, sd_1, g_1 = _timed_step(plain, model, cfg, sd0, batch)
+        floor = _step_from(plain, model, cfg, sd0, batch)[2]
+        m1, sd_1, g_1 = _step_from(plain, model, cfg, sd0, batch)
         lr = lr_schedule(cfg.train)(0)
         rec.update(
             loss_1=float(m1["loss"]),
@@ -3860,10 +3093,9 @@ def parallel_rank(rank: int, world: int, seed: int) -> int:
     return 0
 
 
-def _parallel_two_ranks(smi, seed: int):
+def _parallel_two_ranks(seed: int):
     """[parallel] part 2: two ranks spawned on this card over gloo.
     Returns the ranks' launch counts, summed."""
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--parallel-rank",
          str(r), "2", str(seed)], stdout=subprocess.PIPE,
@@ -3912,9 +3144,9 @@ def _parallel_two_ranks(smi, seed: int):
             or r0["poses_err"] > 2e-4 or not r0["seg_equal"]):
         raise AssertionError(f"parallel: two ranks against one process: "
                              f"{r0}; rank 1 loss {r1['loss']!r}")
-    log("parallel", f"two ranks on one card over gloo (spawned, "
-        f"{time.perf_counter() - t0:.1f} s), Config.ycb() float32, dropout "
-        f"0: each rank 2 of a global batch of 4; both ranks' loss "
+    log("parallel", f"two ranks on one card over gloo (spawned), "
+        f"Config.ycb() float32, dropout 0: each rank 2 of a global batch "
+        f"of 4; both ranks' loss "
         f"{r0['loss']!r}; against the one-process batch-4 step "
         f"{r0['loss_1']!r}: loss {r0['loss_rel']:.3g} relative, gradient "
         f"{r0['grad_l2']:.3g} in global L2 (two plain steps "
@@ -3924,26 +3156,26 @@ def _parallel_two_ranks(smi, seed: int):
         f"{r0['seg_equal']}, present equal {r0['present_equal']}; "
         f"launches rank 0 step {r0['launches_train']}, request "
         f"{r0['launches_serve']}; rank 1 step {r1['launches_train']}, "
-        f"request {r1['launches_serve']} [{smi}]")
+        f"request {r1['launches_serve']}")
     return total
 
 
-def phase_parallel(smi: str, seed: int = 0) -> dict:
+def phase_parallel(seed: int = 0) -> dict:
     """[parallel] (see the module docstring).  Returns the launch counts
     of its counted runs."""
     import gc
     import shutil
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)      # the file stores
     os.makedirs(PARALLEL_DIR)
-    total = _parallel_world_one(smi, seed)
+    total = _parallel_world_one(seed)
     gc.collect()
     torch.cuda.empty_cache()
-    _add_counts(total, _parallel_two_ranks(smi, seed))
+    _add_counts(total, _parallel_two_ranks(seed))
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     return total
 
 
-def phase_remat(smi: str, seed: int = 0) -> dict:
+def phase_remat(seed: int = 0) -> dict:
     """[remat] (see the module docstring).  Returns the launch counts of
     its counted batch-4 steps."""
     import dataclasses
@@ -3965,22 +3197,22 @@ def phase_remat(smi: str, seed: int = 0) -> dict:
     batch = to_device(synthetic_batch(cfg, batch_size=4, seed=seed), dev)
     steps = {name: make_train_step(c) for name, c in cfgs.items()}
     for name in steps:                                        # warm-up
-        _timed_step(steps[name], model, cfgs[name], sd0, batch)
+        _step_from(steps[name], model, cfgs[name], sd0, batch)
     runs, total = {}, {}
     for name in ("off", "full", "dots", "off2"):
         key = name.rstrip("2")
-        (m, t, sd, g), launches = _counted(lambda: _timed_step(
+        (m, sd, g), launches = _counted(lambda: _step_from(
             steps[key], model, cfgs[key], sd0, batch))
-        runs[name] = (float(m["loss"]), sd, t, launches, g)
+        runs[name] = (float(m["loss"]), sd, launches, g)
         if name != "off2":
             _add_counts(total, launches)
-    loss0, sd_off, _, _, g_off = runs["off"]
+    loss0, sd_off, _, g_off = runs["off"]
     floor = _max_diff(sd_off, runs["off2"][1])
-    g_floor = _grad_l2(runs["off2"][4], g_off)
+    g_floor = _grad_l2(runs["off2"][3], g_off)
     lr = lr_schedule(cfg.train)(0)
     parts = []
     for name, loss_rtol, atol in (("full", 1e-6, 1e-6), ("dots", 3e-5, 1e-5)):
-        loss, sd, t, launches, g = runs[name]
+        loss, sd, launches, g = runs[name]
         g_diff = _grad_l2(g, g_off)
         want = _expected_launches(fps=2, query=8, interp=8, interp_bwd=4)
         if launches != want:
@@ -4005,39 +3237,24 @@ def phase_remat(smi: str, seed: int = 0) -> dict:
         parts.append(f"{name}: loss {loss!r} ({rel:.3g} relative), "
                      f"gradient {g_diff:.3g} in global L2, "
                      f"parameters {diff:.3g} apart, running "
-                     f"statistics equal, step {t:.1f} ms, launches "
-                     f"{launches}")
+                     f"statistics equal, launches {launches}")
     log("remat", f"torch {torch.__version__} (CUDA {torch.version.cuda}); "
         f"Config.ycb() bf16 batch 4 from one state: off: loss {loss0!r}, "
-        f"step {runs['off'][2]:.1f} ms, launches {runs['off'][3]}; "
-        + "; ".join(parts) + f"; plain against plain: parameters "
-        f"{floor:.3g}, gradient {g_floor:.3g} [{smi}]")
+        f"launches {runs['off'][2]}; " + "; ".join(parts)
+        + f"; plain against plain: parameters {floor:.3g}, gradient "
+        f"{g_floor:.3g}")
     # The batch-4 runs' weights and gradients would sit under the batch-24
     # peaks.
     del batch, runs, sd_off, g_off, sd, g
     big = to_device(synthetic_batch(cfg, batch_size=24, seed=seed + 1), dev)
     for name in modes:
-        for timed in (False, True):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            try:
-                m, t, _, _ = _timed_step(steps[name], model, cfgs[name],
-                                         sd0, big)
-            except torch.cuda.OutOfMemoryError as e:
-                model.zero_grad(set_to_none=True)
-                log("remat", f"batch 24, remat {name}: out of memory at "
-                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-                    f"({str(e).splitlines()[0][:100]})")
-                break
-            if timed:
-                if not np.isfinite(float(m["loss"])):
-                    raise AssertionError(f"remat {name}: batch 24 loss "
-                                         f"{float(m['loss'])}")
-                log("remat", f"batch 24, remat {name}: step {t:.1f} ms, "
-                    f"peak memory "
-                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-                    f"loss {float(m['loss']):.4f} [{smi}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss = float(_step_from(steps[name], model, cfgs[name], sd0,
+                                big)[0]["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"remat {name}: batch 24 loss {loss}")
+        log("remat", f"batch 24, remat {name}: loss {loss:.4f}")
     del big, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4196,8 +3413,6 @@ def _bn_case(name, shape, fmt, relu, seed):
                                                    relu, None)),
         library_fwd_bwd_ms=time_ms(lambda: _bn_library(x, w, b, rm, rv,
                                                        nchw, relu, dy)))
-    rec["fwd_roofline"] = rec["fwd_bound_ms"] / rec["fwd_device_ms"]
-    rec["bwd_roofline"] = rec["bwd_bound_ms"] / rec["bwd_device_ms"]
     return rec
 
 
@@ -4235,8 +3450,7 @@ def _bn_plain_forced():
 def _bn_steps(cfg, sd0, batch, n_steps: int):
     """``n_steps`` steps from ``sd0`` with a fresh optimizer: the losses,
     the first step's gradient norms and the parameters' change norms by
-    leaf, the BN launches of the first step, its host ms and the peak
-    memory."""
+    leaf, and the BN launches of the first step."""
     import gc
 
     from pvn3d_tpu_torch.ops.kernels import BN_KERNELS
@@ -4249,27 +3463,21 @@ def _bn_steps(cfg, sd0, batch, n_steps: int):
     step = make_train_step(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    losses, grads, launches, ms = [], None, None, None
+    losses, grads, launches = [], None, None
     for i in range(n_steps):
         before = {k.name: k.launches for k in BN_KERNELS}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, metrics = step(state, batch)
-        torch.cuda.synchronize()
         if i == 0:
-            ms = (time.perf_counter() - t0) * 1e3
             launches = {k.name: k.launches - before[k.name]
                         for k in BN_KERNELS}
             grads = {k: float(p.grad.double().norm())
                      for k, p in model.named_parameters()
                      if p.grad is not None}
         losses.append(float(metrics["loss"]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     update = {k: float((p.detach().double() - sd0[k].double()).norm())
               for k, p in model.named_parameters()}
     del state, model, step
-    return losses, grads, update, launches, ms, peak
+    return losses, grads, update, launches
 
 
 def _bn_gaps(got, want) -> dict:
@@ -4291,9 +3499,8 @@ def _bn_gaps(got, want) -> dict:
             "update_gap": max(gaps(got[2], want[2]))}
 
 
-def phase_bn(smi: str, seed: int = 0, shapes=BN_SHAPES) -> dict:
-    """[bn] (see the module docstring) on ``shapes`` (a subset of
-    ``BN_SHAPES`` for a quicker look).  Returns the record of the JSON
+def phase_bn(seed: int = 0) -> dict:
+    """[bn] (see the module docstring).  Returns the record of the JSON
     line."""
     import dataclasses as dc
     import gc
@@ -4304,7 +3511,7 @@ def phase_bn(smi: str, seed: int = 0, shapes=BN_SHAPES) -> dict:
     from pvn3d_tpu_torch.train.step import to_device
     from pvn3d_tpu_torch.utils.weights import build_model
     cases = []
-    for i, (name, shape, fmt) in enumerate(shapes):
+    for i, (name, shape, fmt) in enumerate(BN_SHAPES):
         for relu in (False, True):
             rec = _bn_case(name, shape, fmt, relu, seed + 2 * i + relu)
             cases.append(rec)
@@ -4345,12 +3552,9 @@ def phase_bn(smi: str, seed: int = 0, shapes=BN_SHAPES) -> dict:
                 f"{want}), gaps {gaps} (limits {TRAIN_LIMITS})")
         steps[mode] = {"gaps": gaps, "losses": kern[0],
                        "plain_losses": plain[0], "launches": kern[3],
-                       "step_ms": kern[4], "plain_step_ms": plain[4],
-                       "peak_gib": kern[5], "plain_peak_gib": plain[5],
                        "layouts": sorted(f"{k[0]}:{k[1]}:{list(k[2])}x{v}"
                                          for k, v in seen.items())}
-        log("bn", f"batch 24, remat {mode}: " + json.dumps(steps[mode])
-            + f" [{smi}]")
+        log("bn", f"batch 24, remat {mode}: " + json.dumps(steps[mode]))
         del kern, plain
         gc.collect()
         torch.cuda.empty_cache()
@@ -4363,7 +3567,7 @@ def _knn_library(q, c, k):
     return torch.topk(torch.cdist(q, c), k, dim=-1, largest=False).indices
 
 
-def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
+def phase_knn(seed: int = 0) -> dict:
     """[knn] (see the module docstring).  Returns the k-NN kernel's record
     of the JSON line."""
     from pvn3d_tpu_torch.config import ffb6d_config
@@ -4412,13 +3616,12 @@ def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
                "plain_ms": time_ms(lambda: knn_plain(q, c, k), reps=1),
                "library_ms": time_ms(lambda: _knn_library(q, c, k), reps=1),
                "bound_ms": bound, "bound_by": by}
-        rec["roofline_pct"] = 100.0 * bound / rec["device_ms"]
         rows.append(rec)
         log("knn", json.dumps(rec))
     total = {key: sum(r[key] for r in rows) for key in
              ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
     log("knn", f"{len(rows)} searches, each equal to the plain version "
-        f"index for index; sums: " + json.dumps(total) + f" [{smi}]")
+        f"index for index; sums: " + json.dumps(total))
 
     # FFB6D requests through the serving step, every launch count set to
     # 0 just before: 22 searches a request, no K1-K3 (no PointNet++).
@@ -4429,27 +3632,20 @@ def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
     torch.cuda.synchronize()
     for kern in KERNELS + KNN_KERNELS:
         kern.launches = 0
-    lat = []
-    for i in range(requests):
-        batch = request(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(batch, gen(i))
-        poses = out["poses"].cpu()
-        lat.append((time.perf_counter() - t0) * 1e3)
+    for i in range(3):
+        poses = step(request(i), gen(i))["poses"].cpu()
         if poses.shape != (1, mc.n_classes, 3, 4) or not bool(
                 torch.isfinite(poses).all()):
             raise AssertionError(f"knn: FFB6D request {i}: poses "
                                  f"{tuple(poses.shape)}")
     launches = {kern.name: kern.launches for kern in KERNELS + KNN_KERNELS}
     want = dict(_expected_launches(winner=launches["winner"]),
-                knn=22 * requests)
+                knn=22 * 3)
     if launches != want:
-        raise AssertionError(f"knn: launches {launches} over {requests} "
-                             f"FFB6D requests, expected {want}")
-    log("knn", f"{requests} FFB6D requests, {h}x{w} RGB-D -> {n} points: "
-        f"latency ms " + ", ".join(f"{t:.2f}" for t in lat)
-        + f"; launches {launches} [{smi}]")
+        raise AssertionError(f"knn: launches {launches} over 3 FFB6D "
+                             f"requests, expected {want}")
+    log("knn", f"3 FFB6D requests, {h}x{w} RGB-D -> {n} points: poses "
+        f"finite; launches {launches}")
     return {"name": KERNEL.name, "route": "cuda",
             "source": os.path.relpath(KERNEL.source, ROOT),
             "replaces": "none: FFB6D's neighbour index",
@@ -4458,25 +3654,7 @@ def phase_knn(smi: str, seed: int = 0, requests: int = 3) -> dict:
             "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": total["library_ms"], "searches": rows,
-            "ffb6d_latency_ms": lat}
-
-
-def _host_wall_ms(fn, reps: int = 5):
-    """Medians over ``reps`` calls of ``fn`` (after one untimed): the host
-    ms until ``fn`` returns (its enqueue) and the wall ms until the device
-    is done."""
-    fn()
-    host, wall = [], []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        host.append((t1 - t0) * 1e3)
-        wall.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(host), statistics.median(wall)
+            "library_ms": total["library_ms"], "searches": rows}
 
 
 def _max_gap(a, b) -> float:
@@ -4486,10 +3664,10 @@ def _max_gap(a, b) -> float:
                for x, y in zip(a, b))
 
 
-def _graph_case(name, graphed, eager, smi) -> dict:
+def _graph_case(name, graphed, eager) -> dict:
     """One graphed call against its eager twin on the same inputs: the
     first call (warm-up, capture and replay) and the next two (replays)
-    each against the eager forward, and both timed."""
+    each against the eager forward."""
     from pvn3d_tpu_torch.utils import graphs
     with torch.inference_mode():
         want = eager()
@@ -4499,21 +3677,16 @@ def _graph_case(name, graphed, eager, smi) -> dict:
         if counts != (1, 3):
             raise AssertionError(f"image_graph {name}: captures, replays "
                                  f"{counts} over 3 calls, expected (1, 3)")
-        rec = {"case": name, "gap_capture": gaps[0],
-               "gap_replay": max(gaps[1:])}
-        for side, fn in (("eager", eager), ("replay", graphed)):
-            host, wall = _host_wall_ms(fn)
-            rec[f"{side}_host_ms"], rec[f"{side}_wall_ms"] = host, wall
-            rec[f"{side}_device_ms"] = device_ms(fn, reps=3)
     if not all(torch.isfinite(t).all() for t in
                (want if isinstance(want, tuple) else (want,))):
         raise AssertionError(f"image_graph {name}: non-finite outputs")
-    log("image_graph", json.dumps(rec) + f" [{smi}]")
+    rec = {"case": name, "gap_capture": gaps[0], "gap_replay": max(gaps[1:])}
+    log("image_graph", json.dumps(rec))
     return rec
 
 
-def phase_image_graph(smi: str, seed: int = 0) -> dict:
-    """[image_graph] (see the module docstring).  Returns its records."""
+def phase_image_graph(seed: int = 0) -> None:
+    """[image_graph] (see the module docstring)."""
     from pvn3d_tpu_torch.config import Config, ffb6d_config
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
@@ -4522,40 +3695,21 @@ def phase_image_graph(smi: str, seed: int = 0) -> dict:
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model
     dev = torch.device("cuda")
-    cfg = Config.ycb()
-    mc = cfg.model
+    mc = Config.ycb().model
     h, w, n = mc.image_height, mc.image_width, mc.n_sample_points
     g = torch.Generator(device=dev).manual_seed(seed)
     model = build_model(mc, seed).to(dev)
     branch = model.cnn.model
-    out = {"cases": []}
+    cases = []
     for b, sparse in ((2, False), (1, True)):
         rgb = torch.rand(b, h, w, 3, generator=g, device=dev).to(model.dtype)
         choose = (torch.randperm(h * w, generator=g, device=dev)[:n]
                   .sort().values[None] if sparse else None)
-        out["cases"].append(_graph_case(
+        cases.append(_graph_case(
             f"pvn3d b{b} {'sparse' if sparse else 'dense'}",
             lambda: branch(rgb, choose=choose),
-            lambda: branch._forward(rgb, choose=choose), smi))
-    # The same calls inside a profiler trace of CPU and CUDA activity, as
-    # the benchmark's traced runs take: CUPTI records each of a replayed
-    # graph's kernels, which costs the host.
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    traced = {}
-    with torch.inference_mode():
-        for side, fn in (("eager", lambda: branch._forward(rgb, choose=choose)),
-                         ("replay", lambda: branch(rgb, choose=choose))):
-            with torch.profiler.profile(activities=acts) as prof:
-                host, wall = _host_wall_ms(fn)
-            launch = [e.cpu_time_total / 1e3 for e in prof.events()
-                      if e.name == "cudaGraphLaunch"]
-            traced[side] = {"host_ms": host, "wall_ms": wall,
-                            "graph_launch_ms": (statistics.median(launch)
-                                                if launch else None)}
-    out["traced"] = traced
-    log("image_graph", "pvn3d b1 sparse under a CPU + CUDA profiler: "
-        + json.dumps(traced) + f" [{smi}]")
+            lambda: branch._forward(rgb, choose=choose)))
+    del model, branch
 
     # FFB6D's eight stages on the inputs one full-size request gives them.
     fcfg = ffb6d_config()
@@ -4570,79 +3724,30 @@ def phase_image_graph(smi: str, seed: int = 0) -> dict:
         with _capture(fmodel, attr, stages):
             fstep({"rgb": rgb_np, "depth": depth_np, "cam_k": k_np},
                   torch.Generator(device=dev).manual_seed(seed))
-    calls = [(a, o) for a, _, o in stages]
     graphs.store(fmodel).entries.clear()
     graphs.store(fmodel).pool = None
-    for args, _ in calls:
+    for args, _, _ in stages:
         if len(args) == 3 and isinstance(args[0], str):
             kind, i, x = args
-            out["cases"].append(_graph_case(
+            cases.append(_graph_case(
                 f"ffb6d {kind}{i}",
                 lambda: fmodel.image_stage(kind, i, x),
-                lambda: fmodel._image_stage(kind, i, x), smi))
+                lambda: fmodel._image_stage(kind, i, x)))
         else:
             x, choose, batch = args
             sparse = fmodel.uses_sparse_tail(batch)
-            out["cases"].append(_graph_case(
+            cases.append(_graph_case(
                 "ffb6d last",
                 lambda: fmodel.image_last(x, choose, batch),
-                lambda: fmodel._image_last(x, choose, sparse), smi))
-    if len(out["cases"]) != 2 + 8:
-        raise AssertionError(f"image_graph: {len(out['cases']) - 2} FFB6D "
-                             f"stage calls a request, expected 8")
-    gaps = max(max(c["gap_capture"], c["gap_replay"]) for c in out["cases"])
-    log("image_graph", f"max gap replay vs eager over the {len(out['cases'])}"
-        f" cases: {gaps:.3e}; sums, eager / replay: host ms "
-        f"{sum(c['eager_host_ms'] for c in out['cases'][2:]):.2f} / "
-        f"{sum(c['replay_host_ms'] for c in out['cases'][2:]):.2f}, wall "
-        f"{sum(c['eager_wall_ms'] for c in out['cases'][2:]):.2f} / "
-        f"{sum(c['replay_wall_ms'] for c in out['cases'][2:]):.2f} over "
-        f"FFB6D's 8 stages")
-    del fstep, fmodel, stages, calls
-
-    # One raw ycb request, the graph held off and on: launches, device,
-    # wall and peak memory.
-    step = make_raw_inference_step(cfg, model, stacked_mesh_kps(),
-                                   stacked_class_radii(), device=dev)
-
-    def request(i):
-        rgb, depth, k = synth_sensor_frame(h, w, seed=i)
-        return {"rgb": rgb, "depth": depth, "cam_k": k}
-    real = graphs.engages
-    for side in ("eager", "graph"):
-        if side == "eager":
-            graphs.engages = lambda m, i: False
-        graphs.store(branch).entries.clear()
-        graphs.store(branch).pool = None
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            walls = []
-
-            def traced():
-                t0 = time.perf_counter()
-                step(request(4), torch.Generator(device=dev).manual_seed(4))
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            for i in range(3):
-                step(request(i), torch.Generator(device=dev).manual_seed(i))
-            tr = _complete_traces(traced)[0]
-            _, wall = _host_wall_ms(traced)
-        finally:
-            graphs.engages = real
-        rec = {"side": side, "host_launches": (
-            tr["kernels"] - tr["graph_kernels"] + tr["copies"]
-            + tr["graph_launches"]),
-            "kernels": tr["kernels"], "graph_kernels": tr["graph_kernels"],
-            "graph_launches": tr["graph_launches"], "copies": tr["copies"],
-            "syncs": tr["syncs"], "device_ms": tr["device_ms"],
-            "wall_ms": wall,
-            "peak_bytes": torch.cuda.max_memory_allocated()}
-        out[side] = rec
-        log("image_graph", "one raw ycb request, " + json.dumps(rec)
-            + f" [{smi}]")
-    return out
+                lambda: fmodel._image_last(x, choose, sparse)))
+    if len(cases) != 2 + 8:
+        raise AssertionError(f"image_graph: {len(cases) - 2} FFB6D stage "
+                             f"calls a request, expected 8")
+    gaps = max(max(c["gap_capture"], c["gap_replay"]) for c in cases)
+    log("image_graph", f"max gap replay vs eager over the {len(cases)} "
+        f"cases: {gaps:.3e}")
+    del fstep, fmodel, stages
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -4651,27 +3756,22 @@ def main() -> int:
     rng = np.random.RandomState(0)
     rec = phase_kernels(rng)
     phase_edge_cases(rng)
-    launches, slice_lat = phase_slice()
-    k3_eval, eval_launches = phase_eval_graph(smi, rng)
-    raw_launches = phase_raw(smi)
-    icp_launches, k4_icp = phase_icp(smi)
+    launches = phase_slice()
+    k3_eval, eval_launches = phase_eval_graph(rng)
+    raw_launches = phase_raw()
+    icp_launches, k4_icp = phase_icp()
     phase_reference()
-    train_launches = phase_train(smi)
-    modes_rec, modes_launches = phase_modes(smi)
+    train_launches = phase_train()
+    modes_rec, modes_launches = phase_modes()
     rec.update({k: v for k, v in modes_rec.items() if k != "query"})
-    disk_launches = phase_disk(smi)
-    phase_native(smi, os.path.join(DISK_DIR, "ycb"))
-    apps_launches = phase_apps(smi, slice_lat)
-    parallel_launches = phase_parallel(smi)
-    _add_counts(parallel_launches, phase_remat(smi))
-    bn = phase_bn(smi)
-    knn = phase_knn(smi)
-    # In a process of its own: late in a long run a profiler trace loses
-    # the device records of more of its first launches than the markers
-    # take, and this phase's device times need complete traces.
-    sys.stdout.flush()
-    subprocess.run([sys.executable, __file__, "--image-graph", smi],
-                   check=True)
+    disk_launches = phase_disk()
+    phase_native()
+    apps_launches = phase_apps()
+    parallel_launches = phase_parallel()
+    _add_counts(parallel_launches, phase_remat())
+    bn = phase_bn()
+    knn = phase_knn()
+    phase_image_graph()
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []
     for k in KERNELS:
@@ -4707,18 +3807,17 @@ def main() -> int:
             "launches_apps": apps_launches[k.name],
             "launches_parallel": parallel_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound, "bound_by": by,
             "library_ms": r["library_ms"]})
         if "levels" in r:
             # K2's mode instances and K3: the sums' parts, one record per
             # level (L0 .. L3, fp3 .. fp0).
-            line[-1]["device_ms"] = r["device_ms"]
             line[-1]["levels"] = r["levels"]
         if k.name == "winner":
             # K4 also at the ICP prefilter's shape (H = 21, K = 2000).
-            line[-1].update(device_ms=r["device_ms"], passes=r["passes"],
-                            icp=k4_icp, max_abs_err=max(
-                                r["max_abs_err"], k4_icp["max_abs_err"]))
+            line[-1].update(passes=r["passes"], icp=k4_icp, max_abs_err=max(
+                r["max_abs_err"], k4_icp["max_abs_err"]))
         if k.name == "interp":
             # K3 at the eval graph's widths (fp3 .. fp0 blend W0 channels),
             # the serving path's shapes since the FP restructure.
@@ -4746,8 +3845,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(*map(int, sys.argv[2:5])))
-    if sys.argv[1:2] == ["--image-graph"]:
-        phase_build()
-        phase_image_graph(sys.argv[2])
-        sys.exit(0)
     sys.exit(main())

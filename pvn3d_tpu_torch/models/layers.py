@@ -186,26 +186,6 @@ class SharedMLP(nn.Module):
                         self._k0()[:, :feats.shape[-1]].to(dtype))
 
 
-class ConvBnRelu(nn.Module):
-    """k x k conv + BN + ReLU on NCHW, torch-style explicit padding."""
-
-    def __init__(self, c_in: int, c_out: int, kernel: int = 3,
-                 stride: int = 1, dilation: int = 1, use_bn: bool = True,
-                 use_relu: bool = True, use_bias: bool = False):
-        super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, kernel, stride=stride,
-                              padding=dilation * (kernel - 1) // 2,
-                              dilation=dilation, bias=use_bias)
-        self.bn = BatchNorm(c_out) if use_bn else None
-        self.use_relu = use_relu
-
-    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
-        x = conv2d(x, self.conv)
-        if self.bn is not None:
-            return self.bn.nchw(x, bn_momentum, relu=self.use_relu)
-        return F.relu(x) if self.use_relu else x
-
-
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """``conv`` applied in ``x.dtype`` (its float32 weights cast)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
