@@ -9,9 +9,10 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
 
 1. device    — the card's ``nvidia-smi`` name and power limit; no CUDA
                exits 1.
-2. build     — all seven CUDA sources from ``pvn3d_tpu_torch/csrc`` into
+2. build     — all eight CUDA sources from ``pvn3d_tpu_torch/csrc`` into
                ``build/kernels``: nine kernel instances, the five
-               BatchNorm entry points and the k-NN search.
+               BatchNorm entry points, the k-NN search and the shift
+               loop.
 3. kernels   — each kernel against its plain PyTorch version at the
                serving path's shapes (indices exact, floats within 1e-5),
                timed: K1; K2 and K3 forward per level.  K3 backward held
@@ -27,24 +28,32 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                lane split, ties, scalar instances, K3 backward's tiles
                and long lists (each twice), K4's cluster shares, ties,
                tiles and empty hypotheses (each twice).
-5. slice     — three full-width (``Config.ycb()``) requests through
+5. meanshift — the shift loop (``csrc/meanshift.cu``) against its plain
+               version at H = 1, 8, 21, 168 x K = 512, at K = 2500 (past
+               its stage), with empty rows, two hypotheses a warp and
+               K = 7, and on the pose stage's three fits on labelled
+               votes: the same step count, centres within 1e-5, two
+               launches equal; each timed beside the plain loop and the
+               bound of steps x H x K pair work.
+6. slice     — three full-width (``Config.ycb()``) requests through
                ``make_inference_step``, counted from 0: poses finite, some
                class present, K1-K4 launched, no backward.
-6. eval_graph — one full-width request through the default eval graph and
+7. eval_graph — one full-width request through the default eval graph and
                through the literal one, bf16 and float32: outputs within
                0.05 / 1e-4 x max(1, |ref|), seg argmax agreeing on > 95% /
                99.9% (the tolerances of tests/test_torch_eval_graph.py);
                each graph's bf16 request counted from 0; K3 at the eval
                graph's widths against its plain version, timed per level.
-7. raw       — three raw 480x640 RGB-D requests through
+8. raw       — three raw 480x640 RGB-D requests through
                ``make_raw_inference_step``: exactly fps 1, query 4, interp
-               4, winner 3 a request; poses finite, some class present;
+               4, winner 3 and 3 shift loops a request; poses finite, some
+               class present;
                the frame build card vs CPU on the same frame and
                priorities (choose identical, xyz and filled depth 1e-5,
                rgb exact, normals 1e-4 but for rounding flips); the
                metrics branch card vs CPU (1e-5 m); ``apps.serve.main``
                for 20 frames, its record whole.
-8. icp       — one raw request, then full-res and sampled ICP, counted
+9. icp       — one raw request, then full-res and sampled ICP, counted
                from 0 (winner 3 + 2); refined poses finite, the background
                row untouched; K4 at the prefilter's shape (H = 21, K =
                2000) bit for bit on its captured inputs, timed; the 1-NN
@@ -55,10 +64,10 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                one an iteration plus one; ``tools/synthetic_e2e.py`` for
                20 steps with ``--icp``, its record complete and finite,
                K4 bit for bit on its prefilter calls, timed.
-9. reference — card (kernels) against CPU (plain versions): a small
+10. reference — card (kernels) against CPU (plain versions): a small
                frame's forward within 2e-3, seg agreement > 99.9%; the
                full-width pose stage on labelled votes within 1e-4.
-10. train    — ``Trainer.fit`` at full width, bf16, batch 4: three steps
+11. train    — ``Trainer.fit`` at full width, bf16, batch 4: three steps
                counted from 0 (fps 1, query 4, interp 4, interp_bwd 4 a
                step), loss finite and falling on a repeated batch, every
                BN running statistic moved, gradients finite; one step at
@@ -67,7 +76,7 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                step card vs CPU (loss 1e-4, gradient 3e-2 in global L2)
                and the same backward on BN running statistics (every
                leaf within 2e-3 * max|g|, 1e-4 in global L2).
-11. modes    — K2's capacity, expanded and bf16 instances bit for bit at
+12. modes    — K2's capacity, expanded and bf16 instances bit for bit at
                the four serving levels, timed beside the exact one; the
                capacity instance on an adversarial cloud (equal to plain,
                unlike the exact result) and every K2 instance at 12
@@ -77,7 +86,7 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                the exact mode and in each deployment mode (poses finite,
                each mode's instances launched); each mode card vs CPU on a
                small frame (forward 2e-3, poses 1e-4).
-12. disk     — ``apps.train`` and ``apps.evaluate`` on 480x640 fake trees
+13. disk     — ``apps.train`` and ``apps.evaluate`` on 480x640 fake trees
                (``tools/fake_data.py``, under ``build/disk``): 3 YCB steps
                at batch 4 from 0 and 2 workers and with
                ``--device_preprocess``, 2 on LineMOD, each launching
@@ -89,11 +98,11 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                (forward 2e-3, poses 1e-4); the first
                ``--device_preprocess`` training batch card vs CPU
                (choose, labels, GT slots equal; cloud and targets 1e-5).
-13. native   — the host C++ twins built by g++ into ``build/native``: the
+14. native   — the host C++ twins built by g++ into ``build/native``: the
                fill against the torch fill (2e-3, 1e-5 off the border),
                the normals against numpy's (same zero pixels, cos >=
                0.999), FPS indices equal in both start modes.
-14. apps     — on fake trees under ``build/apps``: ``apps.evaluate --occ``
+15. apps     — on fake trees under ``build/apps``: ``apps.evaluate --occ``
                (synthesised labels, masks, ``--device_preprocess``,
                ``--packed_dir``), every frame scored, ADD finite;
                ``apps.demo`` on YCB and LineMOD, full-size PNGs with
@@ -103,7 +112,7 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                ``gen_obj_info`` (8 files, keypoints on the mesh),
                ``knn_normals`` card vs CPU (|n.n'| >= 1 - 1e-6);
                ``utils.profiling.trace()`` of two requests naming K1-K4.
-15. parallel — a world-1 NCCL group: the mesh's train step against the
+16. parallel — a world-1 NCCL group: the mesh's train step against the
                plain step from the same weights and batch, in turns, three
                each (loss and running statistics bit for bit, gradient
                within ``SAME_GRAD_L2``, parameters within 2 lr + 1e-6
@@ -113,13 +122,13 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                against one process's on 4 (loss 1e-5 relative, gradient
                3e-2, parameters 2 lr + 1e-6 + 1e-5 |p|) and a dp-sharded
                request against the unsharded one (poses 2e-4, seg equal).
-16. remat    — one bf16 step at batch 4 with ``remat`` off, "full",
+17. remat    — one bf16 step at batch 4 with ``remat`` off, "full",
                "dots" and off again: loss within 1e-6 / 3e-5 relative,
                gradient within ``SAME_GRAD_L2``, parameters within 1e-6 /
                1e-5 (plus 2 lr + 1e-6 where two plain steps differ),
                running statistics equal, exact launches; then one step at
                batch 24 in each mode, loss finite.
-17. bn       — the BatchNorm pair (``csrc/bn.cu``) against its plain
+18. bn       — the BatchNorm pair (``csrc/bn.cu``) against its plain
                branch at the batch-24 step's shapes, with and without the
                ReLU (statistics, values, running statistics, dx, dweight,
                dbias; three launches a pass), each pass timed beside its
@@ -128,11 +137,11 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                "full", "dots") through the kernels against the plain
                branch, within the benchmark's train limits, with exact
                BN launches.
-18. knn      — the k-NN search (``csrc/knn.cu``) at FFB6D's 22 searches on
+19. knn      — the k-NN search (``csrc/knn.cu``) at FFB6D's 22 searches on
                one full-size frame, index for index against its plain
                version, each timed; three FFB6D requests, poses finite,
-               22 searches a request and no K1-K3.
-19. image_graph — PVN3D's image branch (batch 2 dense, batch 1 sparse) and
+               22 searches and 3 shift loops a request and no K1-K3.
+20. image_graph — PVN3D's image branch (batch 2 dense, batch 1 sparse) and
                FFB6D's eight image stages as replayed CUDA graphs
                (``utils/graphs.py``) against the eager forward: one
                capture and three replays in three calls, outputs finite,
@@ -140,7 +149,8 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
 
 Then one JSON line of every kernel instance's launches on each path, error
 and kernel-alone times (K2's and K3's per level, K4's per pass and at the
-ICP shape, the BatchNorm passes, the 22 searches), the ``nvidia-smi`` line
+ICP shape, the BatchNorm passes, the 22 searches, the shift loop's fits),
+the ``nvidia-smi`` line
 again, and ``{"ok": true, "device": {...}}`` when every phase passed.
 Times are the card's under its printed power limit.
 """
@@ -286,9 +296,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from pvn3d_tpu_torch.ops.kernels import BN_KERNELS, KERNELS, KNN_KERNELS
+    from pvn3d_tpu_torch.ops.kernels import (BN_KERNELS, KERNELS,
+                                             KNN_KERNELS, MEANSHIFT_KERNELS)
     from pvn3d_tpu_torch.ops.kernels.common import build_all
-    kernels = KERNELS + BN_KERNELS + KNN_KERNELS
+    kernels = KERNELS + BN_KERNELS + KNN_KERNELS + MEANSHIFT_KERNELS
     logs = build_all(kernels)
     for k in kernels:
         k.load()
@@ -1139,6 +1150,121 @@ def phase_eval_graph(rng, seed: int = 0):
     return rec, launches
 
 
+# Operations a (step, point) pair of the shift loop: the direct-form d^2,
+# the weight (scale, divide, exp, mask) and the four sums.
+SHIFT_PAIR_FLOPS = D2_FLOPS + 4 + 7
+
+
+def _shift_cases(rng):
+    """The shift loop's inputs: {name: (points (H, K, 3), mask (H, K))} as
+    numpy arrays, the masks prefixes as the pose stage makes them (a
+    quarter of the rows are present classes, the rest empty)."""
+    cases = {}
+
+    def prefix(h, k, present):
+        counts = np.where(rng.rand(h) < present, rng.randint(1, k + 1, h), 0)
+        return np.arange(k)[None, :] < counts[:, None]
+    for h in (1, 8, 21, 168):
+        pts, _ = _winner_votes(rng, h, 512)
+        cases[f"H={h} K=512"] = (pts, prefix(h, 512, 1.0 if h < 21 else 0.3))
+    pts, msk = _winner_votes(rng, 168, 2500)
+    msk[5] = False
+    cases["H=168 K=2500, 672 points staged, an empty row"] = (pts, msk)
+    pts, msk = _winner_votes(rng, 21, 512)
+    msk[[2, 9]] = False
+    cases["H=21 K=512, 70% valid, two empty rows"] = (pts, msk)
+    cases["H=300 K=64, two hypotheses a warp"] = _winner_votes(rng, 300, 64)
+    cases["H=5 K=7"] = _winner_votes(rng, 5, 7)
+    return cases
+
+
+def phase_meanshift(rng) -> dict:
+    """The shift-loop kernel (``csrc/meanshift.cu``) against its plain
+    version at the pose stage's shapes (H = 1, 8, 21, 168 at K = 512),
+    past its stage (K = 2500 at H = 168), with empty rows, two hypotheses
+    a warp and K = 7, then on the pose stage's own three fits on labelled
+    votes: the same step count, centres within 1e-5, two launches equal
+    bit for bit.  Each timed by events and on the device beside the plain
+    loop and the bound of steps x H x K pair work.  Returns the kernel's
+    record of the JSON line."""
+    from pvn3d_tpu_torch.config import Config
+    from pvn3d_tpu_torch.inference import meanshift as fit_module
+    from pvn3d_tpu_torch.inference.meanshift import bandwidth_terms
+    from pvn3d_tpu_torch.inference.pipeline import make_pose_fn
+    from pvn3d_tpu_torch.ops.kernels import meanshift, winner
+    from pvn3d_tpu_torch.tools.k4_passes import labelled_votes
+    from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
+                                              stacked_mesh_kps)
+    dev = torch.device("cuda")
+    cfg = Config.ycb()
+    bw, max_iter = cfg.cluster.bandwidth, cfg.cluster.max_iter
+    bw2, stop = bandwidth_terms(bw)
+    inputs = []
+    for name, (pts, msk) in _shift_cases(rng).items():
+        pts = torch.tensor(pts, device=dev)
+        msk = torch.tensor(msk, device=dev)
+        win, _, _ = winner.winner_stats(pts, msk, bw)
+        inputs.append(("synthetic", name, pts, msk, win))
+    fn = make_pose_fn(cfg, stacked_mesh_kps(), stacked_class_radii(),
+                      device=dev)
+    with _capture(fit_module, "shift_to_stop", []) as calls:
+        with torch.inference_mode():
+            fn(*(v.to(dev) for v in labelled_votes(cfg, 1)))
+    if len(calls) != 3:
+        raise AssertionError(f"meanshift: the pose stage ran {len(calls)} "
+                             f"fits")
+    for name, (a, _, _) in zip(("centers", "centers (refined)", "keypoints"),
+                               calls):
+        inputs.append(("pose", name) + tuple(x.clone() for x in a[:3]))
+    rows, err = [], 0.0
+    for kind, name, pts, msk, win in inputs:
+        h, k = msk.shape
+
+        def kernel():
+            return meanshift.shift_to_stop(pts, msk, win, bw2, stop,
+                                           max_iter)
+        got, steps = kernel()
+        want, want_steps = meanshift.shift_to_stop_plain(
+            pts, msk, win, bw2, stop, max_iter)
+        steps, want_steps = int(steps), int(want_steps)
+        gap = _err(got, want)
+        if steps != want_steps or not gap <= 1e-5:
+            raise AssertionError(f"meanshift {kind} {name}: {steps} steps "
+                                 f"against the plain {want_steps}, centres "
+                                 f"{gap:.2e} apart")
+        again, again_steps = kernel()
+        if not torch.equal(again, got) or int(again_steps) != steps:
+            raise AssertionError(f"meanshift {kind} {name}: two runs differ")
+        err = max(err, gap)
+        n_bytes = h * k * 13 + h * 4 + h * 12 + 4
+        flops = float(steps * h * k * SHIFT_PAIR_FLOPS)
+        cluster, warps, per_cta, stage = meanshift.launch_shape(h, k)
+        r = {"input": kind, "fit": name, "H": h, "K": k, "steps": steps,
+             "valid": int(msk.sum()), "cluster": cluster, "warps": warps,
+             "per_cta": per_cta, "staged": stage, "max_abs_err": gap,
+             "ms": time_ms(kernel, reps=10), "device_ms": device_ms(kernel),
+             "plain_ms": time_ms(lambda: meanshift.shift_to_stop_plain(
+                 pts, msk, win, bw2, stop, max_iter), reps=1),
+             "n_bytes": n_bytes, "flops": flops}
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops)
+        rows.append(r)
+        log("meanshift", json.dumps(r))
+    pose = [r for r in rows if r["input"] == "pose"]
+    total = {key: sum(r[key] for r in pose) for key in
+             ("ms", "device_ms", "plain_ms", "bound_ms")}
+    log("meanshift", f"{len(rows)} fits, each the plain loop's step count, "
+        f"centres within {err:.2e}, two launches equal; the pose stage's "
+        f"three fits: " + json.dumps(total))
+    return {"name": meanshift.KERNEL.name, "route": "cuda",
+            "source": os.path.relpath(meanshift.KERNEL.source, ROOT),
+            "replaces": "none: the JAX package runs a lax.while_loop of jnp "
+                        "steps", "max_abs_err": err, "ms": total["ms"],
+            "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": max(pose, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None, "fits": rows}
+
+
 def phase_slice(seed: int = 0):
     """Three full-width requests through the serving entry point on the
     card.  Returns the launch counts of that run."""
@@ -1223,7 +1349,7 @@ def phase_raw(seed: int = 0):
     """Raw RGB-D frames through ``make_raw_inference_step`` on the card at
     full width: three requests with every launch count set to 0 just
     before and read just after (fps 1, query 4, interp 4, winner 3 a
-    request, no backward); the frame build held against the CPU's on the
+    request, no backward; 3 shift loops a request); the frame build held against the CPU's on the
     same full-size frame and priorities; the metrics branch on the card
     against the CPU; then the serving app in this process.  Returns the
     launch counts of the three requests."""
@@ -1234,6 +1360,7 @@ def phase_raw(seed: int = 0):
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
     from pvn3d_tpu_torch.inference.evaluator import eval_frame_metrics
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
+    from pvn3d_tpu_torch.ops.kernels import meanshift
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model
@@ -1256,12 +1383,18 @@ def phase_raw(seed: int = 0):
     def gen(i):
         return torch.Generator(device=dev).manual_seed(i)
     step(request(1000), gen(1000))                           # warm-up
+    fits = meanshift.KERNEL.launches
     outs, launches = _counted(lambda: [step(request(i), gen(i))
                                        for i in range(3)])
     want = _expected_launches(fps=3, query=12, interp=12, winner=9)
     if launches != want:
         raise AssertionError(f"raw: launches {launches} over 3 requests, "
                              f"expected {want}")
+    fits = meanshift.KERNEL.launches - fits
+    if fits != 9:
+        raise AssertionError(f"raw: {fits} shift loops over 3 requests, "
+                             f"expected 9")
+    launches["meanshift"] = fits
     for i, out in enumerate(outs):
         if (out["poses"].shape != (1, n_cls, 3, 4)
                 or out["pointcloud"].shape != (1, n, 9)
@@ -3575,7 +3708,8 @@ def phase_knn(seed: int = 0) -> dict:
     from pvn3d_tpu_torch.data.ffb6d_index import searches
     from pvn3d_tpu_torch.data.synthetic import synth_sensor_frame
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
-    from pvn3d_tpu_torch.ops.kernels import KERNELS, KNN_KERNELS
+    from pvn3d_tpu_torch.ops.kernels import (KERNELS, KNN_KERNELS,
+                                             MEANSHIFT_KERNELS)
     from pvn3d_tpu_torch.ops.kernels.knn import KERNEL, knn, knn_plain
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
@@ -3624,13 +3758,15 @@ def phase_knn(seed: int = 0) -> dict:
         f"index for index; sums: " + json.dumps(total))
 
     # FFB6D requests through the serving step, every launch count set to
-    # 0 just before: 22 searches a request, no K1-K3 (no PointNet++).
+    # 0 just before: 22 searches and 3 shift loops a request, no K1-K3 (no
+    # PointNet++).
     step = make_raw_inference_step(cfg, build_model(mc, seed),
                                    stacked_mesh_kps(mc.n_classes),
                                    stacked_class_radii(), device=dev)
     step(request(1000), gen(1000))                           # warm-up
     torch.cuda.synchronize()
-    for kern in KERNELS + KNN_KERNELS:
+    counted = KERNELS + KNN_KERNELS + MEANSHIFT_KERNELS
+    for kern in counted:
         kern.launches = 0
     for i in range(3):
         poses = step(request(i), gen(i))["poses"].cpu()
@@ -3638,9 +3774,9 @@ def phase_knn(seed: int = 0) -> dict:
                 torch.isfinite(poses).all()):
             raise AssertionError(f"knn: FFB6D request {i}: poses "
                                  f"{tuple(poses.shape)}")
-    launches = {kern.name: kern.launches for kern in KERNELS + KNN_KERNELS}
+    launches = {kern.name: kern.launches for kern in counted}
     want = dict(_expected_launches(winner=launches["winner"]),
-                knn=22 * 3)
+                knn=22 * 3, meanshift=3 * 3)
     if launches != want:
         raise AssertionError(f"knn: launches {launches} over 3 FFB6D "
                              f"requests, expected {want}")
@@ -3650,6 +3786,7 @@ def phase_knn(seed: int = 0) -> dict:
             "source": os.path.relpath(KERNEL.source, ROOT),
             "replaces": "none: FFB6D's neighbour index",
             "launches": launches["knn"], "launches_ffb6d": launches["knn"],
+            "launches_meanshift": launches["meanshift"],
             "max_abs_err": 0.0, "ms": total["ms"],
             "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
@@ -3756,6 +3893,7 @@ def main() -> int:
     rng = np.random.RandomState(0)
     rec = phase_kernels(rng)
     phase_edge_cases(rng)
+    shift = phase_meanshift(rng)
     launches = phase_slice()
     k3_eval, eval_launches = phase_eval_graph(rng)
     raw_launches = phase_raw()
@@ -3834,6 +3972,10 @@ def main() -> int:
                             device_ms_train=t["device_ms"], ms_train=t["ms"],
                             levels_train=t["levels"])
     line.append(knn)
+    # The shift loop: 3 a request on the raw path, 9 over [knn]'s FFB6D
+    # requests.
+    line.append(dict(shift, launches_raw=raw_launches["meanshift"],
+                     launches_ffb6d=knn["launches_meanshift"]))
     print(json.dumps({"kernels": line, "bn": bn}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,23 +11,33 @@ Winner mode (the default) decides the winner with one (K, K) pass —
 kernel K4 — and then iterates only the winning seed: O(K) per step.  The
 steps run in groups of four with the stopping rule checked after each
 group, exactly as the JAX package's ``while_loop`` does, so the step count
-matches it.  Dense mode iterates every seed, the literal reference fixed
-point, and is kept as the oracle.
+matches it; on the card the whole loop is one launch
+(``ops/kernels/meanshift.py``), which decides the rule itself.  Dense mode
+iterates every seed, the literal reference fixed point, and is kept as the
+oracle.  The bandwidth's float32 terms are worked out on the host, with the
+rounding the device arithmetic gave them.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from pvn3d_tpu_torch.ops.kernels.common import sqdist
+from pvn3d_tpu_torch.ops.kernels.meanshift import shift_to_stop
 from pvn3d_tpu_torch.ops.kernels.winner import winner_stats
-from pvn3d_tpu_torch.utils.profiling import annotate, host_read
+from pvn3d_tpu_torch.utils.profiling import host_read
 
 _SQRT_2PI = 2.5066282746310002
-# Shift steps between stopping-rule checks in winner mode: the JAX
-# package's ``unroll`` (meanshift.py:157-163), kept so step counts match.
-_UNROLL = 4
+
+
+def bandwidth_terms(bandwidth: float) -> Tuple[float, float]:
+    """(bw^2, stop) of a bandwidth in float32, each rounded as the JAX
+    package's ``bw * bw`` and ``bw * 1e-3`` on a float32 ``bw`` (and the
+    port's float32 tensor arithmetic) round them."""
+    bw = np.float32(bandwidth)
+    return float(bw * bw), float(bw * np.float32(1e-3))
 
 
 def mean_shift_fit(points: torch.Tensor, mask: torch.Tensor,
@@ -46,45 +56,19 @@ def mean_shift_fit(points: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"mode {mode!r}: 'winner' or 'dense'")
 
     win, labels, counts = winner_stats(points, mask, bandwidth)
-    # A copy from host memory: on the card it waits for the stream.
-    with annotate("pvn3d.read.meanshift_bandwidth"):
-        bw = torch.tensor(bandwidth, dtype=torch.float32,
-                          device=points.device)
-    bw2 = bw * bw
-    stop = host_read("meanshift_threshold", bw * 1e-3)
-    wmask = mask.float()
-    rows = torch.arange(points.shape[0], device=points.device)
-    c = points[rows, win.long()]
-
-    def shift_once(c):
-        d2 = ((points - c[:, None, :]) ** 2).sum(dim=-1)
-        w = torch.exp(-0.5 * d2 / bw2) * wmask
-        wsum = torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-20)
-        return torch.einsum("hk,hkc->hc", w, points) / wsum
-
-    it = 0
-    while True:
-        for _ in range(_UNROLL):
-            new_c = shift_once(c)
-            shift = torch.linalg.vector_norm(new_c - c, dim=-1)
-            c = new_c
-        it += _UNROLL
-        # One host read per group of steps: the loop's stopping rule.
-        if it >= max_iter or host_read("meanshift_stop",
-                                       shift.max()) < stop:
-            break
+    bw2, stop = bandwidth_terms(bandwidth)
+    c, _ = shift_to_stop(points, mask, win, bw2, stop, max_iter)
     return c, labels, counts
 
 
 def _fit_dense(points, mask, bandwidth, max_iter):
     """Every seed iterated to its own stop (the reference fixed point)."""
-    # A copy from host memory: on the card it waits for the stream.
-    with annotate("pvn3d.read.meanshift_bandwidth"):
-        bw = torch.tensor(bandwidth, dtype=torch.float32,
-                          device=points.device)
-    bw2 = bw * bw
-    stop = host_read("meanshift_threshold", bw * 1e-3)
-    inv_norm = 1.0 / (bw * _SQRT_2PI)
+    bw2, stop = bandwidth_terms(bandwidth)
+    bw = np.float32(bandwidth)
+    inv_norm = float(np.float32(1.0) / (bw * np.float32(_SQRT_2PI)))
+    # A fill on the device, not a copy from host memory: the division
+    # below stays a tensor division.
+    bw2 = torch.full((), bw2, dtype=torch.float32, device=points.device)
     wmask = mask.float()[:, None, :]
     c = points
     for it in range(max_iter):

@@ -49,10 +49,7 @@ def _select_class_points(mask: torch.Tensor, n_cls: int, k: int):
                         rounding_mode="floor")
     pos = torch.where(count[:, None] > k, strided, ar[None, :])
     sel = order[torch.clamp(offsets[:, None] + pos, 0, n - 1).long()]
-    # A copy from host memory: on the card it waits for the stream.
-    with annotate("pvn3d.read.class_cap"):
-        cap = torch.tensor(k, device=dev)
-    valid = ar[None, :] < torch.minimum(count, cap)[:, None]
+    valid = ar[None, :] < torch.clamp(count, max=k)[:, None]
     return sel, valid, count
 
 

@@ -23,17 +23,23 @@ bn_bwd_reduce                                                   entry
 bn_bwd_apply                                                    points)
 knn                none: FFB6D's neighbour index (the JAX      knn.py /
                    package runs PVN3D only)                     knn.cu
+meanshift          none: MeanShift's winner-mode shift loop,   meanshift.py
+                   a ``lax.while_loop`` of ``jnp`` steps in     / meanshift.cu
+                   the JAX package (inference/meanshift.py)
 =================  ==========================================  ============
 
 The instances of one source share its library and count their launches
 apart.  ``KERNELS`` holds the ports of the TPU kernels, ``BN_KERNELS`` the
 BatchNorm pair, which the training step alone launches, ``KNN_KERNELS``
-the k-NN search, which FFB6D's serving step launches.
+the k-NN search, which FFB6D's serving step launches, and
+``MEANSHIFT_KERNELS`` the shift loop, which every pose stage launches.
 """
-from pvn3d_tpu_torch.ops.kernels import bn, fps, interp, knn, query, winner
+from pvn3d_tpu_torch.ops.kernels import (bn, fps, interp, knn, meanshift,
+                                         query, winner)
 
 KERNELS = (fps.KERNEL, query.KERNEL, query.KERNEL_EXPANDED, query.KERNEL_BF16,
            query.KERNEL_CAPACITY, interp.KERNEL, interp.KERNEL_EXPANDED,
            interp.KERNEL_BWD, winner.KERNEL)
 BN_KERNELS = bn.KERNELS
 KNN_KERNELS = (knn.KERNEL,)
+MEANSHIFT_KERNELS = (meanshift.KERNEL,)

@@ -166,8 +166,7 @@ def test_every_host_read_is_named(unit, request_events, step_events):
     assert used == set(EXEMPT[unit])
     if unit == "request":
         sites = {r.name for r in reads}
-        assert {"pvn3d.read.meanshift_stop", "pvn3d.read.meanshift_threshold",
-                "pvn3d.read.svd"} <= sites
+        assert {"pvn3d.read.meanshift_stop", "pvn3d.read.svd"} <= sites
         assert named >= len(tops) * 3
 
 
