@@ -129,18 +129,26 @@ yardstick, bound); end-to-end times are the benchmark's (``perfbench/``).
                running statistics equal, exact launches; then one step at
                batch 24 in each mode, loss finite.
 18. bn       — the BatchNorm pair (``csrc/bn.cu``) against its plain
-               branch at the batch-24 step's shapes, with and without the
-               ReLU (statistics, values, running statistics, dx, dweight,
-               dbias; three launches a pass), each pass timed beside its
-               bytes bound, the plain branch, the tensor code it replaced
-               and ``F.batch_norm``; then three batch-24 steps (remat off,
-               "full", "dots") through the kernels against the plain
-               branch, within the benchmark's train limits, with exact
-               BN launches.
+               branch at the batch-24 steps' shapes (PVN3D's, and
+               RandLA-Net's rows 8-64 channels wide in FFB6D's), with and
+               without the ReLU (statistics, values, running statistics,
+               dx, dweight, dbias; three launches a pass), each pass timed
+               beside its bytes bound, the plain branch, the tensor code it
+               replaced and ``F.batch_norm``; then three batch-24 steps
+               (remat off, "full", "dots") through the kernels against the
+               plain branch, within the benchmark's train limits, with
+               exact BN launches.
 19. knn      — the k-NN search (``csrc/knn.cu``) at FFB6D's 22 searches on
                one full-size frame, index for index against its plain
-               version, each timed; three FFB6D requests, poses finite,
-               22 searches and 3 shift loops a request and no K1-K3.
+               version, each timed; the same 22 on a batch of 24 frames
+               (the training step's, whose schedule may differ), index for
+               index, each timed on the device; three FFB6D requests,
+               poses finite, 22 searches and 3 shift loops a request and
+               no K1-K3; then one FFB6D training step at batch 24
+               (``make_train_step``), counted from 0: exactly 22 searches
+               and five BN passes of each of its BNs, no K1-K4 and no
+               shift loop; loss and gradients finite, every BN running
+               statistic moved.
 20. image_graph — PVN3D's image branch (batch 2 dense, batch 1 sparse) and
                FFB6D's eight image stages as replayed CUDA graphs
                (``utils/graphs.py``) against the eager forward: one
@@ -3406,7 +3414,12 @@ BN_SHAPES = (
     ("up_3", (24, 64, 480, 640), "channels_last"),
     ("sa", (24, 2048, 32, 128), "rows"),
     ("head_1024", (24 * 12288, 1024), "rows"),
-    ("head_128", (24 * 12288, 128), "rows"))
+    ("head_128", (24 * 12288, 128), "rows"),
+    # RandLA-Net in FFB6D's batch-24 step: fc0, a level-0 local spatial
+    # encoding, a level-0 block's output.
+    ("randla_fc0", (24, 12800, 8), "rows"),
+    ("randla_locse", (24, 12800, 16, 16), "rows"),
+    ("randla_l0", (24, 12800, 64), "rows"))
 BN_EPS = 1e-5
 # The benchmark's train limits (perfbench/limits/train.json).
 TRAIN_LIMITS = {"loss_gap": 0.003, "grad_gap": 0.03, "update_gap": 0.2}
@@ -3710,7 +3723,8 @@ def phase_knn(seed: int = 0) -> dict:
     from pvn3d_tpu_torch.inference.pipeline import make_raw_inference_step
     from pvn3d_tpu_torch.ops.kernels import (KERNELS, KNN_KERNELS,
                                              MEANSHIFT_KERNELS)
-    from pvn3d_tpu_torch.ops.kernels.knn import KERNEL, knn, knn_plain
+    from pvn3d_tpu_torch.ops.kernels.knn import (KERNEL, knn, knn_plain,
+                                                 segments)
     from pvn3d_tpu_torch.utils.assets import (stacked_class_radii,
                                               stacked_mesh_kps)
     from pvn3d_tpu_torch.utils.weights import build_model
@@ -3757,6 +3771,40 @@ def phase_knn(seed: int = 0) -> dict:
     log("knn", f"{len(rows)} searches, each equal to the plain version "
         f"index for index; sums: " + json.dumps(total))
 
+    # The same searches on a batch of 24 frames, as the training step
+    # runs them: fewer candidate segments where the queries alone fill
+    # the card.
+    frames = [request(seed + 1 + i) for i in range(24)]
+    built24 = build_inference_batch_device(
+        *(torch.as_tensor(np.concatenate([f[key] for f in frames]),
+                           device=dev)
+          for key in ("rgb", "depth", "cam_k")), n, generator=gen(seed),
+        priority_order=True)
+    todo24, _, _ = searches(built24["pointcloud"][..., :3],
+                            built24["cloud_map"], mc)
+    rows24 = []
+    for name, q, c, k in todo24:
+        b, nq, nc = q.shape[0], q.shape[1], c.shape[1]
+        got, want = knn(q, c, k), knn_plain(q, c, k)
+        if b != 24 or not torch.equal(got, want):
+            bad = int((got != want).any(-1).sum())
+            raise AssertionError(f"knn {name} 24 x {nq}x{nc} k={k}: {bad} "
+                                 f"rows differ from the plain version")
+        bound, by = bound_ms(b * (12.0 * (nq + nc) + 4.0 * nq * k),
+                             D2_FLOPS * b * nq * nc)
+        rec = {"search": name, "batch": b, "q": nq, "c": nc, "k": k,
+               "segments": segments(b, nq, nc),
+               "segments_batch_1": segments(1, nq, nc),
+               "device_ms": device_ms(lambda: knn(q, c, k)),
+               "bound_ms": bound, "bound_by": by}
+        rows24.append(rec)
+        log("knn", json.dumps(rec))
+    log("knn", f"{len(rows24)} searches at batch 24, each equal to the "
+        f"plain version index for index; device ms "
+        f"{sum(r['device_ms'] for r in rows24):.3f}, bound ms "
+        f"{sum(r['bound_ms'] for r in rows24):.4f}")
+    del built24, todo24
+
     # FFB6D requests through the serving step, every launch count set to
     # 0 just before: 22 searches and 3 shift loops a request, no K1-K3 (no
     # PointNet++).
@@ -3791,7 +3839,71 @@ def phase_knn(seed: int = 0) -> dict:
             "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": total["library_ms"], "searches": rows}
+            "library_ms": total["library_ms"], "searches": rows,
+            "searches_batch_24": rows24}
+
+
+def phase_ffb6d_train(seed: int = 0) -> dict:
+    """[knn], the training part (see the module docstring): one FFB6D
+    step at batch 24, every launch count set to 0 just before.  Returns
+    the launches and the BN census of the step."""
+    import gc
+
+    from pvn3d_tpu_torch.config import ffb6d_config
+    from pvn3d_tpu_torch.data.synthetic import synthetic_batch
+    from pvn3d_tpu_torch.models.layers import BatchNorm
+    from pvn3d_tpu_torch.ops.kernels import (BN_KERNELS, KERNELS,
+                                             KNN_KERNELS, MEANSHIFT_KERNELS)
+    from pvn3d_tpu_torch.train.state import TrainState, make_optimizer
+    from pvn3d_tpu_torch.train.step import make_train_step, to_device
+    from pvn3d_tpu_torch.utils.weights import build_model
+    dev = torch.device("cuda")
+    cfg = ffb6d_config()
+    b = cfg.train.mini_batch_size
+    model = build_model(cfg.model, seed).to(dev).train()
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    state = TrainState(0, model, make_optimizer(cfg, model))
+    step = make_train_step(cfg, dev)
+    batch = to_device(synthetic_batch(cfg, batch_size=b, seed=seed), dev)
+    step(state, batch)                                      # warm-up
+    running = {k: v.clone() for k, v in model.state_dict().items()
+               if k.endswith("running_mean")}
+    torch.cuda.synchronize()
+    counted = KERNELS + KNN_KERNELS + MEANSHIFT_KERNELS + BN_KERNELS
+    for kern in counted:
+        kern.launches = 0
+    seen, undo = _bn_census()
+    try:
+        _, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+    finally:
+        undo()
+    launches = {kern.name: kern.launches for kern in counted}
+    want = dict(_expected_launches(), knn=22, meanshift=0, bn_stats=n_bn,
+                bn_finish=2 * n_bn, bn_apply=n_bn, bn_bwd_reduce=n_bn,
+                bn_bwd_apply=n_bn)
+    if launches != want:
+        raise AssertionError(f"ffb6d train: launches {launches} in one "
+                             f"step at batch {b}, expected {want}")
+    grads = [p.grad for p in model.parameters()]
+    if not np.isfinite(loss) or any(
+            g is None or not bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"ffb6d train: loss {loss}, or a gradient "
+                             f"missing or not finite")
+    still = [k for k, v in model.state_dict().items()
+             if k in running and torch.equal(v, running[k])]
+    if len(running) != n_bn or still:
+        raise AssertionError(f"ffb6d train: running statistics of "
+                             f"{still} did not move")
+    census = sorted(f"{k[0]}:{k[1]}:{list(k[2])}x{v}"
+                    for k, v in seen.items())
+    log("knn", f"FFB6D train step at batch {b}: loss {loss:.4f}, "
+        f"gradients finite, {n_bn} BNs moved; launches {launches}; BN "
+        f"calls {census}")
+    del state, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "bn_census": census, "n_bn": n_bn}
 
 
 def _max_gap(a, b) -> float:
@@ -3864,14 +3976,14 @@ def phase_image_graph(seed: int = 0) -> None:
     graphs.store(fmodel).entries.clear()
     graphs.store(fmodel).pool = None
     for args, _, _ in stages:
-        if len(args) == 3 and isinstance(args[0], str):
-            kind, i, x = args
+        if isinstance(args[0], str):
+            kind, i, x = args[:3]
             cases.append(_graph_case(
                 f"ffb6d {kind}{i}",
                 lambda: fmodel.image_stage(kind, i, x),
                 lambda: fmodel._image_stage(kind, i, x)))
         else:
-            x, choose, batch = args
+            x, choose, batch = args[:3]
             sparse = fmodel.uses_sparse_tail(batch)
             cases.append(_graph_case(
                 "ffb6d last",
@@ -3909,6 +4021,7 @@ def main() -> int:
     _add_counts(parallel_launches, phase_remat())
     bn = phase_bn()
     knn = phase_knn()
+    knn["train_step"] = phase_ffb6d_train()
     phase_image_graph()
     from pvn3d_tpu_torch.ops.kernels import KERNELS
     line = []

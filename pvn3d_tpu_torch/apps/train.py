@@ -27,6 +27,14 @@ builds and runs only its rows of it):
 
 Without torchrun's environment it runs in one process.  ``--remat``
 recomputes the forward in the backward (``--remat_policy full|dots``).
+
+``--model ffb6d`` trains FFB6D (``models/ffb6d.py``, ``config.
+ffb6d_config``) on YCB: the frames keep their sample in a random order and
+carry the cloud map (``data/frame.py::FrameSpec.cloud_map``), from which
+the train step builds the neighbour index on the card.  It takes the host
+build (no ``--device_preprocess``), no ``--torch_ckpt`` or
+``--pretrained_trunk`` (their keys are PVN3D's) and no
+``--val_packed_dir`` (the shards hold no cloud map).
 """
 from __future__ import annotations
 
@@ -35,12 +43,15 @@ import copy
 import dataclasses
 import functools
 
-from pvn3d_tpu_torch.config import Config
+from pvn3d_tpu_torch.config import Config, FFB6DConfig, ffb6d_config
 from pvn3d_tpu_torch.train.trainer import Trainer
+
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset", choices=("ycb", "linemod"), default="ycb")
+    p.add_argument("--model", choices=("pvn3d", "ffb6d"), default="pvn3d",
+                   help="the network trained (ffb6d: YCB, host build)")
     p.add_argument("--cls", default="ape",
                    help="LineMOD object (reference: -cls)")
     p.add_argument("--data_root", required=True)
@@ -104,9 +115,25 @@ def base_config(dataset: str, cls: str) -> Config:
     return Config.linemod(cls) if dataset == "linemod" else Config.ycb()
 
 
+def ffb6d_base_config(dataset: str) -> Config:
+    """The configuration ``--model ffb6d`` runs: ``ffb6d_config()``, YCB
+    only (tests substitute a small one)."""
+    if dataset != "ycb":
+        raise SystemExit("--model ffb6d trains on YCB (--dataset ycb)")
+    return ffb6d_config()
+
+
 def train_config(args) -> Config:
-    """``base_config`` with the command line's TrainConfig overrides."""
-    cfg = base_config(args.dataset, args.cls)
+    """``base_config`` (``ffb6d_base_config`` for ``--model ffb6d``) with
+    the command line's TrainConfig overrides."""
+    if args.model == "ffb6d":
+        for flag in ("device_preprocess", "torch_ckpt", "pretrained_trunk",
+                     "val_packed_dir"):
+            if getattr(args, flag):
+                raise SystemExit(f"--model ffb6d does not take --{flag}")
+        cfg = ffb6d_base_config(args.dataset)
+    else:
+        cfg = base_config(args.dataset, args.cls)
     overrides = {}
     if args.remat:
         overrides["remat"] = True
@@ -144,7 +171,8 @@ def make_dataset_factory(args, split: str, cfg: Config):
                      n_keypoints=cfg.model.n_keypoints,
                      keep_depth=getattr(args, "icp", False),
                      device_preprocess=getattr(args, "device_preprocess",
-                                               False))
+                                               False),
+                     cloud_map=isinstance(cfg.model, FFB6DConfig))
     if args.dataset == "ycb":
         from pvn3d_tpu_torch.data.ycb import YCBDataset
         return functools.partial(YCBDataset, args.data_root, split=split,

@@ -32,6 +32,11 @@ class FrameSpec:
     # sampling and ships raw rgb / depth / cam_k + GT poses; the frame is
     # built on the device (data/device_frame.py).
     device_preprocess: bool = False
+    # FFB6D: keep the sample in a random order (its point levels are
+    # leading slices of it, as the source shuffles its choose) and carry
+    # the (H, W, 3) cloud map of the depth, holes at the origin, from
+    # which the training step builds the neighbour index.
+    cloud_map: bool = False
 
 
 def sample_point_budget(n_valid: int, n_sample: int,
@@ -144,8 +149,10 @@ def build_frame(rgb: np.ndarray, depth: np.ndarray, label_map: np.ndarray,
         return None
     sel = sample_point_budget(len(choose_all), spec.n_sample_points, rng)
     choose = choose_all[sel]
+    if spec.cloud_map:
+        choose = choose[rng.permutation(len(choose))]
 
-    w = depth.shape[1]
+    h, w = depth.shape
     z = flat_depth[choose] / cam_scale
     x = (choose % w - k[0, 2]) * z / k[0, 0]
     y = (choose // w - k[1, 2]) * z / k[1, 1]
@@ -166,6 +173,13 @@ def build_frame(rgb: np.ndarray, depth: np.ndarray, label_map: np.ndarray,
         "choose": choose,
         "labels": labels,
     }
+    if spec.cloud_map:
+        zs = flat_depth.reshape(h, w) / cam_scale
+        us, vs = np.meshgrid(np.arange(w, dtype=np.float32),
+                             np.arange(h, dtype=np.float32))
+        sample["cloud_map"] = np.stack(
+            [(us - k[0, 2]) * zs / k[0, 0], (vs - k[1, 2]) * zs / k[1, 1],
+             zs], axis=-1).astype(np.float32)
     if spec.keep_depth:
         # depth arrives here already divided by cam_scale (metric), so the
         # full-res cloud is unproject(depth, k, 1.0) on the device.

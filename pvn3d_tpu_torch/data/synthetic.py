@@ -13,12 +13,17 @@ CI).  Field names and shapes mirror the reference dataset 11-tuple
   ctr_targ_ofst (B, N, 1, 3)
   cls_ids       (B, n_obj)  GT object ids (0 = absent)
   rts           (B, n_obj, 3, 4) GT poses
+
+For an FFB6D model (``config.FFB6DConfig``) the points come in a random
+order, as FFB6D's sample does (its point levels are leading slices of
+it), and the batch carries ``cloud_map`` (B, H, W, 3): a plane 1.6 m
+away with each point at its ``choose`` pixel.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from pvn3d_tpu_torch.config import Config
+from pvn3d_tpu_torch.config import Config, FFB6DConfig
 
 
 def synthetic_batch(cfg: Config, batch_size: int = 2, n_points: int = 0,
@@ -62,11 +67,25 @@ def synthetic_batch(cfg: Config, batch_size: int = 2, n_points: int = 0,
 
     feats = rng.rand(batch_size, n, 6).astype(np.float32)
     pointcloud = np.concatenate([xyz, feats], axis=-1)
-    return {
+    batch = {
         "pointcloud": pointcloud, "rgb": rgb, "choose": choose,
         "labels": labels, "kp_targ_ofst": kp_t, "ctr_targ_ofst": ctr_t,
         "cls_ids": cls_ids, "rts": rts,
     }
+    if isinstance(m, FFB6DConfig):
+        for b in range(batch_size):
+            order = rng.permutation(n)
+            for k in ("pointcloud", "choose", "labels", "kp_targ_ofst",
+                      "ctr_targ_ofst"):
+                batch[k][b] = batch[k][b][order]
+        u, v = np.meshgrid(np.arange(w, dtype=np.float32) / w - 0.5,
+                           np.arange(h, dtype=np.float32) / h - 0.5)
+        plane = np.stack([1.2 * u, 0.9 * v, np.full_like(u, 1.6)], -1)
+        cloud_map = np.tile(plane.reshape(1, h * w, 3), (batch_size, 1, 1))
+        for b in range(batch_size):
+            cloud_map[b, batch["choose"][b]] = batch["pointcloud"][b, :, :3]
+        batch["cloud_map"] = cloud_map.reshape(batch_size, h, w, 3)
+    return batch
 
 
 def synth_sensor_frame(h: int = 480, w: int = 640, seed: int = 0):

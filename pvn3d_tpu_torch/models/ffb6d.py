@@ -1,6 +1,6 @@
 """FFB6D (He et al., CVPR 2021; ethnhe/FFB6D ``ffb6d/models/ffb6d.py``):
-the image and point branches exchanging features at every stage, eval
-mode.
+the image and point branches exchanging features at every stage, in eval
+and train mode.
 
 Encoder: four image stages (stem + ``layer1`` at stride 4, ``layer2`` at
 8, ``layer3`` + ``layer4`` at 8, PSP at 8; 64, 128, 512, 1024 channels)
@@ -31,8 +31,18 @@ are.  The neighbour index (``data/ffb6d_index.py``) is an argument of the
 forward; the serving step builds it through ``frame_inputs``.  Each piece
 opens its span: ``pvn3d.neighbour_index``, ``pvn3d.image_branch``,
 ``pvn3d.point_branch``, ``pvn3d.fusion`` (both directions of a stage) and
-``pvn3d.heads``.  On the card each of the eight image stages replays a
-CUDA graph (``utils/graphs.py``).
+``pvn3d.heads``.  On the card in eval mode each of the eight image stages
+replays a CUDA graph (``utils/graphs.py``).
+
+Train mode (``model.train()``) takes the dense ``up_3`` + ``final`` tail
+at every pixel, batch-statistics BN moved with the momentum the caller
+passes per call, and the image branch's elementwise dropouts of
+``models/pspnet.py`` (``dropout_psp`` after PSP, ``dropout_up`` after
+``up_1`` and ``up_2``; the source's are ``Dropout2d`` at the same places),
+drawn from the caller's generator; it replays no graph.  The gathers of
+rows (``models/randla.py::gather_rows``) then carry their own backward.
+The training step (``train/step.py``) builds the index through
+``frame_inputs`` as the serving step does.
 
 One restructure of the literal graph: ``p2r_fuse``'s product on the
 concatenation is split, and its gathered half is taken on the points
@@ -49,7 +59,7 @@ from torch import nn
 
 from pvn3d_tpu_torch.config import FFB6DConfig
 from pvn3d_tpu_torch.data.ffb6d_index import build_index
-from pvn3d_tpu_torch.models.layers import linear, named_sequential
+from pvn3d_tpu_torch.models.layers import dropout, linear, named_sequential
 from pvn3d_tpu_torch.models.pspnet import PSPModule, PSPUpsample
 from pvn3d_tpu_torch.models.pvn3d import _DTYPES, PredictionHead
 from pvn3d_tpu_torch.models.randla import (ConvBNAct, RandLANet, gather_rows,
@@ -62,11 +72,13 @@ from pvn3d_tpu_torch.utils.profiling import annotate
 
 class FFB6D(Graphed):
     """``forward(pointcloud (B, N, 9), rgb (B, H, W, 3), choose (B, N),
-    index)`` -> ``seg_logits`` (B, N, n_classes), ``kp_offsets``
-    (B, n_kps, N, 3), ``ctr_offsets`` (B, 1, N, 3), float32.  The points
-    and ``choose`` are in the sample's random order, and ``index`` is
-    ``data.ffb6d_index.build_index`` of them.  A new model is in eval
-    mode; training FFB6D is not ported."""
+    index, bn_momentum, generator)`` -> ``seg_logits`` (B, N, n_classes),
+    ``kp_offsets`` (B, n_kps, N, 3), ``ctr_offsets`` (B, 1, N, 3),
+    float32.  The points and ``choose`` are in the sample's random order,
+    and ``index`` is ``data.ffb6d_index.build_index`` of them.  A new
+    model is in eval mode; ``model.train()`` switches to batch
+    statistics, moved with ``bn_momentum``, and to the dropouts, drawn
+    from ``generator``."""
 
     def __init__(self, cfg: FFB6DConfig):
         super().__init__()
@@ -116,9 +128,10 @@ class FFB6D(Graphed):
                      ) -> Dict:
         """The forward's input beyond PVN3D's, for the serving step
         (``inference.pipeline.make_raw_inference_step``, which keeps the
-        sample in priority order for a model with this method): ``index``,
-        the neighbour index of the sampled points (B, N, 3) and the cloud
-        map (B, H, W, 3), built on their device."""
+        sample in priority order for a model with this method) and the
+        training step (``train/step.py``): ``index``, the neighbour index
+        of the sampled points (B, N, 3) and the cloud map (B, H, W, 3),
+        built on their device."""
         with annotate("pvn3d.neighbour_index"):
             return {"index": build_index(xyz, cloud_map, self.cfg)}
 
@@ -130,35 +143,44 @@ class FFB6D(Graphed):
         y = linear(x, conv.weight, conv.bias)
         return F.log_softmax(y.float(), dim=-1).to(x.dtype)
 
-    def image_stage(self, kind: str, i: int, x: torch.Tensor
+    def image_stage(self, kind: str, i: int, x: torch.Tensor,
+                    bn_momentum=0.1,
+                    generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
         """Encoder (``ds``) or decoder (``up``) image stage ``i``: NCHW in
         and out; on the card in eval mode with autograd off, a replayed
         CUDA graph a stage (``utils/graphs.py``)."""
         with annotate("pvn3d.image_branch"):
-            return self.graphed((kind, i),
-                                lambda t: self._image_stage(kind, i, t), x)
+            return self.graphed((kind, i), lambda t: self._image_stage(
+                kind, i, t, bn_momentum, generator), x)
 
-    def _image_stage(self, kind: str, i: int, x: torch.Tensor
+    def _image_stage(self, kind: str, i: int, x: torch.Tensor,
+                     bn_momentum=0.1,
+                     generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
-        feats = self.cnn.feats
+        feats, cc = self.cnn.feats, self.cfg.cnn
         if kind == "ds":
             if i == 0:
-                return feats.stage(1, feats.stem(x))
+                return feats.stage(1, feats.stem(x, bn_momentum),
+                                   bn_momentum)
             if i == 1:
-                return feats.stage(2, x)
+                return feats.stage(2, x, bn_momentum)
             if i == 2:
-                return feats.stage(4, feats.stage(3, x))
-            return self.cnn.psp(x)
+                return feats.stage(4, feats.stage(3, x, bn_momentum),
+                                   bn_momentum)
+            return dropout(self.cnn.psp(x), cc.dropout_psp, self.training,
+                           generator)
         if i < 2:
             up = getattr(self.cnn, f"up_{i + 1}")
-            fused = self.cfg.cnn.fuse_upsample and not self.training
-            return up.fused(x) if fused else up(x)
+            if cc.fuse_upsample and not self.training:
+                return up.fused(x, bn_momentum)
+            return dropout(up(x, bn_momentum), cc.dropout_up, self.training,
+                           generator)
         y = self._final(x.permute(0, 2, 3, 1))
         return y.permute(0, 3, 1, 2)
 
     def image_last(self, x: torch.Tensor, choose: torch.Tensor,
-                   batch: int) -> torch.Tensor:
+                   batch: int, bn_momentum=0.1) -> torch.Tensor:
         """``up_3`` + ``final`` at the (B, N) chosen full-resolution
         pixels -> (B, N, C): sparse when a forward of ``batch`` frames
         takes the sparse tail, else the dense map gathered; a replayed
@@ -167,44 +189,48 @@ class FFB6D(Graphed):
         with annotate("pvn3d.image_branch"):
             return self.graphed(
                 ("last", sparse),
-                lambda t, c: self._image_last(t, c, sparse), x, choose)
+                lambda t, c: self._image_last(t, c, sparse, bn_momentum),
+                x, choose)
 
     def _image_last(self, x: torch.Tensor, choose: torch.Tensor,
-                    sparse: bool) -> torch.Tensor:
+                    sparse: bool, bn_momentum=0.1) -> torch.Tensor:
         b = x.shape[0]
         last = getattr(self.cnn, f"up_{len(self.cfg.cnn.up_channels)}")
         if sparse:
             out_w = 2 * x.shape[-1]
             choose = choose.int()
             return self._final(last.sparse(x, choose // out_w,
-                                           choose % out_w))
-        y = self._final(last(x).permute(0, 2, 3, 1))
+                                           choose % out_w, bn_momentum))
+        y = self._final(last(x, bn_momentum).permute(0, 2, 3, 1))
         return gather_rows(y.reshape(b, -1, y.shape[-1]), choose)
 
     # -- the point branch (channels last) ------------------------------------
-    def point_input(self, pointcloud: torch.Tensor) -> torch.Tensor:
+    def point_input(self, pointcloud: torch.Tensor, bn_momentum=0.1
+                    ) -> torch.Tensor:
         with annotate("pvn3d.point_branch"):
-            return self.rndla.fc0(pointcloud.to(self.dtype))
+            return self.rndla.fc0(pointcloud.to(self.dtype), bn_momentum)
 
-    def point_encode(self, i: int, p: torch.Tensor, index: Dict):
+    def point_encode(self, i: int, p: torch.Tensor, index: Dict,
+                     bn_momentum=0.1):
         """RandLA block ``i`` on level ``i`` and the random sample to
         level ``i + 1``: (encoded, sampled)."""
         with annotate("pvn3d.point_branch"):
-            enc = self.rndla.dilated_res_blocks[i](p, index["xyz"][i],
-                                                   index["nei"][i])
+            enc = self.rndla.dilated_res_blocks[i](
+                p, index["xyz"][i], index["nei"][i], bn_momentum)
             return enc, random_sample(enc, index["sub"][i])
 
     def point_decode(self, j: int, p: torch.Tensor, skip: torch.Tensor,
-                     interp: torch.Tensor) -> torch.Tensor:
+                     interp: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         """Decoder conv ``j`` on [skip ; ``p`` at each finer point's
         nearest coarse point]."""
         with annotate("pvn3d.point_branch"):
             return self.rndla.decoder_blocks[j](torch.cat(
-                [skip, nearest_interpolation(p, interp)], dim=-1))
+                [skip, nearest_interpolation(p, interp)], dim=-1),
+                bn_momentum)
 
     # -- the fusion ------------------------------------------------------------
     def fuse(self, kind: str, i: int, rgb0: torch.Tensor, p0: torch.Tensor,
-             p2r: torch.Tensor, r2p: torch.Tensor):
+             p2r: torch.Tensor, r2p: torch.Tensor, bn_momentum=0.1):
         """Both directions after stage ``i``: the stage's NCHW map
         ``rgb0`` (B, C, h, w) and points ``p0`` (B, M, Cp), with each
         pixel's nearest point ``p2r`` (B, h*w) and each point's 16 nearest
@@ -217,48 +243,55 @@ class FFB6D(Graphed):
             b, c, h, w = rgb0.shape
             rows = rgb0.permute(0, 2, 3, 1).reshape(b, h * w, c)
             fuse = layers["p2r_fuse"]
-            pre = fuse.split(layers["p2r_pre"](p0), c, 2 * c)
-            y = fuse.finish(fuse.split(rows, 0, c) + gather_rows(pre, p2r))
+            pre = fuse.split(layers["p2r_pre"](p0, bn_momentum), c, 2 * c)
+            y = fuse.finish(fuse.split(rows, 0, c) + gather_rows(pre, p2r),
+                            bn_momentum)
             rgb = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-            pooled = layers["r2p_pre"](gather_rows(rows, r2p).amax(dim=2))
-            p = layers["r2p_fuse"](torch.cat([p0, pooled], dim=-1))
+            pooled = layers["r2p_pre"](gather_rows(rows, r2p).amax(dim=2),
+                                       bn_momentum)
+            p = layers["r2p_fuse"](torch.cat([p0, pooled], dim=-1),
+                                   bn_momentum)
         return rgb, p
 
     # -- heads -----------------------------------------------------------------
-    def heads(self, rgb_emb: torch.Tensor, p: torch.Tensor):
+    def heads(self, rgb_emb: torch.Tensor, p: torch.Tensor,
+              bn_momentum=0.1):
         with annotate("pvn3d.heads"):
             x = torch.cat([rgb_emb, p], dim=-1)
-            return (self.rgbd_seg_layer(x), self.kp_ofst_layer(x),
-                    self.ctr_ofst_layer(x))
+            return (self.rgbd_seg_layer(x, bn_momentum),
+                    self.kp_ofst_layer(x, bn_momentum),
+                    self.ctr_ofst_layer(x, bn_momentum))
 
     def forward(self, pointcloud: torch.Tensor, rgb: torch.Tensor,
-                choose: torch.Tensor, index: Dict,
+                choose: torch.Tensor, index: Dict, bn_momentum=0.1,
+                generator: Optional[torch.Generator] = None,
                 global_batch: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        m = bn_momentum
         b, n, _ = pointcloud.shape
         x = rgb.to(self.dtype).permute(0, 3, 1, 2)
-        p = self.point_input(pointcloud)
+        p = self.point_input(pointcloud, m)
         skips = []
         for i in range(len(cfg.ds_strides)):
-            rgb0 = self.image_stage("ds", i, x)
-            enc, p0 = self.point_encode(i, p, index)
+            rgb0 = self.image_stage("ds", i, x, m, generator)
+            enc, p0 = self.point_encode(i, p, index, m)
             if i == 0:
                 skips.append(enc)
             x, p = self.fuse("ds", i, rgb0, p0, index["p2r_ds"][i],
-                             index["r2p_ds"][i])
+                             index["r2p_ds"][i], m)
             skips.append(p)
         n_ds = len(cfg.ds_strides)
         for j in range(len(cfg.up_strides)):
-            rgb0 = self.image_stage("up", j, x)
+            rgb0 = self.image_stage("up", j, x, m, generator)
             p0 = self.point_decode(j, p, skips[-j - 2],
-                                   index["interp"][n_ds - j - 1])
+                                   index["interp"][n_ds - j - 1], m)
             x, p = self.fuse("up", j, rgb0, p0, index["p2r_up"][j],
-                             index["r2p_up"][j])
-        rgb_emb = self.image_last(x, choose, global_batch or b)
+                             index["r2p_up"][j], m)
+        rgb_emb = self.image_last(x, choose, global_batch or b, m)
         p = self.point_decode(len(cfg.up_strides), p, skips[0],
-                              index["interp"][0])
-        seg, kp, ctr = self.heads(rgb_emb, p)
+                              index["interp"][0], m)
+        seg, kp, ctr = self.heads(rgb_emb, p, m)
         return {
             "seg_logits": seg.float(),
             "kp_offsets": kp.reshape(b, n, cfg.n_keypoints, 3)

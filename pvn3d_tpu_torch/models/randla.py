@@ -1,4 +1,4 @@
-"""RandLA-Net, FFB6D's point branch (eval mode), channels last.
+"""RandLA-Net, FFB6D's point branch (eval and train mode), channels last.
 
 Port of ethnhe/FFB6D ``models/RandLA/RandLANet.py`` (Hu et al., CVPR 2020)
 as FFB6D runs it: ``fc0``, four dilated residual blocks (each a local
@@ -10,7 +10,14 @@ is a bias-free 1x1 + BN + LeakyReLU(0.2), the default of the RandLA
 Points are (B, N, C); the neighbour indices come from
 ``data/ffb6d_index.py``.  Features compute in the input's dtype; the
 coordinates of the local spatial encoding stay float32 until the 10
-channels are made.
+channels are made.  In train mode every BN takes the momentum the caller
+passes per call (``models/layers.py::BatchNorm``).
+
+Where a gradient is recorded, ``gather_rows`` is ``GatherRows``: one
+``index_select`` of rows of the flattened (B*N, C) table forward, and a
+scatter-add of the row gradients back into it (``index_add_``, summed in
+float32) in the backward, inside a ``pvn3d.gather_backward`` range on
+autograd's thread.  Without a gradient (serving) it is a plain gather.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from torch import nn
 
 from pvn3d_tpu_torch.config import RandLAConfig
 from pvn3d_tpu_torch.models.layers import BatchNorm, linear
+from pvn3d_tpu_torch.utils.profiling import annotate
 
 
 class ConvBNAct(nn.Module):
@@ -38,12 +46,12 @@ class ConvBNAct(nn.Module):
         self.act = act
         self.slope = slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.finish(linear(x, self.conv.weight))
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        return self.finish(linear(x, self.conv.weight), bn_momentum)
 
-    def finish(self, y: torch.Tensor) -> torch.Tensor:
+    def finish(self, y: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         """BN and the activation of the pre-activation ``y``."""
-        y = self.bn(y)
+        y = self.bn(y, bn_momentum)
         return F.leaky_relu(y, self.slope) if self.act else y
 
     def split(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -54,11 +62,40 @@ class ConvBNAct(nn.Module):
                         .to(x.dtype))
 
 
+class GatherRows(torch.autograd.Function):
+    """Rows ``rows`` (flat indices into the (B*N, C) table of (B, N, C)
+    ``feats``) -> (len(rows), C); the backward sums each row's gradient
+    into its source row (``index_add_`` in float32, or float64 for a
+    float64 gradient; one rounding to the gradient's dtype), inside ``pvn3d.gather_backward``."""
+
+    @staticmethod
+    def forward(ctx, feats: torch.Tensor, rows: torch.Tensor
+                ) -> torch.Tensor:
+        b, n, c = feats.shape
+        ctx.shape = (b, n, c)
+        ctx.save_for_backward(rows)
+        return feats.reshape(b * n, c).index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (rows,) = ctx.saved_tensors
+        b, n, c = ctx.shape
+        with annotate("pvn3d.gather_backward"):
+            acc = torch.promote_types(grad.dtype, torch.float32)
+            table = torch.zeros((b * n, c), dtype=acc, device=grad.device)
+            table.index_add_(0, rows, grad.reshape(-1, c).to(acc))
+            return table.to(grad.dtype).reshape(b, n, c), None
+
+
 def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of (B, N, C) ``feats`` at (B, ...) indices -> (B, ..., C)."""
-    b, _, c = feats.shape
+    """Rows of (B, N, C) ``feats`` at (B, ...) indices -> (B, ..., C);
+    through ``GatherRows`` where a gradient is recorded for ``feats``."""
+    b, n, c = feats.shape
     flat = idx.reshape(b, -1)
-    if b == 1:
+    if feats.requires_grad and torch.is_grad_enabled():
+        rows = flat.long() + n * torch.arange(b, device=feats.device)[:, None]
+        out = GatherRows.apply(feats, rows.reshape(-1))
+    elif b == 1:
         out = feats[0].index_select(0, flat[0])[None]
     else:
         out = feats[torch.arange(b, device=feats.device)[:, None],
@@ -99,10 +136,10 @@ class AttPooling(nn.Module):
         self.fc = nn.Conv2d(d_in, d_in, 1, bias=False)
         self.mlp = ConvBNAct(d_in, d_out, slope=slope)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
         """(B, N, k, d_in) -> (B, N, d_out)."""
         scores = torch.softmax(linear(x, self.fc.weight), dim=2)
-        return self.mlp((x * scores).sum(dim=2))
+        return self.mlp((x * scores).sum(dim=2), bn_momentum)
 
 
 class BuildingBlock(nn.Module):
@@ -117,13 +154,14 @@ class BuildingBlock(nn.Module):
         self.att_pooling_2 = AttPooling(d_out, d_out, slope)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
-                nei: torch.Tensor) -> torch.Tensor:
-        f_xyz = self.mlp1(relative_pos_encoding(xyz, nei).to(feats.dtype))
+                nei: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        f_xyz = self.mlp1(relative_pos_encoding(xyz, nei).to(feats.dtype),
+                          bn_momentum)
         agg = self.att_pooling_1(torch.cat([gather_rows(feats, nei), f_xyz],
-                                           dim=-1))
-        f_xyz = self.mlp2(f_xyz)
+                                           dim=-1), bn_momentum)
+        f_xyz = self.mlp2(f_xyz, bn_momentum)
         return self.att_pooling_2(torch.cat([gather_rows(agg, nei), f_xyz],
-                                            dim=-1))
+                                            dim=-1), bn_momentum)
 
 
 class DilatedResBlock(nn.Module):
@@ -139,9 +177,11 @@ class DilatedResBlock(nn.Module):
         self.shortcut = ConvBNAct(d_in, 2 * d_out, act=False)
 
     def forward(self, feats: torch.Tensor, xyz: torch.Tensor,
-                nei: torch.Tensor) -> torch.Tensor:
-        f = self.mlp2(self.lfa(xyz, self.mlp1(feats), nei))
-        return F.leaky_relu(f + self.shortcut(feats), self.slope)
+                nei: torch.Tensor, bn_momentum=0.1) -> torch.Tensor:
+        f = self.lfa(xyz, self.mlp1(feats, bn_momentum), nei, bn_momentum)
+        f = self.mlp2(f, bn_momentum)
+        return F.leaky_relu(f + self.shortcut(feats, bn_momentum),
+                            self.slope)
 
 
 def decoder_inputs(cfg: RandLAConfig) -> List[int]:

@@ -11,6 +11,12 @@ of the global batch, the BatchNorms take global statistics, and the
 gradients are summed over the ranks after the backward, which is what
 GSPMD makes of the JAX step.  ``cfg.train.remat`` recomputes the forward
 in the backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
+
+A model with a ``frame_inputs(xyz, cloud_map)`` method (FFB6D,
+``models/ffb6d.py``) takes what it makes from each micro-batch's points
+and ``cloud_map`` (FFB6D's neighbour index, built on the device) as
+keyword inputs of its forward, as the serving step gives them
+(``inference/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from pvn3d_tpu_torch.train.state import TrainState
 from pvn3d_tpu_torch.utils.device import disable_tf32, resolve_device
 from pvn3d_tpu_torch.utils.profiling import annotate
 
-_INPUTS = ("pointcloud", "rgb", "choose")
+_INPUTS = ("pointcloud", "rgb", "choose", "cloud_map")
 _TARGETS = ("labels", "kp_targ_ofst", "ctr_targ_ofst")
 # The loss components: the offset terms sum over frames, the rest are
 # means (reference: train_ycb_pvn3d.py:176-181).
@@ -139,11 +145,21 @@ def _recompute(inner, bns, generator: torch.Generator, state: torch.Tensor):
                 bn.update_running = True
 
 
+def model_inputs(model: torch.nn.Module, batch: Dict) -> Dict:
+    """The forward's keyword inputs beyond the points, image and choice:
+    ``model.frame_inputs`` of the batch's points and ``cloud_map`` for a
+    model with that method (FFB6D's ``index``), else none."""
+    frame_inputs = getattr(model, "frame_inputs", None)
+    if frame_inputs is None:
+        return {}
+    return frame_inputs(batch["pointcloud"][..., :3], batch["cloud_map"])
+
+
 def _rematerialised(model: torch.nn.Module, policy,
-                    generator: torch.Generator, *args):
-    """``model(*args)`` under ``torch.utils.checkpoint``: only the inputs
-    (and, with a policy, what it saves) are kept; the backward recomputes
-    the rest."""
+                    generator: torch.Generator, args: tuple, kwargs: Dict):
+    """``model(*args, **kwargs)`` under ``torch.utils.checkpoint``: only
+    the inputs (and, with a policy, what it saves) are kept; the backward
+    recomputes the rest."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     state = generator.get_state()
 
@@ -153,7 +169,7 @@ def _rematerialised(model: torch.nn.Module, policy,
                     else (contextlib.nullcontext(), contextlib.nullcontext()))
         return fwd, _recompute(rec, bns, generator, state)
     return checkpoint(model, *args, use_reentrant=False,
-                      context_fn=context_fn)
+                      context_fn=context_fn, **kwargs)
 
 
 def make_train_step(cfg: Config, device: str | torch.device = "cuda",
@@ -191,12 +207,12 @@ def make_train_step(cfg: Config, device: str | torch.device = "cuda",
     policy = remat_policy(cfg.train.remat_policy) if cfg.train.remat \
         else None
 
-    def forward(model, micro, bn_m):
-        args = (micro["pointcloud"], micro["rgb"], micro["choose"], bn_m,
-                generator)
+    def forward(model, micro, bn_m, inputs):
+        args = (micro["pointcloud"], micro["rgb"], micro["choose"])
+        kwargs = dict(inputs, bn_momentum=bn_m, generator=generator)
         if cfg.train.remat:
-            return _rematerialised(model, policy, generator, *args)
-        return model(*args)
+            return _rematerialised(model, policy, generator, args, kwargs)
+        return model(*args, **kwargs)
 
     calls = itertools.count()
 
@@ -224,8 +240,9 @@ def make_train_step(cfg: Config, device: str | torch.device = "cuda",
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             generator.manual_seed(dropout_seed(seed, state.step,
                                                rank * accum + i))
+            inputs = model_inputs(model, micro)
             with annotate("pvn3d.forward"):
-                outputs = forward(model, micro, bn_m)
+                outputs = forward(model, micro, bn_m, inputs)
             m = compute_losses(cfg, outputs, micro)
             loss = (w[0] / (accum * world) * m["loss_seg"]
                     + w[1] * m["loss_kp"] + w[2] * m["loss_ctr"])
@@ -275,7 +292,7 @@ def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
         model.eval()
         try:
             outputs = model(batch["pointcloud"], batch["rgb"],
-                            batch["choose"])
+                            batch["choose"], **model_inputs(model, batch))
         finally:
             model.train(was_training)
         return outputs, compute_losses(cfg, outputs, batch)
